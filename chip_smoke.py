@@ -6,20 +6,34 @@
 Run from the root of a checkout; needs one CUDA card, `nvcc` and `g++`,
 and no network. Phases (any failure exits non-zero):
 
-0. build: the CUDA kernels (nvcc, sm_90a) and the C++ host planner are
-   compiled from the checkout's sources.
+0. build: the CUDA kernels (nvcc, sm_90a, one process per source) and the
+   C++ host planner are compiled from the checkout's sources.
 1. kernels: on the benchmark scene's host plan (200k points, extent 512,
-   seed 0), the chunk-conv kernel runs every one of the 33 convolutions of
-   the m=64 LearningBWDenseUNet forward in bf16 (and a subset in f32), the
-   segment-sum kernel the InputLayer shape, each against its plain PyTorch
-   version on the card with random inputs: max error and CUDA-event times.
+   seed 0), every kernel against its plain PyTorch version on the card
+   with random inputs (max error, CUDA-event times, the bound from this
+   run's inputs): the chunk-conv forward at all 33 convolutions of the
+   m=64 LearningBWDenseUNet in bf16 (and a subset in f32); at the same 33
+   convolutions both backward routes, the fused backward (d_feats + dW
+   over the transpose plan) and the dW route (dW kernel over the forward
+   plan plus the forward kernel on the transpose plan), each checked and
+   timed, the route the step takes marked; the segment sum at the
+   InputLayer shape [262144, 3] and the OutputLayer backward's
+   [262144, 64].
 2. parity: a mid-size scene (20k points) through the full-width model in
-   f32 on the card (kernels) and on the CPU (plain versions): 7 outputs.
+   f32 on the card (kernels) and on the CPU (plain versions): the 7
+   outputs of an eval forward, then one training step's loss parts,
+   gradients and new BN statistics.
 3. slice: three requests (benchmark scenes, seeds 0-2) through
    prepare_scene + Predictor, bf16 compute, f32 params, seeded non-trivial
    BN statistics: plan ms, forward ms, voxels/s; every level and
    transition chunked, outputs finite and in the original point order,
    and the kernels launched 33 + 1 times per request.
+4. train: prepare_batch + Trainer.step on the benchmark scenes (seeds
+   0-2), full width, bf16 compute, f32 params, Adam: host plan ms, step
+   ms, voxels/s, finite loss parts, every parameter moved, the launches
+   per step that the backward route predicts from the plan's shapes
+   (37 / 29 / 4 / 2 at tier 1.0), peak device memory, and one profiled
+   step's device time by kernel.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON summary.
@@ -27,6 +41,8 @@ per-kernel JSON summary.
 
 from __future__ import annotations
 
+import collections
+import copy
 import json
 import subprocess
 import sys
@@ -37,6 +53,7 @@ import torch
 N_PLANES = (64, 128, 192, 256, 320, 384)
 BENCH_CAPS = (196_608, 139_264, 63_488, 17_408, 4_096, 1_024)
 BENCH_P_CAP = 262_144
+BENCH_INSTANCES = 64
 MID_CAPS = (16_128, 8_448, 2_688, 768, 256, 128)
 MID_P_CAP = 24_576
 
@@ -48,9 +65,39 @@ MID_P_CAP = 24_576
 BF16_TOL = 1e-2
 # f32: exact products, sums in another order over K*Cin <= 17280 terms
 F32_TOL = 1e-5
+# dW is f32 for bf16 and f32 inputs alike: exact products, sums over up to
+# ~200k rows in another order (and, in the fused kernel, with atomics in
+# no fixed order), against max|dW|
+DW_TOL = 1e-4
 # card (kernels, f32) vs CPU (plain versions, f32) through the whole model:
 # ~30 chained layers, each adding summation-order error of ~1e-6 relative
 PARITY_TOL = 1e-3
+# a training step's gradients, card vs CPU. The step's gradients are
+# ill-conditioned: on the CPU alone, a 1e-6 relative perturbation of the
+# input features moves single gradient tensors by up to 9.3e-3 of their
+# max and the whole gradient by 2.3e-4 of its norm: BN-ReLU units near 0
+# flip, and the classification loss's [P, I] distances |a|^2 + |b|^2 - 2ab
+# cancel near a centre, where the square root's derivative amplifies
+# rounding. The card's step is deterministic but for the fused kernel's
+# dW atomics (which feed no other gradient of the step), and it differs
+# from the CPU's by forward rounding at ~1e-6: measured on the H100 at
+# 6.9e-4 of a tensor's max and 6.1e-6 of the norm, identical in repeated
+# runs. The bounds are five times the CPU's own sensitivity: 5e-2 of each
+# tensor's max (plus a floor for the embedding heads' near-cancelling
+# bias gradients) and 1e-3 of the norm. An indexing or pairing error is
+# O(1); the kernel phase holds each kernel tightly.
+GRAD_GLOBAL_TOL = 1e-3
+GRAD_TOL = 5e-2
+GRAD_FLOOR = 1e-5
+
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores,
+# f32 outside them, HBM3
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+
+Conv = collections.namedtuple(
+    "Conv", "label chunks t_chunks n_in n_act cin cout n_out n_out_act")
 
 
 class SmokeFailure(RuntimeError):
@@ -76,35 +123,95 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16):
+    """(least ms, "operations" or "bytes"): the larger of the operations
+    over the card's peak rate and the bytes over its memory rate."""
+    t_op, t_by = flops / peak_flops, nbytes / PEAK_BYTES
+    return 1e3 * max(t_op, t_by), ("operations" if t_op >= t_by else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def conv_calls(plan, n_planes, in_features=3):
-    """The chunk convolutions of one m=64 UNet forward, in order:
-    (label, chunk plan, input rows, input active rows, Cin, Cout). Cin
-    is as the kernel sees it (the first conv's 3 padded to 16)."""
+    """The chunk convolutions of one m=64 UNet forward, in order, each with
+    its forward and transpose chunk plans, input and output rows (cap and
+    active) and channels. Cin is as the kernel sees it (the first conv's
+    3 padded to 16)."""
     caps = [l.cap for l in plan.levels]
-    calls = [("sub L0", plan.levels[0].chunks, caps[0],
-              plan.levels[0].num_active, in_features + (-in_features) % 16,
-              n_planes[0])]
+    act = [l.num_active for l in plan.levels]
+    lv = plan.levels
+    calls = [Conv("sub L0", lv[0].chunks, lv[0].chunks, caps[0], act[0],
+                  in_features + (-in_features) % 16, n_planes[0], caps[0],
+                  act[0])]
+
+    def sub(label, l, cin, cout):
+        calls.append(Conv(label, lv[l].chunks, lv[l].chunks, caps[l], act[l],
+                          cin, cout, caps[l], act[l]))
 
     def level(l):
-        p, lvl = n_planes[l], plan.levels[l]
+        p = n_planes[l]
         for name in ("enc0.conv1", "enc0.conv2"):
-            calls.append((f"{name} L{l}", lvl.chunks, caps[l],
-                          lvl.num_active, p, p))
+            sub(f"{name} L{l}", l, p, p)
         if l + 1 == len(n_planes):
             return
         tr = plan.transitions[l]
-        calls.append((f"down_conv L{l}->L{l + 1}", tr.child_chunks, caps[l],
-                      lvl.num_active, p, n_planes[l + 1]))
+        calls.append(Conv(f"down_conv L{l}->L{l + 1}", tr.child_chunks,
+                          tr.up_chunks, caps[l], act[l], p, n_planes[l + 1],
+                          caps[l + 1], act[l + 1]))
         level(l + 1)
-        calls.append((f"up_conv L{l + 1}->L{l}", tr.up_chunks, caps[l + 1],
-                      plan.levels[l + 1].num_active, n_planes[l + 1], p))
-        calls.append((f"dec0.conv1 L{l}", lvl.chunks, caps[l],
-                      lvl.num_active, 2 * p, p))
-        calls.append((f"dec0.conv2 L{l}", lvl.chunks, caps[l],
-                      lvl.num_active, p, p))
+        calls.append(Conv(f"up_conv L{l + 1}->L{l}", tr.up_chunks,
+                          tr.child_chunks, caps[l + 1], act[l + 1],
+                          n_planes[l + 1], p, caps[l], act[l]))
+        sub(f"dec0.conv1 L{l}", l, 2 * p, p)
+        sub(f"dec0.conv2 L{l}", l, p, p)
 
     level(0)
     return calls
+
+
+def route_of(conv, esize: int) -> str:
+    """The backward route the port takes for a convolution, named after
+    the TPU kernel it stands in for: "#3" fused, "#4" fused where the JAX
+    package splits K, "#5" the dW route."""
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    K = conv.t_chunks.lidx.shape[1]
+    g = cc.backward_grouping(conv.n_in, conv.cin, conv.cout,
+                             conv.t_chunks.in_idx, conv.t_chunks.lidx, esize)
+    return "#3" if g == K else ("#4" if g else "#5")
+
+
+def predicted_launches(plan) -> dict:
+    """Kernel launches of one bf16 training step on `plan`, from the
+    backward route of each convolution."""
+    routes = collections.Counter(route_of(c, 2)
+                                 for c in conv_calls(plan, N_PLANES))
+    return {"chunk_conv": 33 + routes["#5"],
+            "chunk_conv_bwd_fused": routes["#3"] + routes["#4"],
+            "chunk_conv_bwd_fused_kgrouped": routes["#4"],
+            "chunk_conv_dw": routes["#5"], "blocked_segment_sum": 2}
+
+
+def read_launches() -> dict:
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    from occuseg_tpu_torch.ops.kernels import segsum
+    return {"chunk_conv": cc.chunk_conv.launches,
+            "chunk_conv_bwd_fused": cc.chunk_conv_bwd_fused.launches,
+            "chunk_conv_bwd_fused_kgrouped":
+                cc.chunk_conv_bwd_fused.launches_kgrouped,
+            "chunk_conv_dw": cc.chunk_conv_dw.launches,
+            "blocked_segment_sum": segsum.blocked_segment_sum.launches}
+
+
+def zero_launches() -> None:
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    from occuseg_tpu_torch.ops.kernels import segsum
+    cc.chunk_conv.launches = 0
+    cc.chunk_conv_bwd_fused.launches = 0
+    cc.chunk_conv_bwd_fused.launches_kgrouped = 0
+    cc.chunk_conv_dw.launches = 0
+    segsum.blocked_segment_sum.launches = 0
 
 
 def randomize_bn_stats(model, gen: torch.Generator) -> None:
@@ -123,7 +230,8 @@ def bench_scene(seed: int):
     from occuseg_tpu_torch.data.synthetic import SceneConfig, make_batch
     return make_batch(SceneConfig(num_points=200_000, extent=512,
                                   num_objects=24), num_scenes=1,
-                      p_cap=BENCH_P_CAP, num_instances=64, seed=seed)
+                      p_cap=BENCH_P_CAP, num_instances=BENCH_INSTANCES,
+                      seed=seed)
 
 
 def phase_build():
@@ -139,6 +247,42 @@ def phase_build():
         for line in f:
             if "registers" in line or "spill" in line:
                 print("[build] " + line.strip())
+
+
+class Totals:
+    """Per-kernel sums over the main path's bf16 calls."""
+
+    def __init__(self):
+        self.rows = collections.defaultdict(lambda: dict(
+            ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, library_ms=None,
+            flops=0.0, bytes=0.0))
+
+    def add(self, key, ms, plain_ms, err, flops, nbytes_, peak=PEAK_BF16,
+            library_ms=None):
+        r = self.rows[key]
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["err"] = max(r["err"], err)
+        r["bound_ms"] += bound_ms(flops, nbytes_, peak)[0]
+        r["flops"] += flops / peak
+        r["bytes"] += nbytes_ / PEAK_BYTES
+        if library_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+
+    def bound_by(self, key):
+        r = self.rows[key]
+        return "operations" if r["flops"] >= r["bytes"] else "bytes"
+
+
+def _err(out, ref):
+    return ((out.float() - ref.float()).abs().max().item(),
+            ref.float().abs().max().item())
+
+
+def check_close(label, out, ref, tol):
+    err, scale = _err(out, ref)
+    check(err <= tol * scale, f"{label}: error {err} > {tol} x {scale}")
+    return err, scale
 
 
 def phase_kernels(dev):
@@ -157,74 +301,159 @@ def phase_kernels(dev):
     f32_subset = {"sub L0", "enc0.conv1 L0", "down_conv L0->L1",
                   "up_conv L1->L0", "dec0.conv1 L1", "dec0.conv1 L4",
                   "enc0.conv1 L5"}
-    res = {"chunk": dict(ms=0.0, plain_ms=0.0, err=0.0),
-           "segsum": {}}
+    tot = Totals()
+    n_route = collections.Counter()
     with torch.inference_mode():
-        for label, ch, n_in, n_act, cin, cout in calls:
-            check(ch is not None, f"{label}: no chunk plan")
-            K = ch.lidx.shape[1]
-            x = torch.randn(n_in, cin, generator=gen)
-            x[n_act:] = 0  # pad rows, as in the model
-            w = torch.randn(K, cin, cout, generator=gen) * (2 / (cin * K)) ** .5
+        for cv in calls:
+            check(cv.chunks is not None and cv.t_chunks is not None,
+                  f"{cv.label}: no chunk plan")
+            fi, fl = cv.chunks.in_idx, cv.chunks.lidx
+            ti, tl = cv.t_chunks.in_idx, cv.t_chunks.lidx
+            K = fl.shape[1]
+            x = torch.randn(cv.n_in, cv.cin, generator=gen)
+            x[cv.n_act:] = 0  # pad rows, as in the model
+            w = torch.randn(K, cv.cin, cv.cout, generator=gen) \
+                * (2 / (cv.cin * K)) ** .5
+            ct = torch.randn(cv.n_out, cv.cout, generator=gen)
+            ct[cv.n_out_act:] = 0  # BN zeroes pad rows and their gradient
+            sub = cv.label.startswith(("sub", "enc", "dec"))
+            wt = (w.flip(0) if sub else w).transpose(1, 2).contiguous()
+            route = route_of(cv, 2)
+            nnz_f = int((fl >= 0).sum())
+            nnz_t = int((tl >= 0).sum())
             for dt in (torch.bfloat16, torch.float32):
-                if dt == torch.float32 and label not in f32_subset:
+                if dt == torch.float32 and cv.label not in f32_subset:
                     continue
-                xd, wd = x.to(dev, dt), w.to(dev, dt)
-                out = cc.chunk_conv(xd, ch.in_idx, ch.lidx, wd)
-                ref = cc.chunk_conv_plain(xd, ch.in_idx, ch.lidx, wd)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                scale = ref.float().abs().max().item()
-                tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
-                ms = cuda_ms(lambda: cc.chunk_conv(xd, ch.in_idx, ch.lidx,
-                                                   wd), 5)
-                pms = cuda_ms(lambda: cc.chunk_conv_plain(xd, ch.in_idx,
-                                                          ch.lidx, wd), 3)
-                print(f"[kernels] chunk_conv {label:<22} K={K:<2} "
-                      f"U={ch.in_idx.shape[1]:<4} Cin={cin:<3} Cout={cout:<3}"
-                      f" {str(dt)[6:]:<8} max_abs_err={err:.3e} "
-                      f"max|out|={scale:.3e} kernel={ms:.4f} ms "
-                      f"plain={pms:.4f} ms")
-                check(err <= tol * scale,
-                      f"chunk_conv {label} {dt}: error {err} > {tol} x "
-                      f"{scale}")
-                if dt == torch.bfloat16:
-                    r = res["chunk"]
-                    r["ms"] += ms
-                    r["plain_ms"] += pms
-                    r["err"] = max(r["err"], err)
+                bf = dt == torch.bfloat16
+                tol = BF16_TOL if bf else F32_TOL
+                xd, wd, ctd, wtd = (a.to(dev, dt) for a in (x, w, ct, wt))
+                name = f"{cv.label:<22} {str(dt)[6:]:<8}"
+                reps = (5, 3) if bf else (2, 1)
 
-        xp = torch.randn(scene.num_points, 3, generator=gen).to(dev)
+                # forward
+                out = cc.chunk_conv(xd, fi, fl, wd)
+                ref = cc.chunk_conv_plain(xd, fi, fl, wd)
+                err, scale = check_close(f"chunk_conv {name}", out, ref, tol)
+                ms = cuda_ms(lambda: cc.chunk_conv(xd, fi, fl, wd), reps[0])
+                pms = cuda_ms(lambda: cc.chunk_conv_plain(xd, fi, fl, wd),
+                              reps[1])
+                print(f"[kernels] chunk_conv {name} K={K:<2} "
+                      f"U={fi.shape[1]:<4} Cin={cv.cin:<3} Cout={cv.cout:<3}"
+                      f" max_abs_err={err:.3e} max|out|={scale:.3e} "
+                      f"kernel={ms:.4f} ms plain={pms:.4f} ms")
+                if bf:
+                    tot.add("chunk_conv", ms, pms, err, 2.0 * nnz_f * cv.cin
+                            * cv.cout, nbytes(xd, fi, fl, wd, out))
+
+                # backward, fused route over the transpose plan
+                d_f, dwt = cc.chunk_conv_bwd_fused(ctd, ti, tl, wtd, xd)
+                r_f, r_w = cc.chunk_conv_bwd_fused_plain(ctd, ti, tl, wtd, xd)
+                e_f, s_f = check_close(f"bwd_fused d_feats {name}", d_f, r_f,
+                                       tol)
+                e_w, s_w = check_close(f"bwd_fused dW {name}", dwt, r_w,
+                                       DW_TOL)
+                f_ms = cuda_ms(lambda: cc.chunk_conv_bwd_fused(
+                    ctd, ti, tl, wtd, xd), reps[0])
+                f_pms = cuda_ms(lambda: cc.chunk_conv_bwd_fused_plain(
+                    ctd, ti, tl, wtd, xd), reps[1])
+                del d_f, dwt, r_f, r_w
+
+                # backward, dW route: dW kernel + forward kernel on the
+                # transpose plan
+                dw = cc.chunk_conv_dw(xd, fi, fl, ctd)
+                r_dw = cc.chunk_conv_dw_plain(xd, fi, fl, ctd)
+                e_dw, s_dw = check_close(f"dw {name}", dw, r_dw, DW_TOL)
+                d_t = cc.chunk_conv(ctd, ti, tl, wtd)
+                r_t = cc.chunk_conv_plain(ctd, ti, tl, wtd)
+                e_t, _ = check_close(f"chunk_conv (transpose) {name}", d_t,
+                                     r_t, tol)
+                dw_ms = cuda_ms(lambda: cc.chunk_conv_dw(xd, fi, fl, ctd),
+                                reps[0])
+                t_ms = cuda_ms(lambda: cc.chunk_conv(ctd, ti, tl, wtd),
+                               reps[0])
+                dw_pms = cuda_ms(lambda: cc.chunk_conv_dw_plain(
+                    xd, fi, fl, ctd), reps[1])
+                t_pms = cuda_ms(lambda: cc.chunk_conv_plain(
+                    ctd, ti, tl, wtd), reps[1])
+                del dw, r_dw, r_t
+                print(f"[kernels] backward   {name} route={route} "
+                      f"U_t={ti.shape[1]:<4} fused={f_ms:.4f} ms "
+                      f"(plain {f_pms:.4f}) d_feats_err={e_f:.3e}/"
+                      f"{s_f:.3e} dW_err={e_w:.3e}/{s_w:.3e} | dW route="
+                      f"{dw_ms + t_ms:.4f} ms (dw {dw_ms:.4f} + fwd "
+                      f"{t_ms:.4f}; plain {dw_pms + t_pms:.4f}) dW_err="
+                      f"{e_dw:.3e}/{s_dw:.3e}")
+                if not bf:
+                    continue
+                if route == "#5":
+                    tot.add("chunk_conv_dw", dw_ms, dw_pms, e_dw,
+                            2.0 * nnz_f * cv.cin * cv.cout,
+                            nbytes(xd, fi, fl, ctd)
+                            + K * cv.cin * cv.cout * 4)
+                    tot.add("chunk_conv", t_ms, t_pms, e_t,
+                            2.0 * nnz_t * cv.cin * cv.cout,
+                            nbytes(ctd, ti, tl, wtd, d_t))
+                else:  # feats in, d_feats out (same shape), dWt out in f32
+                    tot.add(route, f_ms, f_pms, max(e_f, e_w),
+                            4.0 * nnz_t * cv.cin * cv.cout,
+                            nbytes(ctd, ti, tl, wtd, xd, xd)
+                            + K * cv.cin * cv.cout * 4)
+                n_route[route] += 1
+                del d_t
+
+        # the segment sum: InputLayer forward and OutputLayer backward
         cap0 = plan.levels[0].cap
-        out = segsum.blocked_segment_sum(xp, plan.vox_seg, cap0)
-        ref = segsum.blocked_segment_sum_plain(xp, plan.vox_seg, cap0)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        ms = cuda_ms(lambda: segsum.blocked_segment_sum(xp, plan.vox_seg,
-                                                        cap0), 20)
-        pms = cuda_ms(lambda: segsum.blocked_segment_sum_plain(
-            xp, plan.vox_seg, cap0), 20)
-        print(f"[kernels] blocked_segment_sum x={tuple(xp.shape)} "
-              f"vox_seg={tuple(plan.vox_seg.shape)} max_abs_err={err:.3e} "
-              f"max|out|={scale:.3e} kernel={ms:.4f} ms plain={pms:.4f} ms")
-        check(err <= F32_TOL * scale, f"blocked_segment_sum error {err}")
-        res["segsum"] = dict(ms=ms, plain_ms=pms, err=err)
-    print(f"[kernels] chunk_conv, all 33 bf16 calls of one forward: kernel "
-          f"{res['chunk']['ms']:.3f} ms, plain {res['chunk']['plain_ms']:.3f}"
-          f" ms")
-    return res
+        vox_seg = plan.vox_seg
+        B, _, R = vox_seg.shape
+        seg = vox_seg.reshape(-1).long()
+        valid = seg >= 0
+        dst = ((torch.arange(B * R, device=dev) // R) * (cap0 // B)
+               + seg)[valid]
+        for C in (3, 64):
+            xp = torch.randn(scene.num_points, C, generator=gen).to(dev)
+            out = segsum.blocked_segment_sum(xp, vox_seg, cap0)
+            ref = segsum.blocked_segment_sum_plain(xp, vox_seg, cap0)
+            err, scale = check_close(f"blocked_segment_sum C={C}", out, ref,
+                                     F32_TOL)
+            ms = cuda_ms(lambda: segsum.blocked_segment_sum(xp, vox_seg,
+                                                            cap0), 20)
+            pms = cuda_ms(lambda: segsum.blocked_segment_sum_plain(
+                xp, vox_seg, cap0), 20)
+            xv = xp[:B * R][valid]
+            zeros = torch.zeros((cap0, C), device=dev)
+            lms = cuda_ms(lambda: zeros.index_add(0, dst, xv), 20)
+            print(f"[kernels] blocked_segment_sum x={tuple(xp.shape)} "
+                  f"vox_seg={tuple(vox_seg.shape)} max_abs_err={err:.3e} "
+                  f"max|out|={scale:.3e} kernel={ms:.4f} ms "
+                  f"plain={pms:.4f} ms index_add={lms:.4f} ms")
+            tot.add("blocked_segment_sum", ms, pms, err,
+                    float(int(valid.sum()) * C),
+                    nbytes(xp[:B * R], vox_seg, out), PEAK_F32, lms)
+    r = tot.rows
+    print(f"[kernels] routes at the bench shapes: {n_route['#3']} fused "
+          f"(#3), {n_route['#4']} fused at K-grouped shapes (#4), "
+          f"{n_route['#5']} dW (#5)")
+    for k in ("chunk_conv", "#3", "#4", "chunk_conv_dw",
+              "blocked_segment_sum"):
+        print(f"[kernels] per step, {k}: kernel {r[k]['ms']:.3f} ms, plain "
+              f"{r[k]['plain_ms']:.3f} ms, bound {r[k]['bound_ms']:.4f} ms "
+              f"({tot.bound_by(k)})")
+    return tot
+
+
+def _mid_scene():
+    from occuseg_tpu_torch.data.synthetic import SceneConfig, make_batch
+    return make_batch(SceneConfig(num_points=20_000, extent=128,
+                                  num_objects=8), num_scenes=1,
+                      p_cap=MID_P_CAP, num_instances=16, seed=0)
 
 
 def phase_parity(dev):
     from occuseg_tpu_torch.core.topology import PlanSpec
-    from occuseg_tpu_torch.data.synthetic import SceneConfig, make_batch
     from occuseg_tpu_torch.infer import Predictor, prepare_scene
     from occuseg_tpu_torch.models import LearningBWDenseUNet
 
-    batch = make_batch(SceneConfig(num_points=20_000, extent=128,
-                                   num_objects=8), num_scenes=1,
-                       p_cap=MID_P_CAP, num_instances=16, seed=0)
+    batch = _mid_scene()
     scene = prepare_scene(batch["coords"], batch["features"],
                           PlanSpec(caps=MID_CAPS))
     model = LearningBWDenseUNet(N_PLANES,
@@ -245,13 +474,86 @@ def phase_parity(dev):
               f"parity {name}: error {err} > {PARITY_TOL} x {scale}")
 
 
+def phase_parity_train(dev):
+    """One f32 training step on the mid scene, on the card and on the CPU
+    from the same weights."""
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.models import LearningBWDenseUNet
+    from occuseg_tpu_torch.train.state import Trainer, prepare_batch
+
+    laid, plan = prepare_batch(_mid_scene(), PlanSpec(caps=MID_CAPS))
+    model = LearningBWDenseUNet(N_PLANES,
+                                generator=torch.Generator().manual_seed(7))
+    randomize_bn_stats(model, torch.Generator().manual_seed(8))
+    cpu = Trainer(copy.deepcopy(model), "cpu", num_instances=16)
+    cpu_p = Trainer(copy.deepcopy(model), "cpu", num_instances=16)
+    gpu2 = Trainer(copy.deepcopy(model), dev, num_instances=16)
+    gpu = Trainer(model, dev, num_instances=16)
+    t0 = time.perf_counter()
+    cpu_parts = cpu.step(laid, plan)
+    t1 = time.perf_counter()
+    gpu_parts = gpu.step(laid, plan)
+    gpu2.step(laid, plan)
+    torch.cuda.synchronize()
+    feats = torch.from_numpy(laid["features"])
+    noise = torch.randn(feats.shape, generator=torch.Generator()
+                        .manual_seed(9))
+    cpu_p.step(dict(laid, features=(feats * (1 + 1e-6 * noise)).numpy()),
+               plan)
+    print(f"[parity] f32 train step: CPU {t1 - t0:.1f} s")
+    for k, c in cpu_parts.items():
+        g = float(gpu_parts[k])
+        c = float(c)
+        print(f"[parity] step {k:<20} card={g:.6f} cpu={c:.6f}")
+        check(g == g and abs(g) != float("inf"), f"parity step {k}: {g}")
+        tol = 1e-2 if k == "instance_iou" else PARITY_TOL * abs(c) + 1e-6
+        check(abs(g - c) <= tol, f"parity step {k}: {g} vs {c}")
+
+    def grads(trainer):
+        return [p.grad.detach().cpu() for p in trainer.model.parameters()]
+
+    names = [n for n, _ in cpu.model.named_parameters()]
+    ref, card, card2, pert = (grads(t) for t in (cpu, gpu, gpu2, cpu_p))
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+    def glob(a_list, b_list):
+        num = sum(float(((a - b) ** 2).sum()) for a, b in zip(a_list, b_list))
+        den = sum(float((b ** 2).sum()) for b in b_list)
+        return (num / den) ** 0.5
+
+    rows = sorted(((rel(c, r), rel(c, c2), rel(q, r), n)
+                   for c, c2, q, r, n in zip(card, card2, pert, ref, names)),
+                  reverse=True)
+    for e_c, e_g, e_p, n in rows[:5]:
+        print(f"[parity] step grad {n}: card vs CPU {e_c:.3e}; card vs card "
+              f"{e_g:.3e}; CPU vs CPU with 1e-6 input noise {e_p:.3e}")
+    g_c, g_g, g_p = glob(card, ref), glob(card2, card), glob(pert, ref)
+    print(f"[parity] step gradients, relative to each tensor's max: card vs "
+          f"CPU max {rows[0][0]:.3e} median {rows[len(rows) // 2][0]:.3e} "
+          f"over {len(rows)} tensors (CPU vs CPU with 1e-6 input noise: "
+          f"max {max(r[2] for r in rows):.3e}); of the whole gradient's "
+          f"norm: card vs CPU {g_c:.3e}, card vs card {g_g:.3e}, CPU "
+          f"with noise {g_p:.3e}")
+    check(g_c <= GRAD_GLOBAL_TOL, f"parity gradients: {g_c} of the norm")
+    for c, r, n in zip(card, ref, names):
+        err = (c - r).abs().max().item()
+        check(err <= GRAD_TOL * r.abs().max().item() + GRAD_FLOOR,
+              f"parity grad {n}: error {err} > {GRAD_TOL} x max")
+    for (n, bc), (_, bg) in zip(cpu.model.named_buffers(),
+                                gpu.model.named_buffers()):
+        err = (bg.cpu() - bc).abs().max().item()
+        check(err <= PARITY_TOL * bc.abs().max().item() + 1e-6,
+              f"parity BN statistic {n}: error {err}")
+    print("[parity] step: new BN statistics agree")
+
+
 def phase_slice(dev):
     from occuseg_tpu_torch import native
     from occuseg_tpu_torch.core.topology import PlanSpec
     from occuseg_tpu_torch.infer import Predictor, prepare_scene
     from occuseg_tpu_torch.models import LearningBWDenseUNet
-    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
-    from occuseg_tpu_torch.ops.kernels import segsum
 
     model = LearningBWDenseUNet(N_PLANES, compute_dtype=torch.bfloat16,
                                 generator=torch.Generator().manual_seed(4))
@@ -263,28 +565,27 @@ def phase_slice(dev):
                             spec))  # warm-up request (allocator, libraries)
     torch.cuda.synchronize()
 
-    cc.chunk_conv.launches = 0
-    segsum.blocked_segment_sum.launches = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     for seed, batch in zip((0, 1, 2), requests):
-        n_conv = cc.chunk_conv.launches
-        n_seg = segsum.blocked_segment_sum.launches
+        before = read_launches()
         t0 = time.perf_counter()
         scene = prepare_scene(batch["coords"], batch["features"], spec)
         t1 = time.perf_counter()
         out = predictor(scene)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        after = read_launches()
         plan = scene.plan
         check(all(l.chunks is not None for l in plan.levels)
               and all(t.child_chunks is not None and t.up_chunks is not None
                       for t in plan.transitions),
               f"seed {seed}: a level or transition is not chunked")
-        check(cc.chunk_conv.launches - n_conv == 33,
-              f"seed {seed}: {cc.chunk_conv.launches - n_conv} chunk_conv "
-              f"launches, expected 33")
-        check(segsum.blocked_segment_sum.launches - n_seg == 1,
-              f"seed {seed}: segment sum not launched once")
+        check(after["chunk_conv"] - before["chunk_conv"] == 33,
+              f"seed {seed}: {after['chunk_conv'] - before['chunk_conv']} "
+              f"chunk_conv launches, expected 33")
+        check(after["blocked_segment_sum"] - before["blocked_segment_sum"]
+              == 1, f"seed {seed}: segment sum not launched once")
         P = batch["coords"].shape[0]
         for name in out._fields:
             t = getattr(out, name)
@@ -313,10 +614,115 @@ def phase_slice(dev):
               f"{scene.num_voxels / fwd_s:,.0f} voxels/s")
     print(f"[slice] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    launches = {"chunk_conv": cc.chunk_conv.launches,
-                "blocked_segment_sum": segsum.blocked_segment_sum.launches}
-    check(launches == {"chunk_conv": 99, "blocked_segment_sum": 3},
-          f"main-path launches {launches}")
+    launches = read_launches()
+    check(launches["chunk_conv"] == 99
+          and launches["blocked_segment_sum"] == 3
+          and launches["chunk_conv_bwd_fused"] == 0
+          and launches["chunk_conv_dw"] == 0,
+          f"inference-path launches {launches}")
+    print(f"[slice] launches {launches}")
+
+
+def profile_step(step) -> float:
+    """Run `step` once under torch.profiler, print the device time by
+    kernel (top rows), and return the device's busy ms."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[train] profiled step: wall {wall:.1f} ms (under the "
+          f"profiler), device busy {busy:.2f} ms in {len(rows)} kinds of "
+          f"device activity")
+    for e in rows[:25]:
+        print(f"[train] profile {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:5d} x  {e.key[:90]}")
+    return busy
+
+
+def phase_train(dev):
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.models import LearningBWDenseUNet
+    from occuseg_tpu_torch.train.state import Trainer, prepare_batch
+
+    model = LearningBWDenseUNet(N_PLANES, compute_dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(6))
+    trainer = Trainer(model, dev, num_instances=BENCH_INSTANCES)
+    spec = PlanSpec(caps=BENCH_CAPS)
+    scenes = [bench_scene(seed) for seed in (0, 1, 2)]
+    n_warm, n_timed = 2, 3
+
+    prepared = []
+    for seed, batch in zip((0, 1, 2), scenes):
+        t0 = time.perf_counter()
+        laid, plan = prepare_batch(batch, spec)
+        t_plan = time.perf_counter() - t0
+        check(all(l.chunks is not None for l in plan.levels)
+              and all(t.child_chunks is not None and t.up_chunks is not None
+                      for t in plan.transitions),
+              f"seed {seed}: a level or transition is not chunked")
+        pred = predicted_launches(plan)
+        print(f"[train] seed {seed}: {plan.levels[0].num_active} voxels, "
+              f"host plan {1e3 * t_plan:.1f} ms (tier {plan.chunk_tier}), "
+              f"predicted launches per step {pred}")
+        prepared.append((seed, laid, plan, pred))
+    for _ in range(n_warm):  # allocator, libraries
+        trainer.step(prepared[0][1], prepared[0][2])
+    torch.cuda.synchronize()
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    expected = collections.Counter()
+    step_ms = []
+    for seed, laid, plan, pred in prepared:
+        for i in range(n_timed):
+            t0 = time.perf_counter()
+            parts = trainer.step(laid, plan)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            step_ms.append(1e3 * dt)
+            vals = {k: float(v) for k, v in parts.items()}
+            check(all(v == v and abs(v) != float("inf")
+                      for v in vals.values()),
+                  f"seed {seed}: loss parts not finite {vals}")
+            nv = plan.levels[0].num_active
+            print(f"[train] seed {seed} step {i}: {1e3 * dt:.2f} ms, "
+                  f"{nv / dt:,.0f} voxels/s, total {vals['total']:.4f} "
+                  f"(" + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()
+                                   if k != "total") + ")")
+        expected.update(collections.Counter(
+            {k: n_timed * v for k, v in pred.items()}))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = sum(bool((p.detach() != before[n]).any())
+                for n, p in model.named_parameters())
+    n_params = len(before)
+    med = sorted(step_ms)[len(step_ms) // 2]
+    print(f"[train] {len(step_ms)} steps: median {med:.2f} ms "
+          f"(min {min(step_ms):.2f}, max {max(step_ms):.2f}); peak device "
+          f"memory {peak:.2f} GiB; {moved} of {n_params} parameter tensors "
+          f"moved")
+    print(f"[train] launches {launches}, expected {dict(expected)}")
+    check(moved == n_params, f"only {moved} of {n_params} parameters moved")
+    check(launches == dict(expected), f"train-path launches {launches}, "
+          f"expected {dict(expected)}")
+    for k in ("chunk_conv", "chunk_conv_bwd_fused", "chunk_conv_dw",
+              "blocked_segment_sum"):
+        check(launches[k] > 0, f"{k} was not launched on the train path")
+
+    busy = profile_step(lambda: trainer.step(prepared[0][1],
+                                             prepared[0][2]))
+    print(f"[train] device busy {busy:.2f} ms of the median step "
+          f"{med:.2f} ms ({100 * busy / med:.1f}%)")
     return launches
 
 
@@ -336,25 +742,38 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_build()
-    kres = phase_kernels(dev)
+    tot = phase_kernels(dev)
     phase_parity(dev)
-    launches = phase_slice(dev)
+    phase_parity_train(dev)
+    phase_slice(dev)
+    launches = phase_train(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     src = "occuseg_tpu_torch/csrc/"
+    pallas = "occuseg_tpu/ops/pallas/"
+
+    def entry(name, key, source, replaces, n):
+        r = tot.rows[key]
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": pallas + replaces, "launches": n,
+                "max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": tot.bound_by(key),
+                "library_ms": r["library_ms"]}
+
+    fused = launches["chunk_conv_bwd_fused"]
+    grouped = launches["chunk_conv_bwd_fused_kgrouped"]
     print(json.dumps({"kernels": [
-        {"name": "chunk_conv_fwd", "route": "cuda",
-         "source": src + "chunk_conv.cu",
-         "replaces": "occuseg_tpu/ops/pallas/chunk_conv.py:671",
-         "launches": launches["chunk_conv"],
-         "max_abs_err": kres["chunk"]["err"], "ms": kres["chunk"]["ms"],
-         "plain_ms": kres["chunk"]["plain_ms"]},
-        {"name": "blocked_segment_sum", "route": "cuda",
-         "source": src + "segsum.cu",
-         "replaces": "occuseg_tpu/ops/pallas/segsum.py:67",
-         "launches": launches["blocked_segment_sum"],
-         "max_abs_err": kres["segsum"]["err"], "ms": kres["segsum"]["ms"],
-         "plain_ms": kres["segsum"]["plain_ms"]},
+        entry("chunk_conv_fwd", "chunk_conv", "chunk_conv.cu",
+              "chunk_conv.py:671", launches["chunk_conv"]),
+        entry("blocked_segment_sum", "blocked_segment_sum", "segsum.cu",
+              "segsum.py:67", launches["blocked_segment_sum"]),
+        entry("chunk_conv_bwd_fused (#3 shapes)", "#3", "chunk_conv_bwd.cu",
+              "chunk_conv.py:442", fused - grouped),
+        entry("chunk_conv_bwd_fused (#4 shapes)", "#4", "chunk_conv_bwd.cu",
+              "chunk_conv.py:568", grouped),
+        entry("chunk_conv_dw", "chunk_conv_dw", "chunk_conv_bwd.cu",
+              "chunk_conv.py:720", launches["chunk_conv_dw"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,15 @@
-"""occuseg_tpu_torch — the OccuSeg inference path in PyTorch and CUDA.
+"""occuseg_tpu_torch — OccuSeg inference and training in PyTorch and CUDA.
 
 A port of `occuseg_tpu` (JAX on a TPU) to PyTorch on an NVIDIA Hopper card.
 The module layout mirrors the JAX package so each counterpart is easy to
 find: `native/` (ctypes binding to the shared C++ host planner,
 `csrc/native.cpp`), `core/` (host plan types, sorted point layout, sparse
-tensor), `data/` (synthetic scenes), `ops/` (BN, NIN, pooling and the two
+tensor), `data/` (synthetic scenes), `ops/` (BN, NIN, pooling and the
 hand-written CUDA kernels under `ops/kernels/`), `nn/` (sparse modules and
-the UNet), `models/` (the OccuSeg model family), `convert.py` (flax weights
-to a state_dict) and `infer.py` (host preparation and the predictor).
+the UNet), `models/` (the OccuSeg model family), `losses/` (the 6-term
+training loss), `train/` (optimizer, host batch preparation, the training
+step), `convert.py` (flax weights to a state_dict) and `infer.py` (host
+preparation and the predictor).
 
 This package imports torch and numpy only — never jax, flax or
 `occuseg_tpu`, whose import turns on jax's x64 mode.

@@ -43,38 +43,16 @@
 // wgmma, TMA, int16 lidx and the occupancy of the coarse levels are left
 // for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "chunk_conv.cuh"
 
 namespace {
 
-constexpr int kMaxM = 128;   // output rows per chunk (planner M <= 128)
-constexpr int kCoT = 64;     // output columns per block
-constexpr int kThreads = 256;
-
-__host__ __device__ constexpr size_t align128(size_t n) {
-  return (n + 127) / 128 * 128;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem_dst,
-                                           const void* gmem_src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
-
 // Shared memory plan shared by host and device.
 template <typename T, int CI_T>
-struct Layout {
-  static constexpr int kVec = 16 / sizeof(T);            // elements per 16 B
-  static constexpr int kLdg = CI_T + kVec;               // staged row stride
-  static constexpr int kLdw = kCoT + kVec;               // W tile row stride
+struct Layout : Strides<T, CI_T> {
+  using S = Strides<T, CI_T>;
   static constexpr bool kMma = sizeof(T) == 2;
   size_t lidx_off, gin_off, a_off, w_off, o_off, total;
   __host__ __device__ Layout(int U, int K) {
@@ -82,75 +60,16 @@ struct Layout {
     lidx_off = off;
     off += align128(static_cast<size_t>(K) * kMaxM * sizeof(int32_t));
     gin_off = off;
-    off += align128(static_cast<size_t>(U + 1) * kLdg * sizeof(T));
+    off += align128(static_cast<size_t>(U + 1) * S::kLdg * sizeof(T));
     a_off = off;
-    if (kMma) off += align128(2 * static_cast<size_t>(kMaxM) * kLdg * sizeof(T));
+    if (kMma) off += align128(2 * static_cast<size_t>(kMaxM) * S::kLdg * sizeof(T));
     w_off = off;
-    off += align128(2 * static_cast<size_t>(CI_T) * kLdw * sizeof(T));
+    off += align128(2 * static_cast<size_t>(CI_T) * S::kLdw * sizeof(T));
     o_off = off;
     if (kMma) off += align128(8 * 256 * sizeof(float));
     total = off;
   }
 };
-
-// Zero the block's output tile (all-pad chunk).
-template <typename T>
-__device__ void write_zero_tile(T* out, int c, int M, int co0, int cout) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVpr = kCoT / kVec;
-  for (int i = threadIdx.x; i < M * kVpr; i += kThreads) {
-    const int m = i / kVpr, col = co0 + (i % kVpr) * kVec;
-    if (col < cout)
-      *reinterpret_cast<uint4*>(out + (static_cast<size_t>(c) * M + m) * cout +
-                                col) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// Stage rows in_idx[c, 0..U) (columns ci0..ci0+CI_T) into gin_s.
-template <typename T, int CI_T>
-__device__ void stage_rows(T* gin_s, const T* __restrict__ feats, int n_rows,
-                           int cin, const int32_t* __restrict__ in_c, int U,
-                           int ci0) {
-  using L = Layout<T, CI_T>;
-  constexpr int kVpr = CI_T / L::kVec;
-  for (int i = threadIdx.x; i < U * kVpr; i += kThreads) {
-    const int u = i / kVpr, v = i % kVpr;
-    const int row = in_c[u];
-    T* dst = gin_s + static_cast<size_t>(u) * L::kLdg + v * L::kVec;
-    if (row >= 0 && row < n_rows)
-      cp_async16(dst, feats + static_cast<size_t>(row) * cin + ci0 +
-                          v * L::kVec);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-  }
-  cp_async_wait_all();
-}
-
-// W[k][ci0..ci0+CI_T][co0..co0+kCoT] -> w_s (columns past cout are zero).
-template <typename T, int CI_T>
-__device__ void load_w_tile(T* w_s, const T* __restrict__ w, int k, int cin,
-                            int cout, int ci0, int co0) {
-  using L = Layout<T, CI_T>;
-  constexpr int kVpr = kCoT / L::kVec;
-  for (int i = threadIdx.x; i < CI_T * kVpr; i += kThreads) {
-    const int ci = i / kVpr, col = co0 + (i % kVpr) * L::kVec;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (col < cout)
-      val = *reinterpret_cast<const uint4*>(
-          w + (static_cast<size_t>(k) * cin + ci0 + ci) * cout + col);
-    *reinterpret_cast<uint4*>(w_s + ci * L::kLdw + (i % kVpr) * L::kVec) = val;
-  }
-}
-
-// lidx[c] -> lidx_s, with -1 (and anything out of range) mapped to the zero
-// row U.
-__device__ void load_lidx(int32_t* lidx_s, const int32_t* __restrict__ l_c,
-                          int K, int M, int U) {
-  for (int i = threadIdx.x; i < K * M; i += kThreads) {
-    const int l = l_c[i];
-    lidx_s[i] = (l >= 0 && l < U) ? l : U;
-  }
-}
 
 template <int CI_T>
 __global__ void __launch_bounds__(kThreads)
@@ -178,9 +97,7 @@ chunk_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats, int n_rows,
     return;
   }
   load_lidx(lidx_s, lidx + static_cast<size_t>(c) * K * M, K, M, U);
-  for (int i = threadIdx.x; i < L::kLdg / L::kVec; i += kThreads)
-    reinterpret_cast<uint4*>(gin_s + static_cast<size_t>(U) * L::kLdg)[i] =
-        make_uint4(0, 0, 0, 0);
+  zero_row<T, CI_T>(gin_s, U);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = (warp >> 1) * 32;             // 4 warp rows x 32
@@ -193,7 +110,6 @@ chunk_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats, int n_rows,
   for (int i = 0; i < 2; ++i)
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  constexpr int kVpr = CI_T / L::kVec;
   for (int ci0 = 0; ci0 < cin; ci0 += CI_T) {
     __syncthreads();  // previous tile's readers of gin_s / a_s are done
     stage_rows<T, CI_T>(gin_s, feats, n_rows, cin, in_c, U, ci0);
@@ -202,13 +118,7 @@ chunk_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feats, int n_rows,
       T* a_b = a_s + (k & 1) * kMaxM * L::kLdg;
       T* w_b = w_s + (k & 1) * CI_T * L::kLdw;
       // gather the A tile through lidx (the zero row serves -1)
-      const int32_t* lk = lidx_s + k * M;
-      for (int i = threadIdx.x; i < M * kVpr; i += kThreads) {
-        const int m = i / kVpr, v = i % kVpr;
-        *reinterpret_cast<uint4*>(a_b + m * L::kLdg + v * L::kVec) =
-            *reinterpret_cast<const uint4*>(
-                gin_s + static_cast<size_t>(lk[m]) * L::kLdg + v * L::kVec);
-      }
+      gather_a_tile<T, CI_T>(a_b, gin_s, lidx_s + k * M, M);
       load_w_tile<T, CI_T>(w_b, w, k, cin, cout, ci0, co0);
       // one barrier per k: the other buffer's readers finished before the
       // previous barrier, so double buffering makes a second one needless
@@ -273,8 +183,7 @@ chunk_conv_f32_kernel(const float* __restrict__ feats, int n_rows, int cin,
     return;
   }
   load_lidx(lidx_s, lidx + static_cast<size_t>(c) * K * M, K, M, U);
-  for (int i = threadIdx.x; i < L::kLdg; i += kThreads)
-    gin_s[static_cast<size_t>(U) * L::kLdg + i] = 0.0f;
+  zero_row<T, CI_T>(gin_s, U);
 
   // thread tile: rows rg*8..+8, columns cg*4..+4 of the 128 x 64 block
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
@@ -318,13 +227,6 @@ chunk_conv_f32_kernel(const float* __restrict__ feats, int n_rows, int cin,
                                col) =
         make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
   }
-}
-
-int max_dynamic_smem() {
-  int dev = 0, bytes = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return bytes;
 }
 
 template <typename T, int CI_T, typename Kernel>

@@ -38,14 +38,20 @@ class PreparedScene:
         return self.features.shape[0]
 
 
-def prepare_scene(coords: np.ndarray, features: np.ndarray,
-                  spec: PlanSpec) -> PreparedScene:
-    """Host plan for one scene: coords [P, 4] int32 (b,z,y,x; -1 rows are
-    padding) and features [P, C]. Mirrors the benchmark's preparation:
-    C++ planner, chunk rulebooks, sorted point layout."""
+def plan_scene(coords: np.ndarray, spec: PlanSpec) -> Topology:
+    """Host plan of one scene from coords [P, 4] int32 (b,z,y,x; -1 rows
+    are padding), as the benchmark builds it: C++ planner, chunk
+    rulebooks, sorted point layout."""
     plan = build_plan_host(coords, spec)
     plan = chunk_conv.augment_plan_with_chunks(plan)
-    plan = augment_plan_with_point_layout(plan)
+    return augment_plan_with_point_layout(plan)
+
+
+def prepare_scene(coords: np.ndarray, features: np.ndarray,
+                  spec: PlanSpec) -> PreparedScene:
+    """Host preparation of one scene: its plan (`plan_scene`) and the
+    features [P, C] permuted into the plan's point layout."""
+    plan = plan_scene(coords, spec)
     laid = apply_point_layout({"features": np.asarray(features, np.float32)},
                               plan)
     return PreparedScene(plan=plan, features=laid["features"],

@@ -1,5 +1,6 @@
-"""OccuSeg model family, inference path (counterpart of
-`occuseg_tpu/models/occuseg.py`).
+"""OccuSeg model family (counterpart of `occuseg_tpu/models/occuseg.py`).
+`model.train()` switches every BatchNormalization to batch statistics;
+nothing else depends on the mode.
 
 * `_Backbone`: InputLayer -> SubmanifoldConv(in, m) -> UNet -> BN-ReLU ->
   OutputLayer. `compute_dtype` (bf16 on the card) is the dtype of every

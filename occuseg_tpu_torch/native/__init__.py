@@ -24,10 +24,10 @@ import numpy as np
 from occuseg_tpu_torch._build import REPO_DIR, build_shared_library
 
 _SOURCE = os.path.join(REPO_DIR, "csrc", "native.cpp")
-# csrc/Makefile: CXXFLAGS plus -shared
+# csrc/Makefile: CXXFLAGS (the build adds -shared to the link)
 _CXX = ("g++",)
 _FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
-          "-fopenmp", "-shared")
+          "-fopenmp")
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)

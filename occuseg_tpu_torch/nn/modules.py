@@ -6,9 +6,12 @@ Parameter shapes match the JAX package (conv weight [K, Cin, Cout], NIN
 [Cin, Cout]) and the reference He init std (2 / (Cin * K))^0.5, drawn
 from an explicit `torch.Generator`.
 
-Every convolution runs the chunked kernel over the plan's chunk rulebook.
-A level or transition without one (U overflow or a misaligned cap) makes
-the forward raise and name it; there is no gather fallback yet.
+Every convolution runs the chunked kernels over the plan's chunk rulebook,
+through the autograd entry points of `ops/kernels/chunk_conv.py` (the
+strided convolution and the deconvolution hand them the transition's
+other map as the transpose plan). A level or transition without a chunk
+plan (U overflow or a misaligned cap) makes the forward raise and name
+it; there is no gather fallback yet.
 """
 
 from __future__ import annotations
@@ -24,7 +27,10 @@ from occuseg_tpu_torch.core.topology import ChunkPlan, Topology
 from occuseg_tpu_torch.ops import conv as conv_ops
 from occuseg_tpu_torch.ops import norm as norm_ops
 from occuseg_tpu_torch.ops import pool as pool_ops
-from occuseg_tpu_torch.ops.kernels.chunk_conv import chunk_conv
+from occuseg_tpu_torch.ops.kernels.chunk_conv import (
+    chunk_gather_conv,
+    chunk_gather_conv_t,
+)
 
 # the kernel's MMA depth: Cin is zero-padded to a multiple of it
 _CIN_ALIGN = 16
@@ -36,10 +42,13 @@ def _he_weight(shape, volume: int, generator: Optional[torch.Generator]):
 
 
 def _run_chunked(feats: torch.Tensor, w: torch.Tensor,
-                 chunks: Optional[ChunkPlan], what: str) -> torch.Tensor:
-    """Chunked conv over `chunks`. Small Cin (the first 3 -> m conv) is
-    zero-padded to the kernel's MMA depth in both feats and W; padded
-    columns meet zero weights, so the output is unchanged."""
+                 chunks: Optional[ChunkPlan], what: str,
+                 t_chunks: Optional[ChunkPlan] = None) -> torch.Tensor:
+    """Chunked conv over `chunks`: submanifold when `t_chunks` is None,
+    else a transition with `t_chunks` as its transpose plan. Small Cin
+    (the first 3 -> m conv) is zero-padded to the kernels' MMA depth in
+    both feats and W; padded columns meet zero weights, so the output is
+    unchanged, and F.pad's backward drops their gradient rows."""
     if chunks is None:
         raise RuntimeError(f"{what} has no chunk plan (U overflow or a "
                            f"misaligned cap); the gather path is not ported")
@@ -47,7 +56,10 @@ def _run_chunked(feats: torch.Tensor, w: torch.Tensor,
     if pad:
         feats = F.pad(feats, (0, pad))
         w = F.pad(w, (0, 0, 0, pad))
-    return chunk_conv(feats, chunks.in_idx, chunks.lidx, w)
+    if t_chunks is None:
+        return chunk_gather_conv(feats, chunks.in_idx, chunks.lidx, w)
+    return chunk_gather_conv_t(feats, chunks.in_idx, chunks.lidx,
+                               t_chunks.in_idx, t_chunks.lidx, w)
 
 
 class SubmanifoldConvolution(nn.Module):
@@ -83,7 +95,8 @@ class Convolution(nn.Module):
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
         tr = plan.transitions[x.level]
         out = _run_chunked(x.features, self.weight, tr.child_chunks,
-                           f"transition {x.level} (child map)")
+                           f"transition {x.level} (child map)",
+                           t_chunks=tr.up_chunks)
         return SparseTensor(features=out,
                             num_active=plan.levels[x.level + 1].num_active,
                             level=x.level + 1)
@@ -104,7 +117,8 @@ class Deconvolution(nn.Module):
             raise ValueError("Deconvolution needs a finer level")
         tr = plan.transitions[x.level - 1]
         out = _run_chunked(x.features, self.weight, tr.up_chunks,
-                           f"transition {x.level - 1} (up map)")
+                           f"transition {x.level - 1} (up map)",
+                           t_chunks=tr.child_chunks)
         return SparseTensor(features=out,
                             num_active=plan.levels[x.level - 1].num_active,
                             level=x.level - 1)
@@ -124,10 +138,12 @@ class NetworkInNetwork(nn.Module):
 
 class BatchNormalization(nn.Module):
     """Masked BN + fused leaky activation, reference semantics (eps 1e-4;
-    leakiness 0 = ReLU, 1 = none). Running statistics are buffers. Only
-    eval mode is ported: a forward in training mode raises."""
+    momentum 0.9 as a decay; leakiness 0 = ReLU, 1 = none). Running
+    statistics are buffers; in training mode the forward normalises with
+    the batch statistics and updates them in place."""
 
     leakiness = 1.0
+    momentum = 0.9
 
     def __init__(self, num_channels: int, eps: float = 1e-4):
         super().__init__()
@@ -139,8 +155,10 @@ class BatchNormalization(nn.Module):
 
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
         if self.training:
-            raise NotImplementedError("train-mode batch norm is not ported; "
-                                      "call model.eval()")
+            return x.with_features(norm_ops.batch_norm_train(
+                x.features, x.num_active, self.weight, self.bias,
+                self.running_mean, self.running_var, eps=self.eps,
+                momentum=self.momentum, leakiness=self.leakiness))
         return x.with_features(norm_ops.batch_norm_eval(
             x.features, x.num_active, self.weight, self.bias,
             self.running_mean, self.running_var, eps=self.eps,
@@ -169,4 +187,5 @@ class OutputLayer(nn.Module):
     def forward(self, x: SparseTensor, plan: Topology) -> torch.Tensor:
         if x.level != 0:
             raise ValueError("OutputLayer expects level-0 features")
-        return pool_ops.devoxelize_features(x.features, plan.p2v)
+        return pool_ops.devoxelize_features(x.features, plan.p2v,
+                                            plan.vox_seg)

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels, built and bound at first use.
 
-Both kernels (`csrc/chunk_conv.cu`, `csrc/segsum.cu` in this package) are
-compiled by `nvcc` for `sm_90a` into one shared library with a plain C
+The kernels (`csrc/chunk_conv.cu`, `csrc/chunk_conv_bwd.cu` and
+`csrc/segsum.cu` in this package, with the shared `csrc/chunk_conv.cuh`)
+are compiled by `nvcc` for `sm_90a` into one shared library with a plain C
 interface and loaded through ctypes: no PyTorch headers, so the build
 takes seconds. Pointers and the stream go over as `ctypes.c_void_p`; each
 entry returns a `cudaError_t` that `check` turns into an exception.
@@ -21,10 +22,10 @@ import torch
 from occuseg_tpu_torch._build import PKG_DIR, build_shared_library
 
 _SOURCES = tuple(os.path.join(PKG_DIR, "csrc", f)
-                 for f in ("chunk_conv.cu", "segsum.cu"))
+                 for f in ("chunk_conv.cu", "chunk_conv_bwd.cu", "segsum.cu"))
+_HEADERS = (os.path.join(PKG_DIR, "csrc", "chunk_conv.cuh"),)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
@@ -41,7 +42,7 @@ def _nvcc() -> str:
 def library_path() -> str:
     """Build the kernel library if needed; return its path."""
     return build_shared_library("occ_kernels", _SOURCES, (_nvcc(),),
-                                NVCC_FLAGS)
+                                NVCC_FLAGS, _HEADERS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,6 +52,14 @@ def load() -> ctypes.CDLL:
     lib.occ_chunk_conv_fwd.restype = _int
     lib.occ_chunk_conv_fwd.argtypes = [_vp, _int, _int, _vp, _int, _int, _vp,
                                        _int, _int, _vp, _int, _vp, _int, _vp]
+    lib.occ_chunk_conv_bwd_fused.restype = _int
+    lib.occ_chunk_conv_bwd_fused.argtypes = [_vp, _int, _int, _vp, _int, _int,
+                                             _vp, _int, _int, _vp, _vp, _int,
+                                             _vp, _vp, _int, _vp]
+    lib.occ_chunk_conv_dw.restype = _int
+    lib.occ_chunk_conv_dw.argtypes = [_vp, _int, _int, _vp, _int, _int, _vp,
+                                      _int, _int, _vp, _int, _int, _vp, _vp,
+                                      _int, _vp]
     lib.occ_blocked_segment_sum.restype = _int
     lib.occ_blocked_segment_sum.argtypes = [_vp, _int, _vp, _int, _int, _int,
                                             _vp, _vp]
@@ -82,6 +91,8 @@ def require_cuda_input(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
     if torch.is_grad_enabled() and t.requires_grad:
-        raise RuntimeError(f"{name} requires grad, but the kernel is "
-                           f"forward-only: call it under torch.no_grad or "
-                           f"torch.inference_mode")
+        raise RuntimeError(f"{name} requires grad, but a kernel wrapper is "
+                           f"not differentiable: differentiate through "
+                           f"chunk_conv.chunk_gather_conv or "
+                           f"chunk_gather_conv_t, or call it under "
+                           f"torch.no_grad")

@@ -70,12 +70,17 @@ blocked_segment_sum.launches = 0  # kernel launches
 def tail_segment_sum(x: torch.Tensor, p2v: torch.Tensor, main_rows: int,
                      num_out: int) -> torch.Tensor:
     """[num_out, C] f32 sums of the overflow rows past `main_rows`, routed
-    by their absolute p2v entries (-1 rows are skipped)."""
+    by their absolute p2v entries (-1 rows are skipped). Accumulating
+    `index_put_` sorts the ids on a card and sums in order, so the result
+    is deterministic (an `index_add_` there adds with atomics, and the
+    run-to-run rounding noise it puts into the InputLayer and the
+    OutputLayer backward is amplified by the training step)."""
     seg = p2v[main_rows:].long()
     valid = seg >= 0
     out = torch.zeros((num_out, x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    return out.index_add_(0, seg[valid], x[main_rows:][valid].float())
+    return out.index_put_((seg[valid],), x[main_rows:][valid].float(),
+                          accumulate=True)
 
 
 def sorted_segment_sum(x: torch.Tensor, p2v: torch.Tensor,

@@ -2,8 +2,9 @@
 
 `voxelize_features` is the InputLayer forward under the sorted point
 layout: a points -> voxels f32 segment sum (`ops/kernels/segsum.py`), then
-the mean by the plan's static per-voxel counts. `devoxelize_features` is
-the OutputLayer forward, a row gather.
+the mean by the plan's static per-voxel counts; its backward is the point
+gather. `devoxelize_features` is the OutputLayer forward, a row gather,
+whose backward is the same blocked segment sum of the cotangent.
 """
 
 from __future__ import annotations
@@ -14,6 +15,45 @@ from occuseg_tpu_torch.ops.conv import gather_rows
 from occuseg_tpu_torch.ops.kernels.segsum import sorted_segment_sum
 
 
+def _require_layout(vox_seg, what: str) -> None:
+    if vox_seg is None:
+        raise ValueError(f"{what}: the plan has no sorted point layout "
+                         f"(augment_plan_with_point_layout)")
+
+
+class _Voxelize(torch.autograd.Function):
+    """f32 points [P, C] -> voxel sums [num_out, C]; backward: gather."""
+
+    @staticmethod
+    def forward(ctx, x, p2v, vox_seg, num_out):
+        ctx.save_for_backward(p2v)
+        return sorted_segment_sum(x, p2v, vox_seg, num_out)
+
+    @staticmethod
+    def backward(ctx, ct):
+        p2v, = ctx.saved_tensors
+        return gather_rows(ct, p2v), None, None, None
+
+
+class _Devoxelize(torch.autograd.Function):
+    """voxels [N, C] -> points [P, C]; backward: the f32 segment sum of the
+    cotangent, cast to the voxel dtype (the cast up is exact, and the JAX
+    package sums in f32 too)."""
+
+    @staticmethod
+    def forward(ctx, vox, p2v, vox_seg):
+        ctx.save_for_backward(p2v, vox_seg)
+        ctx.num_out = vox.shape[0]
+        return gather_rows(vox, p2v)
+
+    @staticmethod
+    def backward(ctx, ct):
+        p2v, vox_seg = ctx.saved_tensors
+        d_vox = sorted_segment_sum(ct.float().contiguous(), p2v, vox_seg,
+                                   ctx.num_out)
+        return d_vox.to(ct.dtype), None, None
+
+
 def voxelize_features(point_feats: torch.Tensor, p2v: torch.Tensor,
                       num_voxels_cap: int, vox_seg: torch.Tensor,
                       vox_counts: torch.Tensor) -> torch.Tensor:
@@ -21,16 +61,15 @@ def voxelize_features(point_feats: torch.Tensor, p2v: torch.Tensor,
     reference's mode 4). The features are cast to f32 before the sum, the
     sum is divided by max(count, 1), and the result is cast back. Needs
     the plan's sorted point layout."""
-    if vox_seg is None:
-        raise ValueError("voxelize_features: the plan has no sorted point "
-                         "layout (augment_plan_with_point_layout)")
-    s = sorted_segment_sum(point_feats.float(), p2v, vox_seg,
-                           num_voxels_cap)
+    _require_layout(vox_seg, "voxelize_features")
+    s = _Voxelize.apply(point_feats.float(), p2v, vox_seg, num_voxels_cap)
     return (s / torch.clamp(vox_counts[:, None], min=1)).to(point_feats.dtype)
 
 
-def devoxelize_features(voxel_feats: torch.Tensor,
-                        p2v: torch.Tensor) -> torch.Tensor:
+def devoxelize_features(voxel_feats: torch.Tensor, p2v: torch.Tensor,
+                        vox_seg: torch.Tensor) -> torch.Tensor:
     """Voxels -> points: out[i] = voxel_feats[p2v[i]], zero where p2v is
-    -1 (pad slots and dropped points)."""
-    return gather_rows(voxel_feats, p2v)
+    -1 (pad slots and dropped points). Needs the plan's sorted point
+    layout (for the backward)."""
+    _require_layout(vox_seg, "devoxelize_features")
+    return _Devoxelize.apply(voxel_feats, p2v, vox_seg)

@@ -168,7 +168,7 @@ def test_voxelize_mean_and_devoxelize_match_jax(layout_plans):
     v = rng.standard_normal((cap0, 8)).astype(np.float32)
     dref = jax_pool.devoxelize_features(jnp.asarray(v), jnp.asarray(jp.p2v),
                                         vox_seg=jnp.asarray(jp.vox_seg))
-    dev = pool_ops.devoxelize_features(_t(v), _t(tp.p2v))
+    dev = pool_ops.devoxelize_features(_t(v), _t(tp.p2v), _t(tp.vox_seg))
     np.testing.assert_array_equal(dev.numpy(), np.asarray(dref))
     assert torch.all(dev[_t(tp.p2v) < 0] == 0)  # -1 rows are zero, not v[-1]
 
