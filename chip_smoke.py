@@ -18,11 +18,15 @@ and no network. Phases (any failure exits non-zero):
    plan plus the forward kernel on the transpose plan), each checked and
    timed, the route the step takes marked; the segment sum at the
    InputLayer shape [262144, 3] and the OutputLayer backward's
-   [262144, 64].
+   [262144, 64]; the gather conv at levels L3-L5 beside the chunk conv;
+   the BCE kernels (radius, sums, backward) at the training CLI's shape
+   (P=262144, I=128, E=64) and the bench scene's (I=64), beside the
+   port's chain of calls for the same loss.
 2. parity: a mid-size scene (20k points) through the full-width model in
    f32 on the card (kernels) and on the CPU (plain versions): the 7
    outputs of an eval forward, then one training step's loss parts,
-   gradients and new BN statistics.
+   gradients and new BN statistics; then, on the card, the classification
+   loss and its gradients with the BCE kernels against the chain.
 3. slice: three requests (benchmark scenes, seeds 0-2) through
    prepare_scene + Predictor, bf16 compute, f32 params, seeded non-trivial
    BN statistics: plan ms, forward ms, voxels/s; every level and
@@ -34,6 +38,12 @@ and no network. Phases (any failure exits non-zero):
    per step that the backward route predicts from the plan's shapes
    (37 / 29 / 4 / 2 at tier 1.0), peak device memory, and one profiled
    step's device time by kernel.
+5. loop: the training CLI (`occuseg_tpu_torch.train.cli.main`) at m=64
+   with OCC_PALLAS_BCE=1 on blocked 4-scene batches from 4 plan threads:
+   first the 33 f32 convolutions of one such plan against their plain
+   versions (forward and both backward routes), then one epoch with its
+   launch counts, checkpoint and semantic eval, the plan upload pageable
+   against pinned, a profiled step, and a resume from the checkpoint.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON summary.
@@ -44,8 +54,10 @@ from __future__ import annotations
 import collections
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -182,36 +194,47 @@ def route_of(conv, esize: int) -> str:
     return "#3" if g == K else ("#4" if g else "#5")
 
 
-def predicted_launches(plan) -> dict:
-    """Kernel launches of one bf16 training step on `plan`, from the
-    backward route of each convolution."""
-    routes = collections.Counter(route_of(c, 2)
+def predicted_launches(plan, esize: int = 2, bce: bool = False) -> dict:
+    """Kernel launches of one training step on `plan` with activations of
+    `esize` bytes, from the backward route of each convolution; the
+    segment sum runs twice where the plan has the sorted point layout, the
+    BCE kernels once each with `bce`."""
+    routes = collections.Counter(route_of(c, esize)
                                  for c in conv_calls(plan, N_PLANES))
+    seg = 2 if plan.vox_seg is not None else 0
     return {"chunk_conv": 33 + routes["#5"],
             "chunk_conv_bwd_fused": routes["#3"] + routes["#4"],
             "chunk_conv_bwd_fused_kgrouped": routes["#4"],
-            "chunk_conv_dw": routes["#5"], "blocked_segment_sum": 2}
+            "chunk_conv_dw": routes["#5"], "blocked_segment_sum": seg,
+            "bce_radius": int(bce), "bce_fwd": int(bce),
+            "bce_bwd": int(bce), "gather_conv": 0}
+
+
+def _counters():
+    """(name, wrapper, attribute) of every kernel launch counter."""
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    from occuseg_tpu_torch.ops.kernels import segsum
+    return (("chunk_conv", cc.chunk_conv, "launches"),
+            ("chunk_conv_bwd_fused", cc.chunk_conv_bwd_fused, "launches"),
+            ("chunk_conv_bwd_fused_kgrouped", cc.chunk_conv_bwd_fused,
+             "launches_kgrouped"),
+            ("chunk_conv_dw", cc.chunk_conv_dw, "launches"),
+            ("blocked_segment_sum", segsum.blocked_segment_sum, "launches"),
+            ("bce_radius", bce_loss.radius_sq, "launches"),
+            ("bce_fwd", bce_loss.bce_sums, "launches"),
+            ("bce_bwd", bce_loss.bce_sums_bwd, "launches"),
+            ("gather_conv", gc.gather_conv, "launches"))
 
 
 def read_launches() -> dict:
-    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
-    from occuseg_tpu_torch.ops.kernels import segsum
-    return {"chunk_conv": cc.chunk_conv.launches,
-            "chunk_conv_bwd_fused": cc.chunk_conv_bwd_fused.launches,
-            "chunk_conv_bwd_fused_kgrouped":
-                cc.chunk_conv_bwd_fused.launches_kgrouped,
-            "chunk_conv_dw": cc.chunk_conv_dw.launches,
-            "blocked_segment_sum": segsum.blocked_segment_sum.launches}
+    return {name: getattr(fn, attr) for name, fn, attr in _counters()}
 
 
 def zero_launches() -> None:
-    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
-    from occuseg_tpu_torch.ops.kernels import segsum
-    cc.chunk_conv.launches = 0
-    cc.chunk_conv_bwd_fused.launches = 0
-    cc.chunk_conv_bwd_fused.launches_kgrouped = 0
-    cc.chunk_conv_dw.launches = 0
-    segsum.blocked_segment_sum.launches = 0
+    for _, fn, attr in _counters():
+        setattr(fn, attr, 0)
 
 
 def randomize_bn_stats(model, gen: torch.Generator) -> None:
@@ -429,16 +452,162 @@ def phase_kernels(dev):
             tot.add("blocked_segment_sum", ms, pms, err,
                     float(int(valid.sum()) * C),
                     nbytes(xp[:B * R], vox_seg, out), PEAK_F32, lms)
+    phase_kernels_gather(dev, tot, plan)
+    tot.chain_ms = phase_kernels_bce(dev, tot)
     r = tot.rows
     print(f"[kernels] routes at the bench shapes: {n_route['#3']} fused "
           f"(#3), {n_route['#4']} fused at K-grouped shapes (#4), "
           f"{n_route['#5']} dW (#5)")
     for k in ("chunk_conv", "#3", "#4", "chunk_conv_dw",
-              "blocked_segment_sum"):
+              "blocked_segment_sum", "bce_radius", "bce_fwd", "bce_bwd",
+              "gather_conv"):
         print(f"[kernels] per step, {k}: kernel {r[k]['ms']:.3f} ms, plain "
               f"{r[k]['plain_ms']:.3f} ms, bound {r[k]['bound_ms']:.4f} ms "
               f"({tot.bound_by(k)})")
     return tot
+
+
+CLI_P, CLI_I, EMB = 262_144, 128, 64   # the training CLI's defaults, m=64
+
+
+def bce_flops(n_pairs: int, n_sampled: int, n_grad: int, E: int,
+              backward: bool) -> float:
+    """f32 operations the BCE function needs on this run's data: the
+    sample-ball test on every (point, instance) pair (a 3-d distance, ~8),
+    on each sampled pair the e.mu and rx.mp dots and the s-space terms
+    (2E + 20); the backward adds, on each pair with a gradient, the three
+    products into de, drx and dmu (4E + 8)."""
+    f = 8.0 * n_pairs + (2.0 * E + 20.0) * n_sampled
+    return f + (4.0 * E + 8.0) * n_grad if backward else f
+
+
+def phase_kernels_bce(dev, tot):
+    """TPU rows #6-#8 at the CLI's shape (I=128) and the bench scene's
+    (I=64) on `exact_inputs` (every pair decision exact in f32, so the
+    counts must match exactly), against their plain versions; beside them
+    the port's chain (`classification_loss` with the switch off) forward
+    and forward + backward on loss inputs of the same shape. Returns the
+    chain's ms at the CLI shape."""
+    from occuseg_tpu_torch.losses.instance import classification_loss
+    from occuseg_tpu_torch.ops.kernels import bce_loss as bl
+    chain = {}
+    for I in (CLI_I, BENCH_INSTANCES):
+        P, E = CLI_P, EMB
+        e, rx4, x4, seg, scene, mu, mp4, cons, g = bl.exact_inputs(
+            P, I, E, seed=I, device=dev)
+        mp_sq = cons[bl.MP_SQ].contiguous()
+        with torch.no_grad():
+            r = bl.radius_sq(x4, seg, mp4, mp_sq)
+            check(torch.equal(r, bl.radius_sq_plain(x4, seg, mp4, mp_sq)),
+                  f"bce radius I={I}: differs from the plain version")
+            cons = bl.with_radius(x4, seg, mp4, cons)
+            args = (e, rx4, x4, seg, scene, mu, mp4, cons)
+            out = bl.bce_sums(*args)
+            ref = bl.bce_sums_plain(*args)
+            check(torch.equal(out[1:], ref[1:]),
+                  f"bce forward I={I}: counts differ from the plain version")
+            e7, _ = check_close(f"bce forward I={I} bce_sum", out[0], ref[0],
+                                F32_TOL)
+            got = bl.bce_sums_bwd(*args, g)
+            want = bl.bce_sums_bwd_plain(*args, g)
+            e8 = max(check_close(f"bce backward I={I} {n}", a, b, DW_TOL)[0]
+                     for n, a, b in zip(("de", "drx", "dmu", "dsig2"), got,
+                                        want))
+            del got, want
+            reps = 10
+            ms6 = cuda_ms(lambda: bl.radius_sq(x4, seg, mp4, mp_sq), reps)
+            pms6 = cuda_ms(lambda: bl.radius_sq_plain(x4, seg, mp4, mp_sq), 3)
+            ms7 = cuda_ms(lambda: bl.bce_sums(*args), reps)
+            pms7 = cuda_ms(lambda: bl.bce_sums_plain(*args), 3)
+            ms8 = cuda_ms(lambda: bl.bce_sums_bwd(*args, g), reps)
+            pms8 = cuda_ms(lambda: bl.bce_sums_bwd_plain(*args, g), 3)
+            # pairs the data needs: sampled, and sampled with a gradient
+            member, sample, s_raw, _, _ = bl._pair_terms(*args)
+            n_samp = int(sample.sum())
+            n_grad = int((sample & (s_raw > bl.S_LO)
+                          & (s_raw < bl.S_HI)).sum())
+            del member, sample, s_raw
+
+        # the chain on loss inputs of the same shape
+        rng = torch.Generator(device="cpu").manual_seed(I)
+        bw = (torch.rand(P, 2, generator=rng) + 0.25).to(dev)
+        labels = torch.randint(0, 20, (P,), generator=rng).to(dev)
+        leaves = [t.clone().requires_grad_() for t in (e, bw, rx4[:, :3])]
+        os.environ["OCC_PALLAS_BCE"] = "0"
+
+        def chain_fwd():
+            with torch.no_grad():
+                classification_loss(*leaves, x4[:, :3], seg, scene, labels, 2,
+                                    I)
+
+        def chain_fwd_bwd():
+            loss, _ = classification_loss(*leaves, x4[:, :3], seg, scene,
+                                          labels, 2, I)
+            loss.backward()
+
+        cf = cuda_ms(chain_fwd, 3)
+        cfb = cuda_ms(chain_fwd_bwd, 3)
+        chain[I] = (cf, cfb)
+        by = nbytes(x4, seg, mp4, mp_sq, r)
+        bf = nbytes(*args, out)
+        bb = nbytes(*args, g) + nbytes(e, rx4) + I * E * 4 + I * 8
+        f7 = bce_flops(P * I, n_samp, 0, E, False)
+        f8 = bce_flops(P * I, n_samp, n_grad, E, True)
+        print(f"[kernels] bce P={P} I={I} E={E}: {n_samp} sampled pairs, "
+              f"{n_grad} with a gradient; radius {ms6:.4f} ms (plain "
+              f"{pms6:.4f}), forward {ms7:.4f} ms (plain {pms7:.4f}, "
+              f"max_abs_err {e7:.3e}), backward {ms8:.4f} ms (plain "
+              f"{pms8:.4f}, max_abs_err {e8:.3e}); chain forward {cf:.4f} "
+              f"ms, forward+backward {cfb:.4f} ms; bounds "
+              f"{bound_ms(8.0 * P, by, PEAK_F32)[0]:.4f} / "
+              f"{bound_ms(f7, bf, PEAK_F32)[0]:.4f} / "
+              f"{bound_ms(f8, bb, PEAK_F32)[0]:.4f} ms")
+        if I == CLI_I:  # the CLI's path: once each per step
+            tot.add("bce_radius", ms6, pms6, 0.0, 8.0 * P, by, PEAK_F32)
+            tot.add("bce_fwd", ms7, pms7, e7, f7, bf, PEAK_F32)
+            tot.add("bce_bwd", ms8, pms8, e8, f8, bb, PEAK_F32)
+        del args, out, e, rx4, x4, seg, scene, mu, mp4, cons, g, leaves
+        torch.cuda.empty_cache()
+    return chain[CLI_I]
+
+
+def phase_kernels_gather(dev, tot, plan):
+    """TPU row #9 at levels L3-L5 of the bench plan at their widths,
+    against its plain version, beside the chunk-conv forward (#1) of the
+    same level, width and weights."""
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    gen = torch.Generator().manual_seed(9)
+    with torch.inference_mode():
+        for lv in (3, 4, 5):
+            level = plan.levels[lv]
+            C = N_PLANES[lv]
+            nbr_kn = torch.from_numpy(level.nbr.T.copy()).to(dev)
+            N = nbr_kn.shape[1]
+            x = torch.randn(N, C, generator=gen)
+            x[level.num_active:] = 0
+            xd = x.to(dev, torch.bfloat16)
+            w = (torch.randn(27, C, C, generator=gen) * (2 / (27 * C)) ** .5
+                 ).to(dev, torch.bfloat16)
+            out = gc.gather_conv(xd, nbr_kn, w)
+            ref = gc.gather_conv_plain(xd, nbr_kn, w)
+            err, scale = check_close(f"gather_conv L{lv}", out, ref, BF16_TOL)
+            ref_cc = cc.chunk_conv(xd, level.chunks.in_idx, level.chunks.lidx,
+                                   w)
+            check_close(f"gather_conv L{lv} vs chunk_conv", out, ref_cc,
+                        BF16_TOL)
+            ms = cuda_ms(lambda: gc.gather_conv(xd, nbr_kn, w), 20)
+            pms = cuda_ms(lambda: gc.gather_conv_plain(xd, nbr_kn, w), 3)
+            cms = cuda_ms(lambda: cc.chunk_conv(xd, level.chunks.in_idx,
+                                                level.chunks.lidx, w), 20)
+            nnz = int((nbr_kn >= 0).sum())
+            flops = 2.0 * nnz * C * C
+            nb = nbytes(xd, nbr_kn, w, out)
+            print(f"[kernels] gather_conv L{lv} N={N} C={C}: max_abs_err "
+                  f"{err:.3e} (max|out| {scale:.3e}), kernel {ms:.4f} ms, "
+                  f"plain {pms:.4f} ms, chunk_conv (#1) {cms:.4f} ms, bound "
+                  f"{bound_ms(flops, nb)[0]:.4f} ms")
+            tot.add("gather_conv", ms, pms, err, flops, nb)
 
 
 def _mid_scene():
@@ -549,6 +718,108 @@ def phase_parity_train(dev):
     print("[parity] step: new BN statistics agree")
 
 
+# the classification loss with the BCE kernels against the port's chain at
+# full size. The two decide the sample ball in different formulations
+# (sq < 16 max sq against sqrt(sq + 1e-12) < 4 max sqrt(sq + 1e-12)); the
+# pairs that fall on different sides are counted below (none at the bench
+# scene on the H100). The gradients differ more than at P=512: each row is
+# a difference of nearly equal sums (de = 2 (sum_i g0 e - sum_i g0 mu_i)),
+# taken in another order and formulation (the chain differentiates its
+# clamp and square root), and with the random model's small embeddings
+# single small elements differed by up to 6.5e-4 of their tensor's max and
+# the tensors by 3-5e-5 of their norm (H100 80GB HBM3, 700 W). The tolerance of
+# tests/test_bce_loss.py (atol 3e-5 x max + rtol 2e-4) holds at its P=512
+# (tests/test_torch_bce.py); here the loss is held to rtol 2e-5 and the
+# gradients to 1e-4 of each tensor's norm and 5e-3 of its largest element.
+BCE_GRAD_NORM_TOL = 1e-4
+BCE_GRAD_MAX_TOL = 5e-3
+
+
+def phase_parity_bce(dev):
+    """The classification loss and its gradients to e, bw and rx on the
+    card, with the BCE kernels (OCC_PALLAS_BCE=1) against the port's chain
+    (=0), at the bench scene's model outputs (random bf16 model, train
+    mode)."""
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.losses.instance import (
+        _sanitize_seg, _seg_mean, _sqdist, classification_loss,
+    )
+    from occuseg_tpu_torch.models import LearningBWDenseUNet
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    from occuseg_tpu_torch.train.state import prepare_batch
+
+    laid, plan = prepare_batch(bench_scene(0), PlanSpec(caps=BENCH_CAPS))
+    model = LearningBWDenseUNet(N_PLANES, compute_dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(10))
+    model.to(dev).train()
+    b = {k: torch.as_tensor(laid[k]).to(dev)
+         for k in ("features", "pose", "instance_id", "point_scene",
+                   "labels")}
+    with torch.no_grad():
+        out = model(b["features"], plan.to(dev))
+    e, bw = out.embedding.float(), out.bw.float()
+    rx = b["pose"] - out.displacement.float()
+    del out
+    res = {}
+    for flag in ("1", "0"):
+        os.environ["OCC_PALLAS_BCE"] = flag
+        leaves = [t.clone().requires_grad_() for t in (e, bw, rx)]
+        before = read_launches()["bce_fwd"]
+        loss, miou = classification_loss(*leaves, b["pose"],
+                                         b["instance_id"], b["point_scene"],
+                                         b["labels"], 1, BENCH_INSTANCES)
+        loss.backward()
+        torch.cuda.synchronize()
+        ran = read_launches()["bce_fwd"] - before
+        check(ran == (1 if flag == "1" else 0),
+              f"bce parity: switch {flag} launched the kernel {ran} times")
+        res[flag] = (float(loss.detach()), float(miou.detach()),
+                     [t.grad for t in leaves])
+    os.environ.pop("OCC_PALLAS_BCE")
+
+    # pairs whose sample decision differs between the two formulations
+    with torch.no_grad():
+        I = BENCH_INSTANCES
+        iid = b["instance_id"]
+        seg = _sanitize_seg(iid, I)
+        mp, _ = _seg_mean(torch.where((iid >= 0)[:, None], b["pose"], 0.0),
+                          seg, I + 1)
+        sq = _sqdist(b["pose"], mp[:I])
+        member = (seg[:, None] == torch.arange(I, device=dev)) \
+            & (iid >= 0)[:, None]
+        zero = torch.zeros((), device=dev)
+        in_k = sq < 16.0 * torch.where(member, sq, zero).amax(0)
+        d = torch.sqrt(sq + 1e-12)
+        in_c = d < 4.0 * torch.where(member, d, zero).amax(0)
+        flips = int((in_k != in_c).sum())
+        del sq, member, in_k, d, in_c
+
+    (lk, mk, gk), (lc, mc, gc) = res["1"], res["0"]
+    print(f"[parity] classification loss: kernels {lk:.7f} chain {lc:.7f}; "
+          f"instance IoU kernels {mk:.7f} chain {mc:.7f}; {flips} of "
+          f"{e.shape[0] * BENCH_INSTANCES} (point, instance) pairs at the "
+          f"ball's edge decide differently")
+    check(abs(lk - lc) <= 2e-5 * abs(lc), f"bce parity loss {lk} vs {lc}")
+    check(abs(mk - mc) <= 2e-5 * abs(mc) + 1e-7,
+          f"bce parity IoU {mk} vs {mc}")
+    for name, a, r in zip(("e", "bw", "rx"), gk, gc):
+        check(bool(torch.isfinite(a).all()), f"bce parity d{name} not finite")
+        err = (a - r).abs()
+        scale = r.abs().max().item()
+        rel_norm = ((a - r).norm() / r.norm()).item()
+        over = int((err > 3e-5 * scale + 2e-4 * r.abs()).sum())
+        print(f"[parity] classification d{name}: max_abs_err "
+              f"{err.max().item():.3e} (max {scale:.3e}), {rel_norm:.3e} of "
+              f"the norm; {over} of {r.numel()} elements beyond atol 3e-5 x "
+              f"max + rtol 2e-4")
+        check(rel_norm <= BCE_GRAD_NORM_TOL,
+              f"bce parity d{name}: {rel_norm} of the norm")
+        check(err.max().item() <= BCE_GRAD_MAX_TOL * scale,
+              f"bce parity d{name}: {err.max().item()} > "
+              f"{BCE_GRAD_MAX_TOL} x {scale}")
+    check(not bce_loss.enabled(), "the switch is off again")
+
+
 def phase_slice(dev):
     from occuseg_tpu_torch import native
     from occuseg_tpu_torch.core.topology import PlanSpec
@@ -623,7 +894,7 @@ def phase_slice(dev):
     print(f"[slice] launches {launches}")
 
 
-def profile_step(step) -> float:
+def profile_step(step, phase: str = "train") -> float:
     """Run `step` once under torch.profiler, print the device time by
     kernel (top rows), and return the device's busy ms."""
     from torch.profiler import ProfilerActivity, profile
@@ -638,11 +909,17 @@ def profile_step(step) -> float:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"[train] profiled step: wall {wall:.1f} ms (under the "
+    print(f"[{phase}] profiled step: wall {wall:.1f} ms (under the "
           f"profiler), device busy {busy:.2f} ms in {len(rows)} kinds of "
           f"device activity")
     for e in rows[:25]:
-        print(f"[train] profile {e.self_device_time_total / 1e3:9.3f} ms "
+        print(f"[{phase}] profile {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:5d} x  {e.key[:90]}")
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    host.sort(key=lambda e: -e.self_cpu_time_total)
+    for e in host[:12]:
+        print(f"[{phase}] host {e.self_cpu_time_total / 1e3:9.3f} ms "
               f"{e.count:5d} x  {e.key[:90]}")
     return busy
 
@@ -726,6 +1003,237 @@ def phase_train(dev):
     return launches
 
 
+LOOP_FLAGS = ("--m", "64", "--use_dense_model", "--residual_blocks",
+              "--batch_size", "4", "--plan_workers", "4", "--max_epoch", "1")
+
+
+def _tensors(obj):
+    """Every tensor in a plan's (nested) dataclasses."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif hasattr(obj, "__dataclass_fields__"):
+        for f in obj.__dataclass_fields__:
+            yield from _tensors(getattr(obj, f))
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _tensors(o)
+
+
+def check_blocked_convs(dev, host_plan):
+    """The loop's f32 chunk convolutions on one of its blocked 4-scene
+    plans (scene-pure chunks, global in_idx rows, the pad rows of every
+    scene zero): each conv's forward and both backward routes against the
+    plain versions on the card, as `phase_kernels` holds the bench
+    shapes. These launches compare and are not counted."""
+    from occuseg_tpu_torch.core.sparse_tensor import active_mask
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    plan = host_plan.to(dev)
+    calls = conv_calls(plan, N_PLANES)
+    check(len(calls) == 33, f"expected 33 convolutions, got {len(calls)}")
+    gen = torch.Generator().manual_seed(11)
+    worst = collections.defaultdict(float)
+    routes = collections.Counter()
+    with torch.inference_mode():
+        for cv in calls:
+            check(cv.chunks is not None and cv.t_chunks is not None,
+                  f"[loop] {cv.label}: no chunk plan")
+            fi, fl = cv.chunks.in_idx, cv.chunks.lidx
+            ti, tl = cv.t_chunks.in_idx, cv.t_chunks.lidx
+            K = fl.shape[1]
+            x = torch.randn(cv.n_in, cv.cin, generator=gen)
+            x[~active_mask(cv.n_act, cv.n_in)] = 0
+            w = torch.randn(K, cv.cin, cv.cout, generator=gen) \
+                * (2 / (cv.cin * K)) ** .5
+            ct = torch.randn(cv.n_out, cv.cout, generator=gen)
+            ct[~active_mask(cv.n_out_act, cv.n_out)] = 0
+            sub = cv.label.startswith(("sub", "enc", "dec"))
+            wt = (w.flip(0) if sub else w).transpose(1, 2).contiguous()
+            xd, wd, ctd, wtd = (a.to(dev) for a in (x, w, ct, wt))
+            route = route_of(cv, 4)
+            routes[route] += 1
+            errs = {}
+            for key, out, ref, tol in (
+                    ("forward", cc.chunk_conv(xd, fi, fl, wd),
+                     cc.chunk_conv_plain(xd, fi, fl, wd), F32_TOL),
+                    *zip(("fused d_feats", "fused dW"),
+                         cc.chunk_conv_bwd_fused(ctd, ti, tl, wtd, xd),
+                         cc.chunk_conv_bwd_fused_plain(ctd, ti, tl, wtd, xd),
+                         (F32_TOL, DW_TOL)),
+                    ("dW", cc.chunk_conv_dw(xd, fi, fl, ctd),
+                     cc.chunk_conv_dw_plain(xd, fi, fl, ctd), DW_TOL),
+                    ("transpose", cc.chunk_conv(ctd, ti, tl, wtd),
+                     cc.chunk_conv_plain(ctd, ti, tl, wtd), F32_TOL)):
+                err, scale = check_close(f"[loop] {key} {cv.label} f32",
+                                         out, ref, tol)
+                errs[key] = err / max(scale, 1e-30)
+                worst[key] = max(worst[key], errs[key])
+                del out, ref
+            print(f"[loop] blocked conv {cv.label:<22} f32 rows {cv.n_in}->"
+                  f"{cv.n_out} U={fi.shape[1]}/{ti.shape[1]} route={route} "
+                  f"error/max: " + ", ".join(f"{k} {v:.1e}"
+                                             for k, v in errs.items()))
+    print(f"[loop] blocked convs: 33 forwards and both backward routes of "
+          f"each agree with the plain versions (f32; routes {dict(routes)};"
+          f" worst error/max " + ", ".join(f"{k} {v:.1e}"
+                                           for k, v in worst.items()) + ")")
+    torch.cuda.empty_cache()
+
+
+def phase_loop(dev, tmp):
+    """The training CLI (`occuseg_tpu_torch.train.cli.main`) at full width
+    with OCC_PALLAS_BCE=1: first the f32 convolutions of the first batch's
+    blocked plan against their plain versions (`check_blocked_convs`); then
+    one synthetic epoch of blocked 4-scene batches
+    (8 steps, f32 as the JAX CLI trains) from a pool of 4 plan threads, a
+    checkpoint, the semantic evals; then a resume from the checkpoint for
+    one more step. Checks the launches the routes predict, finite losses,
+    the eval, and that the resumed state equals the saved one."""
+    import numpy as np
+    from occuseg_tpu_torch.infer import plan_scene
+    from occuseg_tpu_torch.train import checkpoint as ckpt
+    from occuseg_tpu_torch.train import cli, loop
+    from occuseg_tpu_torch.train.config import args_to_config, get_parser
+    from occuseg_tpu_torch.train.state import pinned, prepare_batch
+
+    os.environ["OCC_PALLAS_BCE"] = "1"
+    argv = [*LOOP_FLAGS, "--data_dir", os.path.join(tmp, "no_scenes"),
+            "--checkpoints_dir", os.path.join(tmp, "ckpts")]
+    config = args_to_config(get_parser().parse_args(argv))
+    spec = loop.build_spec(config)
+    ds = loop._synthetic_dataset(config)
+
+    # the epoch's batches again (the loop's seed), planned on one thread:
+    # host plan ms per batch, and the launches each step's routes predict
+    ns = config["batch_size"]
+    rng = np.random.default_rng(100)
+    expected = collections.Counter()
+    plan_ms, plans = [], []
+    for batch in ds.train_batches(rng, config["point_cap"],
+                                  config["instance_cap"], ns):
+        t0 = time.perf_counter()
+        laid, plan = prepare_batch(batch, spec, ns)
+        plan_ms.append(1e3 * (time.perf_counter() - t0))
+        plans.append((laid, plan))
+        expected.update(predicted_launches(plan, esize=4, bce=True))
+    n_eval = 2 * len(ds.val)  # the snapshot eval and the CLI's own
+    for raw in ds.val_batches(config["point_cap"], config["instance_cap"],
+                              1):
+        vplan = plan_scene(raw["coords"], spec)
+        expected.update({"chunk_conv": 2 * 33, "blocked_segment_sum":
+                         2 * int(vplan.vox_seg is not None)})
+    check_blocked_convs(dev, plans[0][1])
+    na = plans[0][1].levels[0].num_active
+    print(f"[loop] {len(plans)} batches of {ns} scenes, blocked caps "
+          f"{[l.cap for l in plans[0][1].levels]}, level-0 voxels per scene "
+          f"{list(na)}; sorted point layout: "
+          f"{plans[0][1].vox_seg is not None}; host plan per batch (one "
+          f"thread) {', '.join(f'{t:.0f}' for t in plan_ms)} ms")
+
+    torch.cuda.synchronize()
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = cli.main(argv, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tm = result["timings"]
+    steps = result["steps"]
+    period = [w + s for w, s in zip(tm["wait_ms"], tm["step_ms"])]
+    med = sorted(tm["step_ms"])[steps // 2]
+    print(f"[loop] cli.main: {steps} steps + {n_eval} eval forwards in "
+          f"{wall:.1f} s; step ms {', '.join(f'{t:.1f}' for t in tm['step_ms'])}"
+          f" (median {med:.1f}); waits for a prepared batch "
+          f"{', '.join(f'{t:.1f}' for t in tm['wait_ms'])} ms; step period "
+          f"median {sorted(period)[steps // 2]:.1f} ms")
+    print(f"[loop] losses (epoch mean) {result['losses']}")
+    print(f"[loop] val mean IoU {result['metrics']['mean_iou']:.4f}; peak "
+          f"device memory {peak:.2f} GiB")
+    print(f"[loop] launches {launches}, expected {dict(expected)}")
+    check(steps == len(plans), f"{steps} steps, expected {len(plans)}")
+    check(all(v == v and abs(v) != float("inf")
+              for v in result["losses"].values()), "loop losses not finite")
+    check(0.0 <= result["metrics"]["mean_iou"] <= 1.0, "eval mean IoU")
+    check(launches == dict(expected), f"loop launches {launches}, expected "
+          f"{dict(expected)}")
+    for k in ("bce_radius", "bce_fwd", "bce_bwd", "chunk_conv",
+              "chunk_conv_bwd_fused"):
+        check(launches[k] > 0, f"{k} was not launched on the loop path")
+
+    # the upload of one batch's plan (the arrays the device reads) from
+    # pageable memory, against the loop's (pinned by the loader threads),
+    # in turns
+    laid0, plan0 = plans[0]
+    pinned_batch = pinned(laid0, plan0)
+    for name, up in (("pageable", lambda: plan0.to(dev)),
+                     ("pinned", lambda: pinned_batch[1].to(dev))) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_dev = up()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        mb = sum(nbytes(t) for t in _tensors(on_dev)) / 2**20
+        print(f"[loop] plan upload, {name}: {mb:.1f} MiB, host "
+              f"{1e3 * (t1 - t0):.1f} ms, done after {1e3 * (t2 - t0):.1f} "
+              f"ms")
+        del on_dev
+
+    from occuseg_tpu_torch.utils.profiling import plan_muladd_count
+    t0 = time.perf_counter()
+    plan_muladd_count(plan0, N_PLANES)
+    print(f"[loop] MulAdd counter of one plan (host, per step): "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+
+    # device time of one such step (profiled), against the step period
+    trainer = result["trainer"]
+    busy = profile_step(lambda: trainer.step(*pinned_batch), "loop")
+    print(f"[loop] device busy {busy:.2f} ms of the median step "
+          f"{med:.2f} ms ({100 * busy / med:.1f}%)")
+
+    # resume: the saved state, restored before the first resumed step
+    path = ckpt.latest_checkpoint(result["ckpt_dir"])
+    check(path is not None and path.endswith("step_1.pth"),
+          f"checkpoint {path}")
+    saved = ckpt.restore_checkpoint(path, map_location="cpu")
+    restored = {}
+    resume = dict(config, load=result["ckpt_dir"], checkpoint=1,
+                  max_epoch=2)
+    zero_launches()
+    r2 = loop.train(resume, max_steps=1, device=dev, on_start=lambda t:
+                    restored.update(copy.deepcopy(t.state_dict())))
+    torch.cuda.synchronize()
+    after = read_launches()
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a.cpu(), b.cpu())
+        return a == b
+
+    check(restored["steps"] == saved["steps"] == steps,
+          f"resumed step counter {restored['steps']} vs saved "
+          f"{saved['steps']}")
+    check(same(restored["model"], saved["model"]), "resumed parameters "
+          "differ from the saved ones")
+    check(same(restored["optimizer"], saved["optimizer"]),
+          "resumed optimizer state differs from the saved one")
+    check(r2["steps"] == 1 and r2["trainer"].steps == steps + 1,
+          f"resumed run: {r2['steps']} steps, counter {r2['trainer'].steps}")
+    check(after["bce_fwd"] == 1 and after["bce_bwd"] == 1
+          and after["bce_radius"] == 1, f"resumed step launches {after}")
+    print(f"[loop] resumed from {os.path.basename(path)}: step counter "
+          f"{restored['steps']}, parameters and optimizer state equal the "
+          f"saved ones; one more step ran (counter {r2['trainer'].steps}, "
+          f"launches {after})")
+    os.environ.pop("OCC_PALLAS_BCE")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -745,21 +1253,26 @@ def main() -> int:
     tot = phase_kernels(dev)
     phase_parity(dev)
     phase_parity_train(dev)
+    phase_parity_bce(dev)
     phase_slice(dev)
     launches = phase_train(dev)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=os.path.dirname(
+                                         os.path.abspath(__file__))) as tmp:
+        loop_launches = phase_loop(dev, tmp)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     src = "occuseg_tpu_torch/csrc/"
     pallas = "occuseg_tpu/ops/pallas/"
 
-    def entry(name, key, source, replaces, n):
+    def entry(name, key, source, replaces, n, **extra):
         r = tot.rows[key]
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": pallas + replaces, "launches": n,
                 "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": tot.bound_by(key),
-                "library_ms": r["library_ms"]}
+                "library_ms": r["library_ms"], **extra}
 
     fused = launches["chunk_conv_bwd_fused"]
     grouped = launches["chunk_conv_bwd_fused_kgrouped"]
@@ -774,6 +1287,18 @@ def main() -> int:
               "chunk_conv.py:568", grouped),
         entry("chunk_conv_dw", "chunk_conv_dw", "chunk_conv_bwd.cu",
               "chunk_conv.py:720", launches["chunk_conv_dw"]),
+        # the training CLI's path: once each per step; beside them the
+        # port's [P, I] chain, forward and backward (not a library call)
+        entry("bce_radius", "bce_radius", "bce_loss.cu", "bce_loss.py:227",
+              loop_launches["bce_radius"]),
+        entry("bce_fwd", "bce_fwd", "bce_loss.cu", "bce_loss.py:258",
+              loop_launches["bce_fwd"], chain_ms=tot.chain_ms[0]),
+        entry("bce_bwd", "bce_bwd", "bce_loss.cu", "bce_loss.py:289",
+              loop_launches["bce_bwd"],
+              chain_ms=tot.chain_ms[1] - tot.chain_ms[0]),
+        # no caller in either package: L3-L5 of the bench plan, summed
+        entry("gather_conv", "gather_conv", "gather_conv.cu",
+              "gather_conv.py:112", loop_launches["gather_conv"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

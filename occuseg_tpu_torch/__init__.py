@@ -8,7 +8,8 @@ tensor), `data/` (synthetic scenes), `ops/` (BN, NIN, pooling and the
 hand-written CUDA kernels under `ops/kernels/`), `nn/` (sparse modules and
 the UNet), `models/` (the OccuSeg model family), `losses/` (the 6-term
 training loss), `train/` (optimizer, host batch preparation, the training
-step), `convert.py` (flax weights to a state_dict) and `infer.py` (host
+step, the loop, checkpoints and the CLI), `utils/` (metrics, counters),
+`convert.py` (flax weights to a state_dict) and `infer.py` (host
 preparation and the predictor).
 
 This package imports torch and numpy only — never jax, flax or

@@ -1,33 +1,65 @@
 """SparseTensor (counterpart of `occuseg_tpu/core/sparse_tensor.py`).
 
-Features over the statically padded rows of one topology level. Rows at
-or past `num_active` are padding and stay exactly zero through every
-convolution and batch norm.
+Features over the statically padded rows of one topology level. Rows that
+are not active are padding and stay exactly zero through every
+convolution and batch norm. `num_active` is an int, the count of the
+active prefix [0, n) of a one-scene plan, or, under the blocked
+multi-scene layout (`native/blocked.py`), a tuple of per-scene counts:
+scene s owns rows [s*cap/ns, s*cap/ns + n_s).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
-
-def active_mask(num_active: int, cap: int, device=None) -> torch.Tensor:
-    """Bool [cap]: True for the real rows [0, num_active)."""
-    return torch.arange(cap, device=device) < num_active
+NumActive = Union[int, Sequence[int]]
 
 
-def total_active(num_active: int) -> int:
-    """Count of real rows (single-scene layout: the scalar itself)."""
-    return int(num_active)
+def active_mask(num_active: NumActive, cap: int, device=None) -> torch.Tensor:
+    """Bool [cap]: True for the real rows of either layout."""
+    if np.ndim(num_active) == 0:
+        return torch.arange(cap, device=device) < int(num_active)
+    return _blocked_mask(tuple(int(n) for n in num_active), cap,
+                         torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=64)
+def _blocked_mask(counts: Tuple[int, ...], cap: int,
+                  device: torch.device) -> torch.Tensor:
+    """The blocked layout's mask, built once per (counts, cap, device) (a
+    step's batch norms on one level share it) from device ops alone: a
+    copy of the counts from pageable host memory would make the host wait
+    for the card."""
+    ns = len(counts)
+    if cap % ns:
+        raise ValueError(f"blocked layout: cap {cap} is not a multiple of the "
+                         f"scene count {ns}")
+    # a normal tensor even when first built under inference_mode: the
+    # cached mask is later saved for a training step's backward
+    with torch.inference_mode(False):
+        rows = torch.arange(cap // ns, device=device)
+        return torch.cat([rows < n for n in counts])
+
+
+def total_active(num_active: NumActive) -> int:
+    """Count of real rows of either layout."""
+    if np.ndim(num_active) == 0:
+        return int(num_active)
+    return sum(int(n) for n in num_active)
 
 
 @dataclasses.dataclass(frozen=True)
 class SparseTensor:
-    """features [cap, C]; num_active real rows; `level` indexes the plan."""
+    """features [cap, C]; num_active real rows (an int, or a tuple of
+    per-scene counts); `level` indexes the plan."""
 
     features: torch.Tensor
-    num_active: int
+    num_active: NumActive
     level: int = 0
 
     @property

@@ -3,8 +3,11 @@
 A plan is built on the host as NumPy arrays (`native/plan.py`), gains its
 chunk rulebooks (`ops/kernels/chunk_conv.py`) and sorted point layout
 (`core/point_layout.py`), and is then moved to a device with `.to(device)`,
-which returns the same dataclasses holding torch tensors. Active-row counts
-stay Python ints, so masks need no device round trip.
+which returns the same dataclasses with the arrays the device reads (chunk
+rulebooks, point arrays) as torch tensors there. Active-row counts
+stay on the host as Python ints (a tuple of per-scene ints under the
+blocked multi-scene layout of `native/blocked.py`), so masks need no
+device round trip.
 
 Maps (all padded, -1 = missing):
   * per level: Morton-sorted voxel keys/coords and the submanifold
@@ -40,16 +43,61 @@ def _even_offsets(kernel: int) -> np.ndarray:
 
 
 def _to(a, device):
-    """numpy -> torch tensor on `device`; tensors move; None passes."""
+    """numpy -> torch tensor on `device`; tensors move; None passes. From
+    page-locked memory (`pin`) the copy is queued without the host waiting
+    for it, and the host allocator keeps the source block until it is
+    done."""
     if a is None:
         return None
-    if isinstance(a, torch.Tensor):
-        return a.to(device)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.to(device, non_blocking=True)
+
+
+def pin(a):
+    """A copy of NumPy array `a` in page-locked host memory, as a CPU torch
+    tensor; None passes. Loader threads pin what a step uploads, so that
+    the upload on the main thread neither stages through pageable memory
+    nor waits. The tensor itself is the upload's source: its block belongs
+    to the CUDA host allocator, which records the copy and does not hand
+    the block out again before the copy has run."""
+    if a is None:
+        return None
+    return torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+
+
+def _counts(num_active):
+    """Host form of an active count: an int, or a tuple of per-scene ints
+    for a blocked plan's [ns] vector."""
+    if np.ndim(num_active) == 0:
+        return int(num_active)
+    return tuple(int(n) for n in np.asarray(num_active).reshape(-1))
+
+
+class _DeviceArrays:
+    """`to(device)` and `pinned()` over the arrays a device reads, which
+    each plan class names once, in `_map(fn)`. The neighbour, child and up
+    maps, keys and coords stay on the host: the model reads only their
+    shapes, and the chunk rulebooks and the point arrays on the device."""
+
+    def _map(self, fn):
+        raise NotImplementedError
+
+    def to(self, device):
+        """The plan on `device` (active counts as host ints)."""
+        return self._map(lambda a: _to(a, device))
+
+    def pinned(self):
+        """The arrays `to` uploads, in page-locked host memory (`pin`)."""
+        return self._map(pin)
+
+
+def _map_each(obj, fn):
+    return None if obj is None else obj._map(fn)
 
 
 @dataclasses.dataclass(frozen=True)
-class ChunkPlan:
+class ChunkPlan(_DeviceArrays):
     """Chunk rulebook of one map (host-built by `build_chunk_arrays`):
     chunk c covers output rows [c*M, (c+1)*M); `in_idx[c]` lists the
     sorted distinct input rows they reference (-1 pad at the end) and
@@ -59,18 +107,17 @@ class ChunkPlan:
     in_idx: object  # int32 [C, U]
     lidx: object    # int32 [C, K, M]
 
-    def to(self, device) -> "ChunkPlan":
-        return ChunkPlan(in_idx=_to(self.in_idx, device),
-                         lidx=_to(self.lidx, device))
+    def _map(self, fn) -> "ChunkPlan":
+        return ChunkPlan(in_idx=fn(self.in_idx), lidx=fn(self.lidx))
 
 
 @dataclasses.dataclass(frozen=True)
-class LevelTopology:
+class LevelTopology(_DeviceArrays):
     """Active-site set of one scale and its submanifold neighbor map."""
 
     keys: object        # int64 [cap], sorted, KEY_PAD padding
     coords: object      # int32 [cap, 4] (b,z,y,x), -1 padding
-    num_active: int
+    num_active: object  # int, or int32 [ns] per-scene counts (blocked)
     nbr: object         # int32 [cap, K] neighbor rows, -1 missing
     chunks: Optional[ChunkPlan] = None
 
@@ -78,15 +125,13 @@ class LevelTopology:
     def cap(self) -> int:
         return self.nbr.shape[0]
 
-    def to(self, device) -> "LevelTopology":
-        return LevelTopology(
-            keys=_to(self.keys, device), coords=_to(self.coords, device),
-            num_active=int(self.num_active), nbr=_to(self.nbr, device),
-            chunks=None if self.chunks is None else self.chunks.to(device))
+    def _map(self, fn) -> "LevelTopology":
+        return dataclasses.replace(self, num_active=_counts(self.num_active),
+                                   chunks=_map_each(self.chunks, fn))
 
 
 @dataclasses.dataclass(frozen=True)
-class LevelTransition:
+class LevelTransition(_DeviceArrays):
     """Size-2 stride-2 down/up maps between level l (fine) and l+1
     (coarse)."""
 
@@ -95,16 +140,14 @@ class LevelTransition:
     child_chunks: Optional[ChunkPlan] = None
     up_chunks: Optional[ChunkPlan] = None
 
-    def to(self, device) -> "LevelTransition":
-        def ch(c):
-            return None if c is None else c.to(device)
-        return LevelTransition(
-            child=_to(self.child, device), up=_to(self.up, device),
-            child_chunks=ch(self.child_chunks), up_chunks=ch(self.up_chunks))
+    def _map(self, fn) -> "LevelTransition":
+        return dataclasses.replace(
+            self, child_chunks=_map_each(self.child_chunks, fn),
+            up_chunks=_map_each(self.up_chunks, fn))
 
 
 @dataclasses.dataclass(frozen=True)
-class Topology:
+class Topology(_DeviceArrays):
     """Full multi-scale plan for one scene."""
 
     levels: Tuple[LevelTopology, ...]
@@ -118,14 +161,13 @@ class Topology:
     # U tier the chunk planner settled on (diagnostics only)
     chunk_tier: object = None
 
-    def to(self, device) -> "Topology":
+    def _map(self, fn) -> "Topology":
         return dataclasses.replace(
-            self, levels=tuple(l.to(device) for l in self.levels),
-            transitions=tuple(t.to(device) for t in self.transitions),
-            p2v=_to(self.p2v, device), num_points=int(self.num_points),
-            vox_seg=_to(self.vox_seg, device),
-            vox_counts=_to(self.vox_counts, device),
-            point_perm=_to(self.point_perm, device))
+            self, levels=tuple(l._map(fn) for l in self.levels),
+            transitions=tuple(t._map(fn) for t in self.transitions),
+            p2v=fn(self.p2v), num_points=int(self.num_points),
+            vox_seg=fn(self.vox_seg), vox_counts=fn(self.vox_counts),
+            point_perm=fn(self.point_perm))
 
 
 @dataclasses.dataclass(frozen=True)

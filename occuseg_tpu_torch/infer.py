@@ -5,9 +5,10 @@
 
 `prepare_scene` runs on the host (NumPy + the C++ planner): the plan, its
 chunk rulebooks, and the sorted point layout with the features permuted
-into it. `Predictor` moves the plan to the device, runs the model's
-forward under `torch.inference_mode()`, and returns every output in the
-request's original point order.
+into it (a plan whose caps the layout does not fit has none, and keeps the
+original order). `Predictor` moves the plan to the device, runs the
+model's forward under `torch.inference_mode()`, and returns every output
+in the request's original point order.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from occuseg_tpu_torch.core.point_layout import (
 )
 from occuseg_tpu_torch.core.topology import PlanSpec, Topology
 from occuseg_tpu_torch.models.occuseg import OccuSegOutputs
-from occuseg_tpu_torch.native.plan import build_plan_host
+from occuseg_tpu_torch.native.blocked import build_plan_host_blocked
 from occuseg_tpu_torch.ops.kernels import chunk_conv
 
 
@@ -38,13 +39,24 @@ class PreparedScene:
         return self.features.shape[0]
 
 
-def plan_scene(coords: np.ndarray, spec: PlanSpec) -> Topology:
-    """Host plan of one scene from coords [P, 4] int32 (b,z,y,x; -1 rows
-    are padding), as the benchmark builds it: C++ planner, chunk
-    rulebooks, sorted point layout."""
-    plan = build_plan_host(coords, spec)
+def plan_scene(coords: np.ndarray, spec: PlanSpec, ns: int = 1) -> Topology:
+    """Host plan from coords [P, 4] int32 (b,z,y,x; -1 rows are padding),
+    as the benchmark builds it: C++ planner (the blocked multi-scene layout
+    for ns > 1 scenes), chunk rulebooks, sorted point layout."""
+    return augment_plan(build_plan_host_blocked(coords, spec, ns))
+
+
+def augment_plan(plan: Topology) -> Topology:
+    """A host plan with its chunk rulebooks and sorted point layout; where
+    the layout does not fit the caps, with the points per voxel alone
+    (host data the InputLayer's mean divides by)."""
     plan = chunk_conv.augment_plan_with_chunks(plan)
-    return augment_plan_with_point_layout(plan)
+    plan = augment_plan_with_point_layout(plan)
+    if plan.vox_counts is None:
+        p2v = np.asarray(plan.p2v)
+        plan = dataclasses.replace(plan, vox_counts=np.bincount(
+            p2v[p2v >= 0], minlength=plan.levels[0].cap).astype(np.float32))
+    return plan
 
 
 def prepare_scene(coords: np.ndarray, features: np.ndarray,
@@ -75,11 +87,24 @@ class Predictor:
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
 
+    def forward(self, features: np.ndarray, plan: Topology
+                ) -> OccuSegOutputs:
+        """The eval-mode forward on a host plan: outputs in the plan's
+        point-layout order."""
+        return self._run(features, plan.to(self.device))
+
+    def _run(self, features: np.ndarray, plan: Topology) -> OccuSegOutputs:
+        self.model.eval()
+        feats = torch.as_tensor(features).to(self.device, non_blocking=True)
+        with torch.inference_mode():
+            return self.model(feats, plan)
+
     def __call__(self, scene: PreparedScene) -> OccuSegOutputs:
         plan = scene.plan.to(self.device)
-        feats = torch.from_numpy(scene.features).to(self.device)
+        out = self._run(scene.features, plan)
+        if plan.point_perm is None:  # no layout: original order
+            return out
         with torch.inference_mode():
-            out = self.model(feats, plan)
             return OccuSegOutputs(*(None if t is None
                                     else unpermute(t, plan.point_perm)
                                     for t in out))

@@ -12,9 +12,11 @@ soft-membership classification BCE * 10 with its instance IoU.
 Instances are globally numbered segments [0, I) across the padded batch;
 -1 (background, padding) is sanitised to I, and every per-instance
 quantity is one segment reduction. The classification term is the JAX
-package's default [P, I] chain. Not ported yet: `drift_loss` (off by
-default, `drift_weight=0`) and the `axis_name` reductions of spatial
-sharding.
+package's default [P, I] chain or, with `OCC_PALLAS_BCE=1` at the shapes
+the JAX package's gate takes, the fused kernels of
+`ops/kernels/bce_loss.py`. `drift_loss` joins the total when
+`drift_weight` is set (off by default). Not ported: the `axis_name`
+reductions of spatial sharding.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from occuseg_tpu_torch.ops.kernels import bce_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +44,7 @@ class LossConfig:
     semantic_loss: str = "cross_entropy"
     # per-class weights for weighted_cross_entropy; None = ScanNet table
     ce_weights: Tuple[float, ...] | None = None
-    # DriftLoss coefficient (off by default; not ported yet)
+    # DriftLoss coefficient (off by default)
     drift_weight: float = 0.0
 
 
@@ -74,11 +78,12 @@ def _seg_sum(x: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
 def _seg_max(x: torch.Tensor, seg: torch.Tensor, num: int,
              fill) -> torch.Tensor:
     """[num] max of x by segment id, at least `fill` (the value of an
-    empty segment); ids outside [0, num) are dropped."""
+    empty segment); ids outside [0, num) are dropped (sent to a spare
+    row: boolean indexing would make the host wait for the card)."""
     keep = (seg >= 0) & (seg < num)
-    out = torch.full((num,), fill, dtype=x.dtype, device=x.device)
-    return out.scatter_reduce(0, seg[keep].long(), x[keep], "amax",
-                              include_self=True)
+    out = torch.full((num + 1,), fill, dtype=x.dtype, device=x.device)
+    ids = torch.where(keep, seg, num).long()
+    return out.scatter_reduce(0, ids, x, "amax", include_self=True)[:num]
 
 
 def _seg_mean(x: torch.Tensor, seg: torch.Tensor, num: int):
@@ -216,6 +221,18 @@ def classification_loss(embedding: torch.Tensor, bw: torch.Tensor,
     scene_i, count_i, _, exists = _instance_stats(instance_id, point_scene,
                                                   labels, I)
     use = exists & (count_i >= cfg.min_instance_points)
+    n_inst = torch.clamp(use.float().sum(), min=1.0)
+
+    # the fused kernels (OCC_PALLAS_BCE=1), at the JAX package's gate
+    if bce_loss.supported(e.shape[0], I, e.shape[1]):
+        bce_sum, n_samp, tp, fp, tot = bce_loss.bce_membership_sums(
+            e, rx, sig, mu, mean_pose, x, instance_id, point_scene, scene_i,
+            use)
+        per_inst = bce_sum / torch.clamp(n_samp, min=1)
+        loss = (_where0(use, per_inst).sum() / n_inst
+                * cfg.classification_weight)
+        iou = tp / torch.clamp(tot + fp, min=1.0)
+        return loss, _where0(use, iou).sum() / n_inst
 
     d_emb = torch.sqrt(_sqdist(e, mu) + 1e-12)             # [P, I]
     d_spat_r = torch.sqrt(_sqdist(rx, mean_pose) + 1e-12)
@@ -237,7 +254,6 @@ def classification_loss(embedding: torch.Tensor, bw: torch.Tensor,
     bce = _where0(sample, bce)
     n_samp = sample.sum(0)
     per_inst = bce.sum(0) / torch.clamp(n_samp, min=1)
-    n_inst = torch.clamp(use.float().sum(), min=1.0)
     loss = (_where0(use, per_inst).sum() / n_inst
             * cfg.classification_weight)
 
@@ -322,8 +338,6 @@ def occuseg_total_loss(outputs, batch: Dict[str, torch.Tensor],
     OccuSegOutputs with bw and occupancy; batch holds, per point (padding
     rows label = instance = -1): labels, instance_id, point_scene, pose
     [P, 3], offsets [P, 1], displacements [P, 3], occupancy [P, 1]."""
-    if cfg.drift_weight:
-        raise NotImplementedError("drift_loss is not ported yet")
     labels = batch["labels"]
     iid = batch["instance_id"]
     pscene = batch["point_scene"]
@@ -358,6 +372,44 @@ def occuseg_total_loss(outputs, batch: Dict[str, torch.Tensor],
         "semantic_loss": sem, "embedding_loss": emb,
         "regression_loss": regression, "displacement_loss": displacement,
         "classification_loss": classification, "occupancy_loss": occupancy,
-        "instance_iou": miou, "total": total,
+        "instance_iou": miou,
     }
+    if cfg.drift_weight:
+        drift = drift_loss(outputs.embedding, regressed_pose, batch["pose"],
+                           outputs.offset, iid, labels, pscene, num_scenes,
+                           num_instances, cfg)
+        total = total + cfg.drift_weight * drift
+        parts["drift_loss"] = cfg.drift_weight * drift
+    parts["total"] = total
     return total, parts
+
+
+def drift_loss(embedding: torch.Tensor, regressed_pose: torch.Tensor,
+               pose: torch.Tensor, offset_pred: torch.Tensor,
+               instance_id: torch.Tensor, labels: torch.Tensor,
+               point_scene: torch.Tensor, num_scenes: int,
+               num_instances: int, cfg: LossConfig = LossConfig()
+               ) -> torch.Tensor:
+    """DriftLoss: for foreground instances, the L1 between offset-weighted
+    embeddings / regressed poses and the offset-weighted instance means,
+    over points with offset > 0.01, averaged per instance and then over
+    the instances that have such points."""
+    I = num_instances
+    seg = _sanitize_seg(instance_id, I)
+    valid_pt = instance_id >= 0
+    valid = valid_pt & (offset_pred.reshape(-1) > 0.01)
+    e = embedding.float()
+    rp = regressed_pose.float()
+    w = offset_pred.reshape(-1, 1).float()
+    mu_e, _ = _seg_mean(_where0(valid_pt[:, None], e), seg, I + 1)
+    mu_p, _ = _seg_mean(_where0(valid_pt[:, None], pose.float()), seg, I + 1)
+    _, _, cls_i, exists = _instance_stats(instance_id, point_scene, labels, I)
+    fg = exists & (cls_i >= cfg.foreground_class_threshold)
+    err = ((e * w - _seg_lookup(mu_e[:I], seg, I) * w).abs().mean(1)
+           + (rp * w - _seg_lookup(mu_p[:I], seg, I) * w).abs().mean(1))
+    use = valid & fg[torch.clamp(seg, 0, I - 1).long()]
+    per_inst = _seg_sum(_where0(use, err), seg, I + 1)[:I]
+    per_cnt = _seg_sum(use.float(), seg, I + 1)[:I]
+    per_inst = _where0(per_cnt > 0, per_inst / torch.clamp(per_cnt, min=1))
+    n_fg = torch.clamp((fg & (per_cnt > 0)).float().sum(), min=1.0)
+    return per_inst.sum() / n_fg

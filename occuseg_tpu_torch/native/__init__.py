@@ -5,8 +5,9 @@ gitignored `occuseg_tpu_torch/build/` directory (nothing is written into
 `csrc/`). There is no NumPy fallback: if the library cannot be built or
 loaded, the first call raises.
 
-Only the planner entry points the inference path needs are bound. Two of
-them get input checks in front of the C code, which trusts its callers:
+Only the planner entry points the port's paths need are bound. ctypes
+releases the GIL for the duration of each call, so plans build in threads
+(`native/pool.py`). Two of them get input checks in front of the C code, which trusts its callers:
 `plan_neighbor_map_derived` indexes a 3x3x3 table by the offsets and leaves
 cells unset on a duplicate-offset list, and `gather_rows` reads
 `src[perm[i]]` without a bounds check.
@@ -38,6 +39,8 @@ def load() -> ctypes.CDLL:
     """Build (first use) and load the planner library; raises on failure."""
     lib = ctypes.CDLL(build_shared_library("occ_native", [_SOURCE], _CXX,
                                            _FLAGS))
+    lib.voxelize_points.restype = ctypes.c_int32
+    lib.voxelize_points.argtypes = [_i32p, ctypes.c_int32, _i32p]
     lib.plan_voxelize.restype = ctypes.c_int32
     lib.plan_voxelize.argtypes = [_i32p, ctypes.c_int32, ctypes.c_int32,
                                   _i64p, _i32p, _i32p]
@@ -70,6 +73,16 @@ def _ptr(a: np.ndarray, ctype):
 
 def _i32(a) -> np.ndarray:
     return np.ascontiguousarray(a, np.int32)
+
+
+def voxelize_points(coords: np.ndarray) -> np.ndarray:
+    """Point -> voxel id [P] int32 by hash dedup of the (b, z, y, x) rows
+    in first-seen order (-1 for pad rows with b < 0)."""
+    c = _i32(coords)
+    out = np.empty(c.shape[0], np.int32)
+    load().voxelize_points(_ptr(c, ctypes.c_int32), c.shape[0],
+                           _ptr(out, ctypes.c_int32))
+    return out
 
 
 def plan_voxelize(point_coords: np.ndarray, cap: int

@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels, built and bound at first use.
 
-The kernels (`csrc/chunk_conv.cu`, `csrc/chunk_conv_bwd.cu` and
-`csrc/segsum.cu` in this package, with the shared `csrc/chunk_conv.cuh`)
-are compiled by `nvcc` for `sm_90a` into one shared library with a plain C
+The kernels (`csrc/chunk_conv.cu`, `csrc/chunk_conv_bwd.cu`,
+`csrc/segsum.cu`, `csrc/bce_loss.cu` and `csrc/gather_conv.cu` in this
+package, with the shared `csrc/chunk_conv.cuh`) are compiled by `nvcc` for `sm_90a` into one shared library with a plain C
 interface and loaded through ctypes: no PyTorch headers, so the build
 takes seconds. Pointers and the stream go over as `ctypes.c_void_p`; each
 entry returns a `cudaError_t` that `check` turns into an exception.
@@ -22,7 +22,8 @@ import torch
 from occuseg_tpu_torch._build import PKG_DIR, build_shared_library
 
 _SOURCES = tuple(os.path.join(PKG_DIR, "csrc", f)
-                 for f in ("chunk_conv.cu", "chunk_conv_bwd.cu", "segsum.cu"))
+                 for f in ("chunk_conv.cu", "chunk_conv_bwd.cu", "segsum.cu",
+                           "bce_loss.cu", "gather_conv.cu"))
 _HEADERS = (os.path.join(PKG_DIR, "csrc", "chunk_conv.cuh"),)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -63,6 +64,19 @@ def load() -> ctypes.CDLL:
     lib.occ_blocked_segment_sum.restype = _int
     lib.occ_blocked_segment_sum.argtypes = [_vp, _int, _vp, _int, _int, _int,
                                             _vp, _vp]
+    lib.occ_bce_radius.restype = _int
+    lib.occ_bce_radius.argtypes = [_vp, _vp, _int, _vp, _vp, _int, _vp, _int,
+                                   _vp]
+    lib.occ_bce_fwd.restype = _int
+    lib.occ_bce_fwd.argtypes = [_vp, _int, _int, _vp, _vp, _vp, _vp, _vp, _vp,
+                                _vp, _int, _int, _int, _vp, _vp, _vp]
+    lib.occ_bce_bwd.restype = _int
+    lib.occ_bce_bwd.argtypes = [_vp, _int, _int, _vp, _vp, _vp, _vp, _vp, _vp,
+                                _vp, _int, _vp, _int, _int, _vp, _vp, _vp,
+                                _vp, _vp, _vp, _vp]
+    lib.occ_gather_conv.restype = _int
+    lib.occ_gather_conv.argtypes = [_vp, _int, _int, _vp, _int, _vp, _int, _vp,
+                                    _int, _vp]
     return lib
 
 
@@ -92,7 +106,8 @@ def require_cuda_input(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
     if torch.is_grad_enabled() and t.requires_grad:
         raise RuntimeError(f"{name} requires grad, but a kernel wrapper is "
-                           f"not differentiable: differentiate through "
-                           f"chunk_conv.chunk_gather_conv or "
-                           f"chunk_gather_conv_t, or call it under "
-                           f"torch.no_grad")
+                           f"not differentiable: differentiate through its "
+                           f"autograd entry point (chunk_conv."
+                           f"chunk_gather_conv / chunk_gather_conv_t, "
+                           f"bce_loss.bce_membership_sums), or call it "
+                           f"under torch.no_grad")

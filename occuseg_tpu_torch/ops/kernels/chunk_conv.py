@@ -78,7 +78,13 @@ def augment_plan_with_chunks(plan, M: int = DEFAULT_M, U=None, U_child=None,
     1.3 is not enough, the whole plan is scaled by each later tier in
     turn. Under the last tier, maps that still overflow keep
     `chunks=None`, and a forward over them raises. The plan returned
-    records the tier in `chunk_tier`."""
+    records the tier in `chunk_tier`.
+
+    A blocked multi-scene plan (`native/blocked.py`, vector
+    `num_active`) is planned as it stands: its per-scene caps are
+    multiples of M, so no chunk straddles two scenes, and each chunk's
+    input list is the JAX package's scene-local list shifted to global
+    rows."""
     n_lvl = len(plan.levels)
     factors = [1.0] * n_lvl
     for _ in range(n_lvl + 1):

@@ -4,7 +4,9 @@
 Reference semantics: statistics over the active rows only, in f32 whatever
 the feature dtype; eps 1e-4 inside the square root; the affine is applied
 in the feature dtype; activation y > 0 ? y : leakiness * y (0 = ReLU,
-1 = identity); rows at or past num_active come out exactly zero. In
+1 = identity); rows that are not active (`core/sparse_tensor.active_mask`,
+for one scene or the blocked multi-scene layout) come out exactly zero,
+and the statistics run over the active rows of every scene. In
 training mode the biased batch variance normalises and the unbiased one
 enters the running variance, and momentum is a DECAY:
 r = momentum * r + (1 - momentum) * batch, the opposite of
@@ -15,10 +17,14 @@ from __future__ import annotations
 
 import torch
 
-from occuseg_tpu_torch.core.sparse_tensor import active_mask
+from occuseg_tpu_torch.core.sparse_tensor import (
+    NumActive,
+    active_mask,
+    total_active,
+)
 
 
-def _affine(feats: torch.Tensor, num_active: int, mean: torch.Tensor,
+def _affine(feats: torch.Tensor, num_active: NumActive, mean: torch.Tensor,
             inv_std: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             leakiness: float) -> torch.Tensor:
     w = inv_std * scale.float()
@@ -26,14 +32,16 @@ def _affine(feats: torch.Tensor, num_active: int, mean: torch.Tensor,
     dt = feats.dtype
     y = feats * w.to(dt) + b.to(dt)
     if leakiness != 1.0:
+        # a device fill, not a host scalar copied over (which would make
+        # the host wait for the card)
         y = torch.where(y > 0, y,
-                        torch.as_tensor(leakiness, dtype=dt,
-                                        device=y.device) * y)
+                        torch.full((), leakiness, dtype=dt,
+                                   device=y.device) * y)
     mask = active_mask(num_active, feats.shape[0], feats.device)[:, None]
     return torch.where(mask, y, torch.zeros((), dtype=dt, device=y.device))
 
 
-def batch_norm_eval(feats: torch.Tensor, num_active: int,
+def batch_norm_eval(feats: torch.Tensor, num_active: NumActive,
                     scale: torch.Tensor, bias: torch.Tensor,
                     running_mean: torch.Tensor, running_var: torch.Tensor,
                     *, eps: float = 1e-4, leakiness: float = 1.0
@@ -44,7 +52,7 @@ def batch_norm_eval(feats: torch.Tensor, num_active: int,
                    leakiness)
 
 
-def batch_norm_train(feats: torch.Tensor, num_active: int,
+def batch_norm_train(feats: torch.Tensor, num_active: NumActive,
                      scale: torch.Tensor, bias: torch.Tensor,
                      running_mean: torch.Tensor, running_var: torch.Tensor,
                      *, eps: float = 1e-4, momentum: float = 0.9,
@@ -55,7 +63,7 @@ def batch_norm_train(feats: torch.Tensor, num_active: int,
     instead)."""
     f = feats.float()
     mask = active_mask(num_active, feats.shape[0], feats.device)[:, None]
-    n = float(max(num_active, 1))
+    n = float(max(total_active(num_active), 1))
     zero = torch.zeros((), dtype=torch.float32, device=feats.device)
     sum_f = torch.where(mask, f, zero).sum(0)
     sumsq = torch.where(mask, f * f, zero).sum(0)

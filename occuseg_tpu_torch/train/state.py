@@ -1,20 +1,25 @@
 """Single-device training step (counterpart of `occuseg_tpu/train/state.py`).
 
-    batch, plan = prepare_batch(make_batch(...), PlanSpec(caps))   # host
-    trainer = Trainer(LearningBWDenseUNet(n_planes, compute_dtype=bf16))
+    batch, plan = prepare_batch(make_batch(...), PlanSpec(caps), ns)  # host
+    trainer = Trainer(LearningBWDenseUNet(n_planes, compute_dtype=bf16),
+                      num_scenes=ns)
     parts = trainer.step(batch, plan)   # dict of 0-d tensors on the card
 
 `prepare_batch` builds the host plan (C++ planner, chunk rulebooks, sorted
-point layout) and permutes every per-point array of the batch into the
-layout, as the benchmark prepares a scene. `Trainer.step` moves both to the
-device, runs the forward in train mode (batch statistics, running
-statistics updated in place), the 6-term loss, the backward through the
-chunk-conv kernels, and one optimizer update. The entry point runs on
-"cuda" unless the caller passes another device.
+point layout; the blocked layout of `native/blocked.py` for ns > 1 scenes)
+and permutes every per-point array of the batch into the layout.
+`Trainer.step` moves both to the device, runs the forward in train mode
+(batch statistics, running statistics updated in place), the 6-term loss,
+the backward through the chunk-conv kernels, and one optimizer update, or,
+with `accum_steps` = N > 1, `optax.MultiSteps`' semantics: the gradients
+of N calls are averaged and the update is applied on the N-th (the BN
+statistics update on every call). `Trainer.evaluate` is the eval step: the
+eval-mode forward. The entry points run on "cuda" unless the caller passes
+another device.
 
-Not ported yet: gradient accumulation (`accum_steps`), the data-parallel
-loss weight `_w` and the `axis_name` reductions. `optax.flatten` needs no
-counterpart: it only fuses the elementwise update on the TPU.
+Not ported: the data-parallel loss weight `_w` and the `axis_name`
+reductions (ROADMAP A9). `optax.flatten` needs no counterpart: it only
+fuses the elementwise update on the TPU.
 """
 
 from __future__ import annotations
@@ -26,9 +31,10 @@ import numpy as np
 import torch
 
 from occuseg_tpu_torch.core.point_layout import apply_point_layout
-from occuseg_tpu_torch.core.topology import PlanSpec, Topology
-from occuseg_tpu_torch.infer import plan_scene
+from occuseg_tpu_torch.core.topology import PlanSpec, Topology, pin
+from occuseg_tpu_torch.infer import Predictor, plan_scene
 from occuseg_tpu_torch.losses.instance import LossConfig, occuseg_total_loss
+from occuseg_tpu_torch.models.occuseg import OccuSegOutputs
 
 # the batch arrays the forward and the loss read
 _BATCH_KEYS = ("features", "labels", "instance_id", "point_scene", "pose",
@@ -46,6 +52,9 @@ class TrainConfig:
     optimizer: str = "adam"
     momentum: float = 0.9
     weight_decay: float = 1e-4
+    # gradient accumulation: average the gradients of N calls and update
+    # on the N-th (optax.MultiSteps)
+    accum_steps: int = 1
 
 
 def make_optimizer(params, cfg: TrainConfig = TrainConfig()):
@@ -71,44 +80,93 @@ def make_optimizer(params, cfg: TrainConfig = TrainConfig()):
     return opt, sched
 
 
-def prepare_batch(batch: Dict[str, np.ndarray], spec: PlanSpec
-                  ) -> Tuple[Dict[str, np.ndarray], Topology]:
-    """Host preparation of a one-scene training batch (`make_batch`
+def prepare_batch(batch: Dict[str, np.ndarray], spec: PlanSpec,
+                  ns: int = 1) -> Tuple[Dict[str, np.ndarray], Topology]:
+    """Host preparation of a training batch of `ns` scenes (`make_batch`
     schema): (the batch with every per-point array in the plan's point
-    layout, the host plan)."""
-    plan = plan_scene(batch["coords"], spec)
-    return apply_point_layout(batch, plan, num_scenes=1), plan
+    layout, pad slots of point_scene set to ns; the host plan, blocked for
+    ns > 1)."""
+    plan = plan_scene(batch["coords"], spec, ns)
+    return apply_point_layout(batch, plan, num_scenes=ns), plan
+
+
+def pinned(batch: Dict[str, np.ndarray], plan: Topology
+           ) -> Tuple[Dict[str, object], Topology]:
+    """A prepared batch with what `Trainer.step` uploads as CPU tensors in
+    page-locked host memory (`core.topology.pin`; loader threads call it
+    when training on a card)."""
+    return ({k: pin(v) if k in _BATCH_KEYS else v for k, v in batch.items()},
+            plan.pinned())
 
 
 class Trainer:
     """Trains an OccuSeg model (with bw and occupancy heads) on one
     device. The optimizer's gradients stay on the parameters after each
-    step until the next one."""
+    update until the next cycle starts."""
 
     def __init__(self, model: torch.nn.Module, device="cuda",
                  cfg: TrainConfig = TrainConfig(),
                  loss_cfg: LossConfig = LossConfig(),
-                 num_instances: int = 64):
+                 num_instances: int = 64, num_scenes: int = 1):
         self.device = torch.device(device)
         self.model = model.to(self.device).train()
         self.optimizer, self.scheduler = make_optimizer(
             self.model.parameters(), cfg)
         self.loss_cfg = loss_cfg
         self.num_instances = num_instances
+        self.num_scenes = num_scenes
+        self.accum_steps = max(int(cfg.accum_steps), 1)
+        self.steps = 0   # calls of `step`, as the JAX TrainState.step
+
+    def _inputs(self, batch, plan):
+        plan = plan.to(self.device)
+        b = {k: torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
+             for k in _BATCH_KEYS}
+        return b, plan
 
     def step(self, batch: Dict[str, np.ndarray], plan: Topology
              ) -> Dict[str, torch.Tensor]:
-        """One update from a prepared batch and its host plan; returns the
+        """One call from a prepared batch and its host plan; returns the
         loss parts (and "total") as detached 0-d tensors on the device."""
-        plan = plan.to(self.device)
-        b = {k: torch.as_tensor(batch[k]).to(self.device)
-             for k in _BATCH_KEYS}
+        b, plan = self._inputs(batch, plan)
         self.model.train()
         out = self.model(b["features"], plan)
-        total, parts = occuseg_total_loss(out, b, 1, self.num_instances,
-                                          self.loss_cfg)
-        self.optimizer.zero_grad(set_to_none=True)
+        total, parts = occuseg_total_loss(out, b, self.num_scenes,
+                                          self.num_instances, self.loss_cfg)
+        micro = self.steps % self.accum_steps
+        if micro == 0:
+            self.optimizer.zero_grad(set_to_none=True)
         total.backward()
-        self.optimizer.step()
-        self.scheduler.step()
+        if micro == self.accum_steps - 1:
+            if self.accum_steps > 1:
+                for p in self.model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(self.accum_steps)
+            self.optimizer.step()
+            self.scheduler.step()
+        self.steps += 1
         return {k: v.detach() for k, v in parts.items()}
+
+    def evaluate(self, batch: Dict[str, np.ndarray], plan: Topology
+                 ) -> OccuSegOutputs:
+        """The eval step: `Predictor.forward` (running statistics), outputs
+        in the plan's point-layout order."""
+        try:
+            return Predictor(self.model, self.device).forward(
+                batch["features"], plan)
+        finally:
+            self.model.train()
+
+    def state_dict(self) -> Dict:
+        """Model (parameters and BN statistics), optimizer, schedule and
+        step counter."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(),
+                "steps": self.steps}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.steps = int(state["steps"])

@@ -24,7 +24,7 @@ from occuseg_tpu.core.point_layout import (
 )
 from occuseg_tpu.core.topology import PlanSpec as JaxPlanSpec
 from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.native.plan import build_plan_host as jax_build_plan_host
+from tests.jax_planner import host_plan as jax_build_plan_host
 from occuseg_tpu.ops import norm as jax_norm
 from occuseg_tpu.ops import pool as jax_pool
 from occuseg_tpu.ops.pallas import chunk_conv as jax_cc

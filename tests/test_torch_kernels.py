@@ -10,7 +10,9 @@ conftest:
 It covers what the main path does not reach: chunks of M=64, channel
 counts that are not multiples of the kernels' 64-column tiles, the dW
 kernel's split into chunk ranges, both backward routes through autograd,
-and the wrappers' input checks.
+and the wrappers' input checks; and, small, what the training CLI's path
+gives the kernels: the chunk plans of a blocked two-scene plan, and a plan
+uploaded from page-locked memory.
 """
 
 import numpy as np
@@ -191,6 +193,86 @@ def test_conv_backward_on_card_matches_cpu(dev, plan, kind, fused):
     _check(d_w.cpu(), ref_w, DW_TOL)
 
 
+@pytest.fixture(scope="module")
+def blocked_plan():
+    """The host plan of a blocked two-scene batch, chunked as the training
+    loop's (`train.state.prepare_batch`): scene-pure chunks, global
+    in_idx rows, per-scene active counts."""
+    from occuseg_tpu_torch.train.state import prepare_batch
+    batch = make_batch(SceneConfig(num_points=5_000, extent=96,
+                                   num_objects=6),
+                       num_scenes=2, p_cap=16_384, num_instances=16, seed=4)
+    _, plan = prepare_batch(batch, PlanSpec(caps=(12_288, 8_192, 4_096)),
+                            ns=2)
+    assert np.ndim(plan.levels[0].num_active) == 1
+    return plan
+
+
+@pytest.mark.parametrize("kind", ["nbr", "child", "up"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_blocked_plan_conv_on_card_matches_cpu(dev, blocked_plan, kind,
+                                               fused):
+    """The forward and one backward route on the blocked plan's own chunk
+    plans, on the card (kernels) against the CPU (plain versions), f32,
+    with the pad rows of both scenes zero as in the model."""
+    from occuseg_tpu_torch.core.sparse_tensor import active_mask
+    p = blocked_plan
+    tr = p.transitions[0]
+    l0, l1 = p.levels[0], p.levels[1]
+    fwd, tp, n_in, n_out = {
+        "nbr": (l0.chunks, l0.chunks, l0, l0),
+        "child": (tr.child_chunks, tr.up_chunks, l0, l1),
+        "up": (tr.up_chunks, tr.child_chunks, l1, l0)}[kind]
+    cin, cout = 32, 48
+    g = torch.Generator().manual_seed(6)
+    K = fwd.lidx.shape[1]
+    feats = torch.randn(n_in.cap, cin, generator=g)
+    feats[~active_mask(n_in.num_active, n_in.cap)] = 0
+    cot = torch.randn(n_out.cap, cout, generator=g)
+    cot[~active_mask(n_out.num_active, n_out.cap)] = 0
+    w = torch.randn(K, cin, cout, generator=g) / (cin * K) ** 0.5
+    cpu = torch.device("cpu")
+
+    def run(d):
+        fi, fl, ti, tl = (torch.from_numpy(a).to(d) for a in (
+            fwd.in_idx, fwd.lidx, tp.in_idx, tp.lidx))
+        with torch.no_grad():
+            out = cc.chunk_conv(feats.to(d), fi, fl, w.to(d))
+        args = [t.to(d) for t in (cot, feats)] + [fi, fl]
+        if kind == "nbr":
+            return (out, *cc.sub_conv_backward(*args, w.to(d), fused))
+        return (out, *cc.t_conv_backward(*args, ti, tl, w.to(d), fused))
+
+    on_card = run(dev)
+    torch.cuda.synchronize()
+    ref = run(cpu)
+    for a, b, tol in zip(on_card, ref, (1e-5, 1e-5, DW_TOL)):
+        _check(a.cpu(), b, tol)
+
+
+def test_pinned_plan_uploads_the_same(dev, blocked_plan):
+    """`pinned()` holds what `to()` uploads as page-locked CPU tensors
+    (the upload's own source, so the host allocator tracks the copy); both
+    uploads give the same device arrays."""
+    from occuseg_tpu_torch.train.state import pinned
+    pp = blocked_plan.pinned()
+    for a in (pp.p2v, pp.vox_seg, pp.levels[1].chunks.lidx,
+              pp.transitions[0].up_chunks.in_idx):
+        assert isinstance(a, torch.Tensor) and a.is_pinned()
+    assert pp.levels[0].nbr is blocked_plan.levels[0].nbr
+    a, b = blocked_plan.to(dev), pp.to(dev)
+    torch.cuda.synchronize()
+    for x, y in ((a.p2v, b.p2v), (a.vox_counts, b.vox_counts),
+                 (a.levels[2].chunks.lidx, b.levels[2].chunks.lidx),
+                 (a.transitions[1].child_chunks.in_idx,
+                  b.transitions[1].child_chunks.in_idx)):
+        assert x.is_cuda and torch.equal(x, y)
+    batch, _ = pinned({"features": np.ones((4, 3), np.float32),
+                       "coords": np.zeros((4, 4), np.int32)}, blocked_plan)
+    assert batch["features"].is_pinned()
+    assert isinstance(batch["coords"], np.ndarray)
+
+
 def test_chunk_conv_rejects_what_it_cannot_take(dev, plan):
     in_idx, lidx = (torch.from_numpy(a).to(dev) for a in
                     cc.build_chunk_arrays(plan.levels[0].nbr, 128, 512))
@@ -221,3 +303,98 @@ def test_segment_sum_matches_plain(dev, plan):
                                   cap0)
     torch.cuda.synchronize()
     _check(out, ref, TOL[torch.float32])
+
+
+# The BCE kernels (TPU rows #6-#8) on `bce_loss.exact_inputs`: every pair
+# decision is exact in f32, so the counts must match exactly; the bce and
+# gradient sums differ by f32 summation order over up to P terms and by
+# the card's exp/log (1e-5 of the largest sum for the forward; 1e-4 for the
+# backward, whose dmu = 2 (mu * sum g0 - sum g0 e) cancels).
+@pytest.mark.parametrize("P,I,E", [(1000, 8, 16), (4096, 128, 64),
+                                   (2000, 40, 136)])
+def test_bce_kernels_match_plain(dev, P, I, E):
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    e, rx4, x4, seg, scene, mu, mp4, cons, g = bce_loss.exact_inputs(
+        P, I, E, seed=P + I, device=dev)
+    before = (bce_loss.radius_sq.launches, bce_loss.bce_sums.launches,
+              bce_loss.bce_sums_bwd.launches)
+    r = bce_loss.radius_sq(x4, seg, mp4, cons[bce_loss.MP_SQ])
+    r_ref = bce_loss.radius_sq_plain(x4, seg, mp4, cons[bce_loss.MP_SQ])
+    assert torch.equal(r, r_ref)
+    cons = bce_loss.with_radius(x4, seg, mp4, cons)
+    out = bce_loss.bce_sums(e, rx4, x4, seg, scene, mu, mp4, cons)
+    ref = bce_loss.bce_sums_plain(e, rx4, x4, seg, scene, mu, mp4, cons)
+    assert torch.equal(out[1:], ref[1:])            # counts: exact
+    assert ref[1].sum() > 0 and ref[4].sum() > 0
+    _check(out[0], ref[0], 1e-5)
+    got = bce_loss.bce_sums_bwd(e, rx4, x4, seg, scene, mu, mp4, cons, g)
+    want = bce_loss.bce_sums_bwd_plain(e, rx4, x4, seg, scene, mu, mp4,
+                                       cons, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        _check(a, b, 1e-4)
+    # radius_sq ran twice: above, and inside with_radius
+    assert (bce_loss.radius_sq.launches, bce_loss.bce_sums.launches,
+            bce_loss.bce_sums_bwd.launches) == \
+        tuple(n + k for n, k in zip(before, (2, 1, 1)))
+
+
+def test_bce_membership_sums_gradients_match_plain(dev):
+    """The autograd entry point on the card against the same function on
+    the CPU (plain versions), through torch.autograd."""
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    rng = np.random.default_rng(7)
+    P, I, E = 1024, 16, 32
+    iid = rng.integers(0, I, P)
+    iid[rng.random(P) < 0.2] = -1
+    pose = rng.normal(0, 4.0, (I, 3))[np.clip(iid, 0, I - 1)] \
+        + rng.normal(0, 0.7, (P, 3))
+    data = dict(e=rng.normal(0, 1, (P, E)), rx=pose + rng.normal(0, .3, (P, 3)),
+                sig=rng.normal(0.5, 0.2, (I, 2)), mu=rng.normal(0, 1, (I, E)),
+                mean_pose=rng.normal(0, 4, (I, 3)), x=pose)
+    ids = dict(instance_id=iid, point_scene=np.arange(P) * 2 // P,
+               scene_i=rng.integers(0, 2, I), use=rng.random(I) < 0.9)
+
+    def run(device):
+        t = {k: torch.tensor(v, dtype=torch.float32, device=device,
+                             requires_grad=k in ("e", "rx", "sig", "mu"))
+             for k, v in data.items()}
+        t.update({k: torch.tensor(v, device=device) for k, v in ids.items()})
+        out = bce_loss.bce_membership_sums(**t)
+        (out[0] * torch.linspace(0.5, 1.5, I, device=device)).sum().backward()
+        return ([o.detach().cpu() for o in out],
+                [t[k].grad.cpu() for k in ("e", "rx", "sig", "mu")])
+
+    (o_card, g_card), (o_cpu, g_cpu) = run(dev), run("cpu")
+    torch.cuda.synchronize()
+    _check(o_card[0], o_cpu[0], 1e-4)
+    for a, b in zip(g_card, g_cpu):
+        _check(a, b, 1e-3)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("level,cin,cout", [(0, 8, 24), (0, 64, 64),
+                                            (3, 136, 72), (4, 256, 320)])
+def test_gather_conv_matches_plain(dev, plan, dt, level, cin, cout):
+    """TPU row #9 against its plain version; Cin and Cout multiples of 8
+    but not of the kernel's tiles, and levels whose rows are not a
+    multiple of the 64-row block."""
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    nbr = plan.levels[level].nbr
+    N = nbr.shape[0] - 40                  # rows past the block grid
+    nbr_kn = np.where(nbr[:N] < N, nbr[:N], -1).T.copy()
+    rng = np.random.default_rng(level)
+    feats = torch.tensor(rng.standard_normal((N, cin)), dtype=dt, device=dev)
+    w = torch.tensor(rng.standard_normal((27, cin, cout)) / cin ** 0.5,
+                     dtype=dt, device=dev)
+    nk = torch.from_numpy(nbr_kn).to(dev)
+    before = gc.gather_conv.launches
+    out = gc.gather_conv(feats, nk, w)
+    ref = gc.gather_conv_plain(feats, nk, w)
+    torch.cuda.synchronize()
+    assert gc.gather_conv.launches == before + 1
+    assert out.dtype == dt and out.shape == (N, cout)
+    _check(out, ref, TOL[dt])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gc.gather_conv(feats[:, :4].contiguous(), nk, w[:, :4].contiguous())

@@ -26,7 +26,7 @@ from occuseg_tpu.core.point_layout import (
 from occuseg_tpu.core.topology import PlanSpec as JaxPlanSpec
 from occuseg_tpu.data.synthetic import SceneConfig, make_batch
 from occuseg_tpu.models import LearningBWDenseUNet as JaxLearningBW
-from occuseg_tpu.native.plan import build_plan_host as jax_build_plan_host
+from tests.jax_planner import host_plan as jax_build_plan_host
 from occuseg_tpu.ops.pallas import chunk_conv as jax_cc
 
 from occuseg_tpu_torch.convert import from_flax

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from occuseg_tpu.core.point_layout import (
@@ -17,7 +18,7 @@ from occuseg_tpu.core.point_layout import (
 )
 from occuseg_tpu.core.topology import PlanSpec as JaxPlanSpec
 from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.native.plan import build_plan_host as jax_build_plan_host
+from tests.jax_planner import host_plan as jax_build_plan_host
 from occuseg_tpu.ops import conv as jax_conv
 from occuseg_tpu.ops import norm as jax_norm
 from occuseg_tpu.ops import pool as jax_pool
@@ -174,9 +175,24 @@ def test_voxelize_mean_and_devoxelize_match_jax(layout_plans):
 
 
 def test_voxelize_needs_point_layout(small_plan):
-    with pytest.raises(ValueError, match="point layout"):
-        pool_ops.voxelize_features(torch.zeros(2048, 3),
-                                   _t(small_plan.p2v), 512, None, None)
+    """Without the sorted point layout (caps it does not fit) the port
+    takes the JAX package's fallback, a segment sum over p2v: the voxel
+    means and the gradient of the point gather match `jax.ops.
+    segment_sum`'s path, in f32 to 1e-5."""
+    x = np.random.default_rng(8).standard_normal((2048, 3)).astype(
+        np.float32)
+    p2v = small_plan.p2v
+    want = jax_pool.voxelize_features(jnp.asarray(x), jnp.asarray(p2v), 512)
+    got = pool_ops.voxelize_features(_t(x), _t(p2v), 512, None, None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    vox = torch.from_numpy(np.asarray(want)).requires_grad_()
+    ct = np.random.default_rng(9).standard_normal((2048, 3)).astype(
+        np.float32)
+    (pool_ops.devoxelize_features(vox, _t(p2v), None) * _t(ct)).sum() \
+        .backward()
+    g = jax.grad(lambda v: jnp.sum(jax_pool.devoxelize_features(
+        v, jnp.asarray(p2v)) * ct))(jnp.asarray(want))
+    np.testing.assert_allclose(vox.grad.numpy(), np.asarray(g), **TOL)
 
 
 @pytest.mark.parametrize("leakiness", [0.0, 0.333, 1.0])

@@ -13,7 +13,7 @@ from occuseg_tpu.core.point_layout import (
 )
 from occuseg_tpu.core.topology import PlanSpec as JaxPlanSpec
 from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.native.plan import build_plan_host as jax_build_plan_host
+from tests.jax_planner import host_plan as jax_build_plan_host
 from occuseg_tpu.ops.pallas import chunk_conv as jax_cc
 
 from occuseg_tpu_torch import native
@@ -148,10 +148,22 @@ def test_plan_to_device_keeps_values():
     tp = augment_plan_with_point_layout(cc.augment_plan_with_chunks(
         tp, M=64, U=(192, 192), U_child=256, U_up=128))
     dp = tp.to("cpu")
-    assert isinstance(dp.levels[0].nbr, torch.Tensor)
-    assert dp.levels[0].nbr.dtype == torch.int32
-    assert dp.levels[0].keys.dtype == torch.int64
+    # the device gets the chunk rulebooks and the point arrays; the maps,
+    # keys and coords stay on the host (the model reads only their shapes)
+    assert dp.levels[0].nbr is tp.levels[0].nbr
+    assert dp.levels[0].keys is tp.levels[0].keys
+    assert dp.transitions[0].child is tp.transitions[0].child
+    assert dp.levels[0].cap == tp.levels[0].cap
+    assert isinstance(dp.levels[1].chunks.in_idx, torch.Tensor)
+    assert dp.levels[1].chunks.in_idx.dtype == torch.int32
+    for name in ("p2v", "vox_seg", "vox_counts", "point_perm"):
+        if getattr(tp, name) is None:   # no layout at this size
+            assert getattr(dp, name) is None, name
+            continue
+        assert isinstance(getattr(dp, name), torch.Tensor), name
+        assert np.array_equal(getattr(dp, name).numpy(), getattr(tp, name))
     assert dp.levels[1].num_active == tp.levels[1].num_active
+    assert isinstance(dp.levels[1].num_active, int)
     assert np.array_equal(dp.transitions[0].up_chunks.lidx.numpy(),
                           tp.transitions[0].up_chunks.lidx)
 

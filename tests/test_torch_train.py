@@ -36,7 +36,7 @@ from occuseg_tpu.losses.instance import (
     occuseg_total_loss as jax_total_loss,
 )
 from occuseg_tpu.models import LearningBWDenseUNet as JaxLearningBW
-from occuseg_tpu.native.plan import build_plan_host as jax_build_plan_host
+from tests.jax_planner import host_plan as jax_build_plan_host
 from occuseg_tpu.ops.pallas import chunk_conv as jax_cc
 from occuseg_tpu.train import state as jax_state
 
