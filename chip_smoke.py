@@ -78,8 +78,8 @@ BF16_TOL = 1e-2
 # f32: exact products, sums in another order over K*Cin <= 17280 terms
 F32_TOL = 1e-5
 # dW is f32 for bf16 and f32 inputs alike: exact products, sums over up to
-# ~200k rows in another order (and, in the fused kernel, with atomics in
-# no fixed order), against max|dW|
+# ~200k rows in another order (per run of at most 64 chunks, then over the
+# runs), against max|dW|
 DW_TOL = 1e-4
 # card (kernels, f32) vs CPU (plain versions, f32) through the whole model:
 # ~30 chained layers, each adding summation-order error of ~1e-6 relative
@@ -90,12 +90,12 @@ PARITY_TOL = 1e-3
 # max and the whole gradient by 2.3e-4 of its norm: BN-ReLU units near 0
 # flip, and the classification loss's [P, I] distances |a|^2 + |b|^2 - 2ab
 # cancel near a centre, where the square root's derivative amplifies
-# rounding. The card's step is deterministic but for the fused kernel's
-# dW atomics (which feed no other gradient of the step), and it differs
-# from the CPU's by forward rounding at ~1e-6: measured on the H100 at
-# 6.9e-4 of a tensor's max and 6.1e-6 of the norm, identical in repeated
-# runs. The bounds are five times the CPU's own sensitivity: 5e-2 of each
-# tensor's max (plus a floor for the embedding heads' near-cancelling
+# rounding. The card's step is deterministic (every kernel sums in a fixed
+# order), and it differs from the CPU's by forward rounding at ~1e-6:
+# measured on the H100 (with the first chunk-conv kernels) at 6.9e-4 of a
+# tensor's max and 6.1e-6 of the norm, identical in repeated runs. The
+# bounds are five times the CPU's own sensitivity: 5e-2 of each tensor's
+# max (plus a floor for the embedding heads' near-cancelling
 # bias gradients) and 1e-3 of the norm. An indexing or pairing error is
 # O(1); the kernel phase holds each kernel tightly.
 GRAD_GLOBAL_TOL = 1e-3
@@ -278,12 +278,16 @@ class Totals:
     def __init__(self):
         self.rows = collections.defaultdict(lambda: dict(
             ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, library_ms=None,
-            flops=0.0, bytes=0.0))
+            flops=0.0, bytes=0.0, dense_ms=0.0))
 
     def add(self, key, ms, plain_ms, err, flops, nbytes_, peak=PEAK_BF16,
-            library_ms=None):
+            library_ms=None, dense_flops=0.0):
+        """dense_flops: the tensor-core work over every offset of every
+        live chunk's M rows (dense K), whose time at peak is the floor of a
+        kernel that does not skip missing references."""
         r = self.rows[key]
         r["ms"] += ms
+        r["dense_ms"] += 1e3 * dense_flops / peak
         r["plain_ms"] += plain_ms
         r["err"] = max(r["err"], err)
         r["bound_ms"] += bound_ms(flops, nbytes_, peak)[0]
@@ -308,6 +312,14 @@ def check_close(label, out, ref, tol):
     return err, scale
 
 
+def _dw_values(C: int, K: int, cin: int, cout: int, dev) -> int:
+    """f32 values the dW kernel (#5) writes for one call: each chunk
+    range's partial (when there are several), then dW."""
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    r = cc._dw_ranges(C, K, cin, cout, dev)
+    return (r if r > 1 else 0) * K * cin * cout + K * cin * cout
+
+
 def phase_kernels(dev):
     from occuseg_tpu_torch.core.topology import PlanSpec
     from occuseg_tpu_torch.infer import prepare_scene
@@ -326,6 +338,7 @@ def phase_kernels(dev):
                   "enc0.conv1 L5"}
     tot = Totals()
     n_route = collections.Counter()
+    dw_values = collections.Counter()
     with torch.inference_mode():
         for cv in calls:
             check(cv.chunks is not None and cv.t_chunks is not None,
@@ -344,6 +357,13 @@ def phase_kernels(dev):
             route = route_of(cv, 2)
             nnz_f = int((fl >= 0).sum())
             nnz_t = int((tl >= 0).sum())
+            M = fl.shape[2]
+            # dense K over the live chunks: what a kernel that skips no
+            # missing reference multiplies
+            dense_f = 2.0 * int((fi[:, 0] >= 0).sum()) * M * K * cv.cin \
+                * cv.cout
+            dense_t = 2.0 * int((ti[:, 0] >= 0).sum()) * M * K * cv.cin \
+                * cv.cout
             for dt in (torch.bfloat16, torch.float32):
                 if dt == torch.float32 and cv.label not in f32_subset:
                     continue
@@ -366,7 +386,8 @@ def phase_kernels(dev):
                       f"kernel={ms:.4f} ms plain={pms:.4f} ms")
                 if bf:
                     tot.add("chunk_conv", ms, pms, err, 2.0 * nnz_f * cv.cin
-                            * cv.cout, nbytes(xd, fi, fl, wd, out))
+                            * cv.cout, nbytes(xd, fi, fl, wd, out),
+                            dense_flops=dense_f)
 
                 # backward, fused route over the transpose plan
                 d_f, dwt = cc.chunk_conv_bwd_fused(ctd, ti, tl, wtd, xd)
@@ -415,12 +436,23 @@ def phase_kernels(dev):
                             + K * cv.cin * cv.cout * 4)
                     tot.add("chunk_conv", t_ms, t_pms, e_t,
                             2.0 * nnz_t * cv.cin * cv.cout,
-                            nbytes(ctd, ti, tl, wtd, d_t))
+                            nbytes(ctd, ti, tl, wtd, d_t),
+                            dense_flops=dense_t)
+                    dw_values["#5"] += _dw_values(
+                        fl.shape[0], K, cv.cin, cv.cout, dev)
                 else:  # feats in, d_feats out (same shape), dWt out in f32
                     tot.add(route, f_ms, f_pms, max(e_f, e_w),
                             4.0 * nnz_t * cv.cin * cv.cout,
                             nbytes(ctd, ti, tl, wtd, xd, xd)
-                            + K * cv.cin * cv.cout * 4)
+                            + K * cv.cin * cv.cout * 4,
+                            dense_flops=2.0 * dense_t)
+                    dw_values["fused"] += cc.dwt_values(
+                        tl.shape[0], K, cv.cin, cv.cout,
+                        cc._sm_count(dev.index))
+                    # the first fused kernel: one f32 atomic per (live chunk,
+                    # offset, Cin row, Ct column)
+                    dw_values["atomics"] += int((ti[:, 0] >= 0).sum()) * K \
+                        * cv.cin * cv.cout
                 n_route[route] += 1
                 del d_t
 
@@ -461,9 +493,16 @@ def phase_kernels(dev):
     for k in ("chunk_conv", "#3", "#4", "chunk_conv_dw",
               "blocked_segment_sum", "bce_radius", "bce_fwd", "bce_bwd",
               "gather_conv"):
+        dense = (f", dense-K floor {r[k]['dense_ms']:.4f} ms"
+                 if r[k]["dense_ms"] else "")
         print(f"[kernels] per step, {k}: kernel {r[k]['ms']:.3f} ms, plain "
               f"{r[k]['plain_ms']:.3f} ms, bound {r[k]['bound_ms']:.4f} ms "
-              f"({tot.bound_by(k)})")
+              f"({tot.bound_by(k)}){dense}")
+    print(f"[kernels] per step, f32 dW values written or added into device "
+          f"memory (launch geometry): fused route (#3, #4) "
+          f"{dw_values['fused']:.4g} (one atomic add per live chunk, offset, Cin row and Ct column: "
+          f"{dw_values['atomics']:.4g}); dW route (#5) {dw_values['#5']:.4g}")
+    tot.dw_values = dw_values["fused"]
     return tot
 
 

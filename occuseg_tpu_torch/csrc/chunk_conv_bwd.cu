@@ -1,6 +1,6 @@
-// Chunk convolution backward for Hopper (sm_90a): two kernels.
+// Chunk convolution backward for Hopper (sm_90a).
 //
-// 1. Fused backward (occ_chunk_conv_bwd_fused).
+// 1. Fused backward (the wrapper `chunk_conv_bwd_fused`).
 //    Replaces: `_pallas_bwd_fused` (kernel `_make_bwd_fused_kernel`) and
 //    `_pallas_bwd_fused_v2` (kernel `_make_bwd_fused_v2_kernel`, the same
 //    contract with K split into groups to fit the TPU's VMEM) of
@@ -11,11 +11,45 @@
 //
 //      Gct_k[m]    = t_lidx[c,k,m] >= 0 ? ct[t_in_idx[c, t_lidx[c,k,m]]] : 0
 //      d_feats_c   = sum_k Gct_k @ W'_k                  (feature dtype)
-//      dWt[k]     += feats_c^T @ Gct_k   over all chunks (f32, [K, Cin, Ct])
+//      dWt[k]      = sum_c feats_c^T @ Gct_k             (f32, [K, Cin, Ct])
 //
-//    One staging of each chunk's U rows of ct serves both products. The
-//    caller maps dWt to dW (offset reversal for submanifold maps, none for
-//    the strided/deconvolution pairs).
+//    d_feats is the forward contract over the transpose plan: the wrapper
+//    runs the forward kernel of chunk_conv.cu for it. dWt is the kernel
+//    below (occ_chunk_conv_dwt). The caller maps dWt to dW (offset reversal
+//    for submanifold maps, none for the strided/deconvolution pairs).
+//
+//    What bounded the first version (one kernel for both products):
+//    every block added its [64, Ct] slice of every offset's dWt into device
+//    memory with f32 atomics, C*K*Cin*Ct adds per call (7.05e9 per bf16
+//    bench step), serialised in L2 on one small tensor. The TPU kernel never
+//    paid this: its dW block stays in VMEM across the sequential chunk grid.
+//    Shared memory cannot hold dWt for all 27 offsets (27 x 64 x 64 f32 is
+//    442 KB), so here dWt stays in registers across a RUN of chunks
+//    instead: one block per (64 Cin rows, a Ct tile, 4 offsets, run of
+//    consecutive chunks), two warpgroups of two offsets each. Per chunk it
+//    stages the chunk's referenced ct rows (one Ct tile, pad slots skipped,
+//    zero row at U) and its 64 feats columns (the next chunk's in_idx and
+//    t_lidx rows load meanwhile). bf16 runs on wgmma as dWt[k]^T = Gct_k^T
+//    @ feats_c: per 16-row slice each warp gathers its 16 Ct rows of A =
+//    Gct_k^T with ldmatrix.trans from the staged ct rows, every lane's row
+//    address read from t_lidx, and B is the feats tile, staged in the
+//    128-byte swizzle, through a descriptor; a slice with no valid
+//    reference is skipped. At the end of the run the block writes its f32
+//    partial once with plain stores ([runs, K, Cin, Ct]); a second launch
+//    sums the partials in run order. dWt is deterministic and the values
+//    written per bench step fall from 7.05e9 to 2.43e8 (the wrapper's
+//    `dwt_values`). f32 (training CLI, parity): the same blocks with exact
+//    FMA products, each thread an 8 x (CT/8) register tile, rows with no
+//    valid reference skipped.
+//    What bounds it: latency per chunk. A block stages a chunk, waits, and
+//    then runs ~4 MFLOP; only the other resident block overlaps that. On
+//    the H100, per bench step: mma.sync in place of wgmma measured 9.9 ms
+//    against 9.0; 8 offsets per block (16 warps, half the restaging) with
+//    the next chunk's rows loaded during this one's products measured
+//    10.3-10.8 ms against 9.8-10.0 for mma.sync at 4 offsets (one block per
+//    SM fitted); without the dW atomics the first fused kernel measured 7%
+//    faster. Neither the adds, nor the staged bytes, nor the MMA
+//    instructions set the pace.
 //
 // 2. dW over the forward plan (occ_chunk_conv_dw).
 //    Replaces: `_pallas_dw` (kernel `_make_dw_kernel`), the route the JAX
@@ -25,47 +59,22 @@
 //
 //    in f32, [K, Cin, Cout]. The d_feats half of that route is the forward
 //    kernel (chunk_conv.cu) on the transpose plan.
-//
-// What bounds them on the H100: the fused kernel does 4*Ct*Cin FLOP per
-// valid (row, offset) reference against ~U*Ct staged elements per chunk, the
-// forward's arithmetic intensity twice over, so a good kernel is
-// tensor-core bound. This first version is bound, like the forward, by the
-// per-offset A-tile copy in shared memory and one barrier per offset, and
-// in addition by the f32 atomics of dW: every block adds its [64, Ct] slice
-// of every offset's dW into device memory, C*K*Cin*Ct additions per call,
-// resolved in L2. The dW kernel is bound by its gathers: each block reads
-// the M rows of one offset straight from device memory (no staging), two
-// 16 KB tiles per chunk, with few blocks' worth of independent work at the
-// coarse levels where it runs.
-//
-// Design:
-//  * fused: one block (8 warps) per (chunk, 64-column tile of d_feats). Per
-//    Ct tile of CT_T columns the chunk's U referenced ct rows are staged
-//    (cp.async), with the zero row at U for every -1; per offset the A tile
-//    is gathered through t_lidx (bf16) and serves two products: d_feats
-//    (4x2 warps of 32x32, WMMA bf16 -> f32, accumulated over every offset
-//    and Ct tile) and the block's [64 Cin rows, CT_T] slice of dWt[k]
-//    (4x2 warps of 16x32 over the chunk's M rows, with feats_c^T read from a
-//    tile staged once per block). The dW slice is added with f32 atomics
-//    into a zeroed dWt: blocks run in no order, so dWt is NOT deterministic
-//    (summation order varies from run to run at f32 rounding); d_feats is.
-//    CT_T is the largest of 64/32/16 that divides Ct and fits the opt-in
-//    shared memory (the deconvolution backward stages up to 1312 rows of
-//    up to 320 columns); no fitting tile -> the call fails, no other path.
-//    f32 (parity checks): FMA register tiles, exact products, atomics as
-//    above. An all-pad chunk writes zero d_feats and adds nothing.
-//  * dW: one block per (64x64 tile of dW[k], offset k, range of chunks).
-//    Per chunk the M gathered feats rows and the M ct rows of the tile are
-//    loaded with cp.async (missing references read as zeros) and
+//    It is bound by its gathers: each block reads the M rows of one offset
+//    straight from device memory (no staging), two 16 KB tiles per chunk,
+//    with few blocks' worth of independent work at the coarse levels where
+//    it runs. One block per (64x64 tile of dW[k], offset k, range of
+//    chunks): per chunk the M gathered feats rows and the M ct rows of the
+//    tile are loaded with cp.async (missing references read as zeros) and
 //    accumulated in registers (WMMA bf16 -> f32, or FMA in f32). With one
 //    range per tile the block writes dW directly; with several (small
 //    shapes that would not fill the card) each writes its partial and a
 //    second launch sums the partials in range order. Either way dW is
-//    deterministic.
-// wgmma, TMA, double-buffered chunk loads and per-block dW partials that
-// avoid the atomics are left for later work.
+//    deterministic. wgmma, TMA and double-buffered chunk loads are left for
+//    later work.
 
 #include <mma.h>
+
+#include <type_traits>
 
 #include "chunk_conv.cuh"
 
@@ -73,324 +82,328 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// Shared memory plan of the fused kernel, shared by host and device.
-template <typename T, int CT_T>
-struct BwdLayout : Strides<T, CT_T> {
-  using S = Strides<T, CT_T>;
-  static constexpr bool kMma = sizeof(T) == 2;
-  static constexpr int kLdf = kCoT + S::kVec;  // staged feats tile stride
-  static constexpr int kLdd = CT_T + 4;        // f32 dW staging stride
-  size_t lidx_off, gin_off, a_off, w_off, f_off, d_off, o_off, total;
-  __host__ __device__ BwdLayout(int U, int K) {
-    size_t off = 0;
+// ---------------------------------------------------------------------------
+// dWt over the transpose plan, in run partials
+// ---------------------------------------------------------------------------
+
+constexpr int kDwtThreads = 256;  // 8 warps
+constexpr int kDwtOffsets = 4;    // offsets per block
+constexpr int kDwtRows = 64;      // Cin rows (dWt rows) per block
+
+struct DwtArgs {
+  const void* ct;
+  const int32_t* in_idx;
+  const int32_t* lidx;
+  const void* feats;
+  float* out;  // dWt [K, cin, Ct] (runs == 1) or partials [runs, K, cin, Ct]
+  int n_ct, Ct, C, U, K, M, cin, runs;
+};
+
+// Shared memory plan, from a 1024-byte aligned base: the feats tile first
+// (bf16: kMaxM rows of 64 columns, 128 bytes each, in the 128-byte swizzle
+// that wgmma reads through a descriptor; f32: rows padded against bank
+// conflicts), two buffers of the chunk's lidx rows and in_idx row (the
+// next chunk's are loaded while this one computes), then one set of staged
+// ct rows.
+template <typename T, int CT>
+struct DwtLayout {
+  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr bool kSwizzled = sizeof(T) == 2;
+  static constexpr int kLdf = kDwtRows + kVec;  // f32 feats tile stride
+  // staged ct row stride: bf16 rows are read by ldmatrix at 8 different
+  // rows per instruction and are padded against bank conflicts; a warp of
+  // the f32 tile reads one row, 128 contiguous bytes, and needs no padding
+  // (which lets tier 1.7's U=1312 fit at CT=32)
+  static constexpr int kLdg = CT + (kSwizzled ? kVec : 0);
+  static constexpr size_t kLidx = static_cast<size_t>(kDwtOffsets) * kMaxM;
+  size_t lidx_off, in_off, g_off, total;
+  __host__ __device__ DwtLayout(int U) {
+    size_t off = align128(static_cast<size_t>(kMaxM) *
+                          (kSwizzled ? 128 : kLdf * sizeof(T)));
     lidx_off = off;
-    off += align128(static_cast<size_t>(K) * kMaxM * sizeof(int32_t));
-    gin_off = off;
-    off += align128(static_cast<size_t>(U + 1) * S::kLdg * sizeof(T));
-    a_off = off;
-    if (kMma) off += align128(2 * static_cast<size_t>(kMaxM) * S::kLdg * sizeof(T));
-    w_off = off;
-    off += align128(2 * static_cast<size_t>(CT_T) * S::kLdw * sizeof(T));
-    f_off = off;
-    off += align128(static_cast<size_t>(kMaxM) * kLdf * sizeof(T));
-    d_off = off;
-    if (kMma) off += align128(static_cast<size_t>(kCoT) * kLdd * sizeof(float));
-    o_off = off;
-    if (kMma) off += align128(8 * 256 * sizeof(float));
-    total = off;
+    off += align128(2 * kLidx * sizeof(int32_t));
+    in_off = off;
+    off += 2 * align128(static_cast<size_t>(U) * sizeof(int32_t));
+    g_off = off;
+    off += align128(static_cast<size_t>(U + 1) * kLdg * sizeof(T));
+    total = off + 1024;  // room to align the base
+  }
+  __host__ __device__ size_t in_stride(int U) const {
+    return align128(static_cast<size_t>(U) * sizeof(int32_t)) /
+           sizeof(int32_t);
   }
 };
 
-// f32 atomic add of four consecutive floats (16-byte aligned).
-__device__ __forceinline__ void red_add4(float* dst, float4 v) {
-#if (__CUDACC_VER_MAJOR__ > 12) || \
-    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
-  atomicAdd(reinterpret_cast<float4*>(dst), v);
-#else
-  atomicAdd(dst, v.x);
-  atomicAdd(dst + 1, v.y);
-  atomicAdd(dst + 2, v.z);
-  atomicAdd(dst + 3, v.w);
-#endif
-}
+// bf16: dWt[k]^T = Gct_k^T @ feats_c on wgmma. Warpgroup g holds, for
+// offsets k0 + 2g and k0 + 2g + 1, the [64 Ct, 64 Cin] tile of dWt^T as
+// m64n64 accumulators; per 16-row slice of the chunk its warps gather A =
+// Gct_k^T (Ct rows 16w..+16 of the group's 64) with ldmatrix.trans from the
+// staged ct rows, every lane's row address read from t_lidx, and B is the
+// swizzled feats tile through a descriptor. A slice with no valid
+// reference at the offset is skipped (uniform over the group).
+template <int CT>
+struct DwtWgTile {
+  static_assert(CT == 64, "wgmma takes 64 Ct rows");
+  static constexpr int kLdg = CT + 8;
+  float acc[2][32];
+  int g, w, lane;
+  int j;  // the block's first offset of this thread's warpgroup
 
-// feats rows c*M .. c*M+M, columns co0 .. co0+kCoT -> f_s (zero past cin).
-template <typename T>
-__device__ void stage_feats_tile(T* f_s, const T* __restrict__ feats, int c,
-                                 int M, int cin, int co0) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVpr = kCoT / kVec;
-  constexpr int kLdf = kCoT + kVec;
-  for (int i = threadIdx.x; i < M * kVpr; i += kThreads) {
-    const int m = i / kVpr, v = i % kVpr, col = co0 + v * kVec;
-    T* dst = f_s + m * kLdf + v * kVec;
-    if (col < cin)
-      cp_async16(dst, feats + (static_cast<size_t>(c) * M + m) * cin + col);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  __device__ DwtWgTile(int t) {
+    const int warp = t / 32;
+    lane = t % 32;
+    g = warp >> 2;
+    w = warp & 3;
+    j = 2 * g;
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[o][i] = 0.0f;
   }
-}
 
-template <int CT_T>
-__global__ void __launch_bounds__(kThreads)
-bwd_fused_bf16_kernel(const bf16* __restrict__ ct, int n_ct, int Ct,
-                      const int32_t* __restrict__ t_in_idx, int U,
-                      const int32_t* __restrict__ t_lidx, int K, int M,
-                      const bf16* __restrict__ wt,
-                      const bf16* __restrict__ feats, int cin,
-                      bf16* __restrict__ d_feats, float* __restrict__ dwt) {
-  using T = bf16;
-  using L = BwdLayout<T, CT_T>;
-  namespace wmma = nvcuda::wmma;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const L lay(U, K);
-  int32_t* lidx_s = reinterpret_cast<int32_t*>(smem + lay.lidx_off);
-  T* gin_s = reinterpret_cast<T*>(smem + lay.gin_off);
-  T* a_s = reinterpret_cast<T*>(smem + lay.a_off);
-  T* w_s = reinterpret_cast<T*>(smem + lay.w_off);
-  T* f_s = reinterpret_cast<T*>(smem + lay.f_off);
-  float* d_s = reinterpret_cast<float*>(smem + lay.d_off);
-  float* o_s = reinterpret_cast<float*>(smem + lay.o_off);
-
-  const int c = blockIdx.x;
-  const int co0 = blockIdx.y * kCoT;  // d_feats columns = dWt rows
-  const int32_t* in_c = t_in_idx + static_cast<size_t>(c) * U;
-  if (in_c[0] < 0) {  // no referenced row: zero d_feats, nothing to dW
-    write_zero_tile(d_feats, c, M, co0, cin);
-    return;
-  }
-  load_lidx(lidx_s, t_lidx + static_cast<size_t>(c) * K * M, K, M, U);
-  zero_row<T, CT_T>(gin_s, U);
-  stage_feats_tile<T>(f_s, feats, c, M, cin, co0);  // waited on below
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // d_feats: 4 warp rows x 32, 2 warp cols x 32 of the [M, 64] tile
-  const int row0 = (warp >> 1) * 32;
-  const int wcol = (warp & 1) * 32;
-  const bool rows_live = row0 < M;
-  bool col_live[2];
-  for (int j = 0; j < 2; ++j) col_live[j] = co0 + wcol + j * 16 < cin;
-  // dWt slice: 4 warp rows x 16 (Cin), 2 warp cols x 32 (Ct) of [64, CT_T]
-  const int drow = (warp >> 1) * 16;
-  const int dcol = (warp & 1) * 32;
-  const bool drow_live = co0 + drow < cin;
-  bool dcol_live[2];
-  for (int j = 0; j < 2; ++j) dcol_live[j] = dcol + j * 16 < CT_T;
-  const int ncol = dcol_live[1] ? 32 : (dcol_live[0] ? 16 : 0);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int ct0 = 0; ct0 < Ct; ct0 += CT_T) {
-    __syncthreads();  // previous tile's readers of gin_s / a_s are done
-    stage_rows<T, CT_T>(gin_s, ct, n_ct, Ct, in_c, U, ct0);
-    __syncthreads();
-    for (int k = 0; k < K; ++k) {
-      T* a_b = a_s + (k & 1) * kMaxM * L::kLdg;
-      T* w_b = w_s + (k & 1) * CT_T * L::kLdw;
-      gather_a_tile<T, CT_T>(a_b, gin_s, lidx_s + k * M, M);
-      // W'[k] is [Ct, Cin]: rows ct0.., columns co0..
-      load_w_tile<T, CT_T>(w_b, wt, k, Ct, cin, ct0, co0);
-      // one barrier per k: the other buffer's readers finished before the
-      // previous barrier (double buffering)
-      __syncthreads();
-      if (rows_live) {
-        for (int kk = 0; kk < CT_T; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(fa[i], a_b + (row0 + i * 16) * L::kLdg + kk,
-                                   L::kLdg);
-          for (int j = 0; j < 2; ++j) {
-            if (!col_live[j]) continue;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, w_b + kk * L::kLdw + wcol + j * 16,
-                                   L::kLdw);
-            for (int i = 0; i < 2; ++i)
-              wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-          }
-        }
+  __device__ void chunk(const bf16* f_s, const bf16* g_s,
+                        const int32_t* lidx_s, int M, int U, int nk,
+                        int ncols) {
+    const uint32_t f0 = smem_u32(f_s);
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      if (j + o >= nk) continue;  // uniform over the warpgroup
+      const int32_t* lk = lidx_s + (j + o) * M;
+      uint32_t af[kMaxM / 16][4];
+      bool live[kMaxM / 16];
+#pragma unroll
+      for (int sl = 0; sl < kMaxM / 16; ++sl) {
+        live[sl] = false;
+        if (sl * 16 >= M) continue;
+        const int m = sl * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
+        const int l = row_of(lk[m], U);
+        live[sl] = __any_sync(0xffffffffu, l != U);
+        if (live[sl])
+          ldmatrix_x4_trans(af[sl], smem_u32(g_s + l * kLdg + w * 16 +
+                                             ((lane >> 3) & 1) * 8));
       }
-      if (drow_live && ncol > 0) {
-        // dWt[k][co0+drow.., ct0+dcol..] += feats_c^T @ A over the M rows
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> dacc[2];
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(dacc[j], 0.0f);
-        for (int mm = 0; mm < M; mm += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> fa;
-          wmma::load_matrix_sync(fa, f_s + mm * L::kLdf + drow, L::kLdf);
-          for (int j = 0; j < 2; ++j) {
-            if (!dcol_live[j]) continue;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, a_b + mm * L::kLdg + dcol + j * 16,
-                                   L::kLdg);
-            wmma::mma_sync(dacc[j], fa, fb, dacc[j]);
-          }
-        }
-        float* d_w = d_s + drow * L::kLdd + dcol;  // this warp's region
-        for (int j = 0; j < 2; ++j)
-          if (dcol_live[j])
-            wmma::store_matrix_sync(d_w + j * 16, dacc[j], L::kLdd,
-                                    wmma::mem_row_major);
-        __syncwarp();
-        const int vpr = ncol / 4;
-        float* g = dwt + (static_cast<size_t>(k) * cin + co0 + drow) * Ct +
-                   ct0 + dcol;
-        for (int i = lane; i < 16 * vpr; i += 32) {
-          const int r = i / vpr, q = i % vpr;
-          red_add4(g + static_cast<size_t>(r) * Ct + q * 4,
-                   *reinterpret_cast<const float4*>(d_w + r * L::kLdd + q * 4));
-        }
-        __syncwarp();
-      }
+      fence_regs(acc[o]);
+      wgmma_fence();
+#pragma unroll
+      for (int sl = 0; sl < kMaxM / 16; ++sl)
+        if (live[sl])
+          wgmma_bf16<64>(acc[o], af[sl],
+                         wgmma_desc_b128(f0 + sl * 16 * 128, kMaxM * 128));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(af);
+      fence_regs(acc[o]);
     }
   }
 
-  if (!rows_live) return;
-  float* o_w = o_s + warp * 256;
-  for (int i = 0; i < 2; ++i) {
-    for (int j = 0; j < 2; ++j) {
-      if (!col_live[j]) continue;
-      wmma::store_matrix_sync(o_w, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r = lane / 2, c8 = (lane % 2) * 8;
-      __align__(16) T vals[8];
-      for (int e = 0; e < 8; ++e) vals[e] = __float2bfloat16(o_w[r * 16 + c8 + e]);
-      const size_t orow = static_cast<size_t>(c) * M + row0 + i * 16 + r;
-      *reinterpret_cast<uint4*>(d_feats + orow * cin + co0 + wcol + j * 16 +
-                                c8) = *reinterpret_cast<const uint4*>(vals);
-      __syncwarp();
+  // dst = this block's [cin, Ct] slice of offset k0 (row k0 of dWt);
+  // element (ct row r, cin column c) of the accumulator goes to
+  // dst[o][ci0 + c][ct0 + r].
+  __device__ void store(float* dst, int cin, int Ct, int ci0, int ct0,
+                        int nk, int ncols) const {
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      if (j + o >= nk) continue;
+      float* d = dst + static_cast<size_t>(j + o) * cin * Ct;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = w * 16 + (lane >> 2) + ((i >> 1) & 1) * 8;
+        const int c = (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        if (r < ncols && ci0 + c < cin)
+          d[static_cast<size_t>(ci0 + c) * Ct + ct0 + r] = acc[o][i];
+      }
     }
   }
-}
+};
 
-template <int CT_T>
-__global__ void __launch_bounds__(kThreads)
-bwd_fused_f32_kernel(const float* __restrict__ ct, int n_ct, int Ct,
-                     const int32_t* __restrict__ t_in_idx, int U,
-                     const int32_t* __restrict__ t_lidx, int K, int M,
-                     const float* __restrict__ wt,
-                     const float* __restrict__ feats, int cin,
-                     float* __restrict__ d_feats, float* __restrict__ dwt) {
-  using T = float;
-  using L = BwdLayout<T, CT_T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const L lay(U, K);
-  int32_t* lidx_s = reinterpret_cast<int32_t*>(smem + lay.lidx_off);
-  T* gin_s = reinterpret_cast<T*>(smem + lay.gin_off);
-  T* w_s = reinterpret_cast<T*>(smem + lay.w_off);
-  T* f_s = reinterpret_cast<T*>(smem + lay.f_off);
+// f32: thread t holds dWt[k0 + t/64] rows ci0 + rg*8..+8, columns
+// ct0 + q*32 + cg*4..+4 (q < CT/32); exact FMA products.
+template <int CT>
+struct DwtFmaTile {
+  static constexpr int kLdf = kDwtRows + 4, kLdg = CT, kNQ = CT / 32;
+  float acc[8][kNQ][4];
+  int j, rg, cg;
 
-  const int c = blockIdx.x;
-  const int co0 = blockIdx.y * kCoT;
-  const int32_t* in_c = t_in_idx + static_cast<size_t>(c) * U;
-  if (in_c[0] < 0) {
-    write_zero_tile(d_feats, c, M, co0, cin);
-    return;
+  __device__ DwtFmaTile(int t) : j(t / 64), rg((t % 64) / 8), cg(t % 8) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int q = 0; q < kNQ; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][q][e] = 0.0f;
   }
-  load_lidx(lidx_s, t_lidx + static_cast<size_t>(c) * K * M, K, M, U);
-  zero_row<T, CT_T>(gin_s, U);
-  stage_feats_tile<T>(f_s, feats, c, M, cin, co0);
 
-  // d_feats thread tile: rows rg*8..+8, columns cg*4..+4 of [128, 64]
-  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
-  float acc[8][4];
-  for (int r = 0; r < 8; ++r)
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
-  // dWt thread tile: kRpt rows x 4 columns of the block's [64, CT_T] slice
-  constexpr int kCg = CT_T / 4, kRpt = CT_T / 16;
-  const int dcg = threadIdx.x % kCg, drg = threadIdx.x / kCg;
+  __device__ void chunk(const float* f_s, const float* g_s,
+                        const int32_t* lidx_s, int M, int U, int nk,
+                        int ncols) {
+    if (j >= nk) return;
+    const int32_t* lk = lidx_s + j * M;  // offsets packed at stride M
+    for (int m = 0; m < M; ++m) {
+      const int l = row_of(lk[m], U);
+      if (l == U) continue;  // uniform over the warp (one offset per warp)
+      float4 g[kNQ];
+#pragma unroll
+      for (int q = 0; q < kNQ; ++q)
+        g[q] = *reinterpret_cast<const float4*>(g_s + l * kLdg + q * 32 +
+                                                cg * 4);
+      const float4 a0 = *reinterpret_cast<const float4*>(f_s + m * kLdf +
+                                                         rg * 8);
+      const float4 a1 = *reinterpret_cast<const float4*>(f_s + m * kLdf +
+                                                         rg * 8 + 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int q = 0; q < kNQ; ++q) {
+          acc[r][q][0] = fmaf(a[r], g[q].x, acc[r][q][0]);
+          acc[r][q][1] = fmaf(a[r], g[q].y, acc[r][q][1]);
+          acc[r][q][2] = fmaf(a[r], g[q].z, acc[r][q][2]);
+          acc[r][q][3] = fmaf(a[r], g[q].w, acc[r][q][3]);
+        }
+    }
+  }
 
-  for (int ct0 = 0; ct0 < Ct; ct0 += CT_T) {
-    __syncthreads();
-    stage_rows<T, CT_T>(gin_s, ct, n_ct, Ct, in_c, U, ct0);
-    __syncthreads();
-    for (int k = 0; k < K; ++k) {
-      T* w_b = w_s + (k & 1) * CT_T * L::kLdw;
-      load_w_tile<T, CT_T>(w_b, wt, k, Ct, cin, ct0, co0);
-      __syncthreads();
-      const int32_t* lk = lidx_s + k * M;
-      const T* src[8];
+  // dst = the block's offset k0 of dWt (or of its run's partial).
+  __device__ void store(float* dst, int cin, int Ct, int ci0, int ct0,
+                        int nk, int ncols) const {
+    if (j >= nk) return;
+    dst += static_cast<size_t>(j) * cin * Ct;
+#pragma unroll
+    for (int q = 0; q < kNQ; ++q) {
+      const int c = q * 32 + cg * 4;
+      if (c >= ncols) continue;
+#pragma unroll
       for (int r = 0; r < 8; ++r) {
-        const int m = rg * 8 + r;
-        src[r] = gin_s + static_cast<size_t>(m < M ? lk[m] : U) * L::kLdg;
-      }
-      for (int cc = 0; cc < CT_T; ++cc) {
-        const float4 b = *reinterpret_cast<const float4*>(w_b + cc * L::kLdw +
-                                                          cg * 4);
-        for (int r = 0; r < 8; ++r) {
-          const float a = src[r][cc];
-          acc[r][0] = fmaf(a, b.x, acc[r][0]);
-          acc[r][1] = fmaf(a, b.y, acc[r][1]);
-          acc[r][2] = fmaf(a, b.z, acc[r][2]);
-          acc[r][3] = fmaf(a, b.w, acc[r][3]);
-        }
-      }
-      float dacc[kRpt][4];
-      for (int r = 0; r < kRpt; ++r)
-        for (int q = 0; q < 4; ++q) dacc[r][q] = 0.0f;
-      for (int m = 0; m < M; ++m) {
-        const float4 g = *reinterpret_cast<const float4*>(
-            gin_s + static_cast<size_t>(lk[m]) * L::kLdg + dcg * 4);
-        for (int r = 0; r < kRpt; ++r) {
-          const float a = f_s[m * L::kLdf + drg * kRpt + r];
-          dacc[r][0] = fmaf(a, g.x, dacc[r][0]);
-          dacc[r][1] = fmaf(a, g.y, dacc[r][1]);
-          dacc[r][2] = fmaf(a, g.z, dacc[r][2]);
-          dacc[r][3] = fmaf(a, g.w, dacc[r][3]);
-        }
-      }
-      for (int r = 0; r < kRpt; ++r) {
-        const int row = co0 + drg * kRpt + r;
-        if (row < cin)
-          red_add4(dwt + (static_cast<size_t>(k) * cin + row) * Ct + ct0 +
-                       dcg * 4,
-                   make_float4(dacc[r][0], dacc[r][1], dacc[r][2], dacc[r][3]));
+        const int row = ci0 + rg * 8 + r;
+        if (row >= cin) break;
+        *reinterpret_cast<float4*>(dst + static_cast<size_t>(row) * Ct + ct0 +
+                                   c) =
+            make_float4(acc[r][q][0], acc[r][q][1], acc[r][q][2],
+                        acc[r][q][3]);
       }
     }
   }
-  const int col = co0 + cg * 4;
-  if (col >= cin) return;
-  for (int r = 0; r < 8; ++r) {
-    const int m = rg * 8 + r;
-    if (m >= M) break;
-    *reinterpret_cast<float4*>(d_feats + (static_cast<size_t>(c) * M + m) * cin +
-                               col) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+};
+
+template <typename T, int CT>
+using DwtTileOf = typename std::conditional<sizeof(T) == 2, DwtWgTile<CT>,
+                                            DwtFmaTile<CT>>::type;
+
+// blockIdx: x = (64-row Cin tile, CT-column Ct tile), y = group of 4
+// offsets, z = run of consecutive chunks.
+template <typename T, int CT>
+__global__ void __launch_bounds__(kDwtThreads, 2)
+dwt_kernel(const DwtArgs a) {
+  using L = DwtLayout<T, CT>;
+  constexpr int kVec = L::kVec;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const L lay(a.U);
+  T* f_s = reinterpret_cast<T*>(smem);
+  int32_t* lidx_b = reinterpret_cast<int32_t*>(smem + lay.lidx_off);
+  int32_t* in_b = reinterpret_cast<int32_t*>(smem + lay.in_off);
+  T* g_s = reinterpret_cast<T*>(smem + lay.g_off);
+
+  const int U = a.U, K = a.K, M = a.M;
+  const int tiles_ct = (a.Ct + CT - 1) / CT;
+  const int ci0 = (blockIdx.x / tiles_ct) * kDwtRows;
+  const int ct0 = (blockIdx.x % tiles_ct) * CT;
+  const int ncols = min(CT, a.Ct - ct0);
+  const int k0 = blockIdx.y * kDwtOffsets, run = blockIdx.z;
+  const int nk = min(kDwtOffsets, K - k0);
+  const int c_begin =
+      static_cast<int>(static_cast<long long>(a.C) * run / a.runs);
+  const int c_end =
+      static_cast<int>(static_cast<long long>(a.C) * (run + 1) / a.runs);
+  const int t = threadIdx.x;
+  const T* ct = static_cast<const T*>(a.ct);
+  const T* feats = static_cast<const T*>(a.feats);
+  const size_t in_stride = lay.in_stride(U);
+
+  // chunk c's in_idx row and the lidx rows of offsets k0.. into buffer b
+  auto load_meta = [&](int c, int b) {
+    copy_ints(in_b + b * in_stride, a.in_idx + static_cast<size_t>(c) * U, U,
+              t, kDwtThreads);
+    copy_ints(lidx_b + b * L::kLidx,
+              a.lidx + (static_cast<size_t>(c) * K + k0) * M, nk * M, t,
+              kDwtThreads);
+  };
+
+  DwtTileOf<T, CT> tile(t);
+  zero_bytes(g_s + static_cast<size_t>(U) * L::kLdg, L::kLdg * sizeof(T), t,
+             kDwtThreads);
+  if (c_begin < c_end) load_meta(c_begin, 0);
+  for (int c = c_begin; c < c_end; ++c) {
+    const int b = (c - c_begin) & 1;
+    const int32_t* in_s = in_b + b * in_stride;
+    // chunk c's meta is in; the previous chunk's readers are done
+    cp_async_wait_all();
+    __syncthreads();
+    const bool live = in_s[0] >= 0;  // uniform: all-pad chunks add nothing
+    if (live) {
+      // feats rows c*M.., columns ci0..ci0+64 (zero past cin); bf16 rows
+      // are 128 bytes, their 16-byte pieces swizzled by the row's low bits
+      constexpr int kVpr = kDwtRows / kVec;
+      for (int i = t; i < M * kVpr; i += kDwtThreads) {
+        const int m = i / kVpr, v = i % kVpr, col = ci0 + v * kVec;
+        T* d = L::kSwizzled ? f_s + m * kDwtRows + ((v ^ (m & 7)) * kVec)
+                            : f_s + m * L::kLdf + v * kVec;
+        if (col < a.cin)
+          cp_async16(d,
+                     feats + (static_cast<size_t>(c) * M + m) * a.cin + col);
+        else
+          *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+      }
+      stage_rows<T, CT>(g_s, L::kLdg, ct, a.n_ct, a.Ct, a.Ct, in_s, U, ct0,
+                        t, kDwtThreads);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    if (c + 1 < c_end) load_meta(c + 1, b ^ 1);
+    // this chunk's rows are in (the next chunk's meta may still fly)
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;\n" ::);
+    if (!live) continue;
+    if constexpr (L::kSwizzled) fence_proxy_async();  // wgmma reads f_s
+    __syncthreads();
+    tile.chunk(f_s, g_s, lidx_b + b * L::kLidx, M, U, nk, ncols);
   }
+  cp_async_wait_all();
+  float* dst =
+      a.out + (static_cast<size_t>(run) * K + k0) * a.cin * a.Ct;
+  tile.store(dst, a.cin, a.Ct, ci0, ct0, nk, ncols);
 }
 
-template <typename T, int CT_T, typename Kernel>
-int launch_fused(Kernel kernel, const void* ct, int n_ct, int Ct,
-                 const void* t_in_idx, int C, int U, const void* t_lidx, int K,
-                 int M, const void* wt, const void* feats, int cin,
-                 void* d_feats, void* dwt, cudaStream_t stream) {
-  const BwdLayout<T, CT_T> lay(U, K);
+template <typename T, int CT>
+int launch_dwt(const DwtArgs& a, cudaStream_t stream) {
+  const DwtLayout<T, CT> lay(a.U);
   const int smem = static_cast<int>(lay.total);
+  auto kernel = dwt_kernel<T, CT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(C, (cin + kCoT - 1) / kCoT);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(ct), n_ct, Ct,
-      static_cast<const int32_t*>(t_in_idx), U,
-      static_cast<const int32_t*>(t_lidx), K, M, static_cast<const T*>(wt),
-      static_cast<const T*>(feats), cin, static_cast<T*>(d_feats),
-      static_cast<float*>(dwt));
+  const dim3 grid(((a.cin + kDwtRows - 1) / kDwtRows) * ((a.Ct + CT - 1) / CT),
+                  (a.K + kDwtOffsets - 1) / kDwtOffsets, a.runs);
+  kernel<<<grid, kDwtThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 takes 64 Ct columns (wgmma's 64 rows), f32 the widest tile that
+// fits.
 template <typename T>
-int pick_ct_tile(int Ct, int U, int K) {
+int launch_dwt_fitting(const DwtArgs& a, cudaStream_t s) {
   const size_t limit = static_cast<size_t>(max_dynamic_smem());
-  if (Ct % 64 == 0 && BwdLayout<T, 64>(U, K).total <= limit) return 64;
-  if (Ct % 32 == 0 && BwdLayout<T, 32>(U, K).total <= limit) return 32;
-  if (Ct % 16 == 0 && BwdLayout<T, 16>(U, K).total <= limit) return 16;
-  return 0;
+  if (DwtLayout<T, 64>(a.U).total <= limit) return launch_dwt<T, 64>(a, s);
+  if constexpr (sizeof(T) == 4)
+    if (DwtLayout<T, 32>(a.U).total <= limit) return launch_dwt<T, 32>(a, s);
+  return -2;
 }
 
 // ---------------------------------------------------------------------------
 // dW over the forward plan
 // ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;
+constexpr int kCoT = 64;  // dW tile edge
 
 template <typename T>
 struct DwLayout {
@@ -613,30 +626,29 @@ int launch_dw(Kernel kernel, const void* feats, int n_rows, int cin,
 
 extern "C" {
 
-// d_feats [C*M, cin] (feature dtype) and dwt [K, cin, Ct] (f32, zeroed by
-// the caller, accumulated) from ct [n_ct, Ct], the transpose plan, wt
-// [K, Ct, cin] and feats [C*M, cin] (see the header). Returns a
-// cudaError_t, or -2 when no Ct tile fits in shared memory.
-int occ_chunk_conv_bwd_fused(const void* ct, int n_ct, int Ct,
-                             const void* t_in_idx, int C, int U,
-                             const void* t_lidx, int K, int M, const void* wt,
-                             const void* feats, int cin, void* d_feats,
-                             void* dwt, int is_bf16, void* stream) {
+// dwt [K, cin, Ct] f32 = sum over the chunks of the transpose plan of
+// feats_c^T @ Gct_k (see the header), in `runs` runs of consecutive chunks;
+// with runs > 1, partial is caller-owned f32 scratch [runs, K, cin, Ct]
+// whose runs are then summed in order. Returns a cudaError_t, or -2 when
+// no Ct tile fits in shared memory.
+int occ_chunk_conv_dwt(const void* ct, int n_ct, int Ct, const void* t_in_idx,
+                       int C, int U, const void* t_lidx, int K, int M,
+                       const void* feats, int cin, int runs, void* partial,
+                       void* dwt, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    switch (pick_ct_tile<bf16>(Ct, U, K)) {
-      case 64: return launch_fused<bf16, 64>(bwd_fused_bf16_kernel<64>, ct, n_ct, Ct, t_in_idx, C, U, t_lidx, K, M, wt, feats, cin, d_feats, dwt, s);
-      case 32: return launch_fused<bf16, 32>(bwd_fused_bf16_kernel<32>, ct, n_ct, Ct, t_in_idx, C, U, t_lidx, K, M, wt, feats, cin, d_feats, dwt, s);
-      case 16: return launch_fused<bf16, 16>(bwd_fused_bf16_kernel<16>, ct, n_ct, Ct, t_in_idx, C, U, t_lidx, K, M, wt, feats, cin, d_feats, dwt, s);
-    }
-    return -2;
-  }
-  switch (pick_ct_tile<float>(Ct, U, K)) {
-    case 64: return launch_fused<float, 64>(bwd_fused_f32_kernel<64>, ct, n_ct, Ct, t_in_idx, C, U, t_lidx, K, M, wt, feats, cin, d_feats, dwt, s);
-    case 32: return launch_fused<float, 32>(bwd_fused_f32_kernel<32>, ct, n_ct, Ct, t_in_idx, C, U, t_lidx, K, M, wt, feats, cin, d_feats, dwt, s);
-    case 16: return launch_fused<float, 16>(bwd_fused_f32_kernel<16>, ct, n_ct, Ct, t_in_idx, C, U, t_lidx, K, M, wt, feats, cin, d_feats, dwt, s);
-  }
-  return -2;
+  float* dst = static_cast<float*>(runs > 1 ? partial : dwt);
+  const DwtArgs a{ct, static_cast<const int32_t*>(t_in_idx),
+                  static_cast<const int32_t*>(t_lidx), feats, dst, n_ct, Ct,
+                  C, U, K, M, cin, runs};
+  const int rc = is_bf16 ? launch_dwt_fitting<bf16>(a, s)
+                         : launch_dwt_fitting<float>(a, s);
+  if (rc != 0 || runs == 1) return rc;
+  const size_t n4 = static_cast<size_t>(K) * cin * Ct / 4;
+  const size_t want = (n4 + kThreads - 1) / kThreads;
+  sum_partials_kernel<<<static_cast<int>(want < 4096 ? want : 4096), kThreads,
+                        0, s>>>(static_cast<const float4*>(partial), runs, n4,
+                                static_cast<float4*>(dwt));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dw [K, cin, cout] f32 = sum over chunks of G_k^T @ ct_c over the forward

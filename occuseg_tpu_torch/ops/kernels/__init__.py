@@ -52,11 +52,12 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(library_path())
     lib.occ_chunk_conv_fwd.restype = _int
     lib.occ_chunk_conv_fwd.argtypes = [_vp, _int, _int, _vp, _int, _int, _vp,
-                                       _int, _int, _vp, _int, _vp, _int, _vp]
-    lib.occ_chunk_conv_bwd_fused.restype = _int
-    lib.occ_chunk_conv_bwd_fused.argtypes = [_vp, _int, _int, _vp, _int, _int,
-                                             _vp, _int, _int, _vp, _vp, _int,
-                                             _vp, _vp, _int, _vp]
+                                       _int, _int, _vp, _int, _int, _int, _vp,
+                                       _vp, _int, _vp]
+    lib.occ_chunk_conv_dwt.restype = _int
+    lib.occ_chunk_conv_dwt.argtypes = [_vp, _int, _int, _vp, _int, _int, _vp,
+                                       _int, _int, _vp, _int, _int, _vp, _vp,
+                                       _int, _vp]
     lib.occ_chunk_conv_dw.restype = _int
     lib.occ_chunk_conv_dw.argtypes = [_vp, _int, _int, _vp, _int, _int, _vp,
                                       _int, _int, _vp, _int, _int, _vp, _vp,

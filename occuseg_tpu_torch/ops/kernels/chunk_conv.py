@@ -18,10 +18,13 @@ Device half: `chunk_conv` computes
 in f32 with the output in the feature dtype. The same call serves
 submanifold layers (level chunks), strided convolutions (child chunks,
 output = coarse cap) and deconvolutions (up chunks, output = fine cap).
-The backward has two routes, each over kernels of `csrc/chunk_conv_bwd.cu`:
-`chunk_conv_bwd_fused` computes d_feats and dW from one staging of the
-cotangent over the TRANSPOSE plan; the dW route runs `chunk_conv_dw` over
-the forward plan and the forward kernel over the transpose plan.
+The backward has two routes: `chunk_conv_bwd_fused` computes d_feats (the
+forward kernel over the TRANSPOSE plan) and dW (the dWt kernel of
+`csrc/chunk_conv_bwd.cu`, also over the transpose plan, summed per run of
+chunks); the dW route runs `chunk_conv_dw` over the forward plan and the
+forward kernel over the transpose plan. The launch geometry (column tile,
+split steps at the coarse levels, runs of chunks) is chosen here from
+static shapes (`col_tile`, `conv_splits`, `dwt_runs`).
 `fused_grouping` picks the route from static shapes with the JAX
 package's rule. `chunk_gather_conv` (submanifold: the plan is its own
 transpose under offset reversal) and `chunk_gather_conv_t` (a transition
@@ -33,6 +36,7 @@ runs its plain version.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import Optional, Tuple
 
@@ -252,6 +256,49 @@ def _shape_error(what: str, **tensors) -> ValueError:
         f"{k} {tuple(v.shape)}" for k, v in tensors.items()))
 
 
+def col_tile(cout: int, bf16: bool) -> int:
+    """Output columns per block of the forward kernel. f32: 64. bf16: the
+    tile of 64, 96 or 128 columns that covers cout with the least work,
+    each tile counted as its columns plus 64 for staging the chunk's rows
+    once more; ties go to the wider tile."""
+    if not bf16:
+        return 64
+    return min((128, 96, 64), key=lambda nt: (-(-cout // nt) * (nt + 64),
+                                              -nt))
+
+
+def conv_splits(C: int, n_tiles: int, n_steps: int, sms: int) -> int:
+    """Ranges of the forward's (Cin tile, offset) steps per (chunk, column
+    tile): 1 where the C * n_tiles blocks give every SM two, else enough
+    for two per SM, at most one per step. n_steps is the count at 64-column
+    Cin tiles, a lower bound of the kernel's own."""
+    blocks = C * n_tiles
+    if blocks >= 2 * sms:
+        return 1
+    return max(1, min(n_steps, -(-2 * sms // blocks)))
+
+
+def dwt_runs(C: int, K: int, cin: int, Ct: int, sms: int) -> int:
+    """Runs of consecutive chunks of the dWt kernel: enough for three blocks
+    per SM over its (64 Cin rows x 64 Ct columns x 4 offsets) tiles, and at
+    most 64 chunks (8192 rows) per run, so that no f32 accumulator sums
+    more products before the runs are summed in order."""
+    tiles = -(-cin // 64) * -(-Ct // 64) * -(-K // 4)
+    return max(1, min(C, max(-(-C // 64), -(-3 * sms // tiles))))
+
+
+def dwt_values(C: int, K: int, cin: int, Ct: int, sms: int) -> int:
+    """f32 values the dWt kernel writes into device memory for one call:
+    each run's partial once (when there are several), then dWt."""
+    runs = dwt_runs(C, K, cin, Ct, sms)
+    return (runs if runs > 1 else 0) * K * cin * Ct + K * cin * Ct
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def chunk_conv(feats: torch.Tensor, in_idx: torch.Tensor, lidx: torch.Tensor,
                weight: torch.Tensor) -> torch.Tensor:
     """Chunk convolution forward (no autograd: see `chunk_gather_conv`).
@@ -261,13 +308,17 @@ def chunk_conv(feats: torch.Tensor, in_idx: torch.Tensor, lidx: torch.Tensor,
     w = weight.to(feats.dtype)
     if not feats.is_cuda:
         return chunk_conv_plain(feats, in_idx, lidx, w)
-    return _launch_chunk_conv(feats, in_idx, lidx, w)
+    out = _run_chunk_conv("chunk_conv", feats, in_idx, lidx, w)
+    chunk_conv.launches += 1
+    return out
 
 
-chunk_conv.launches = 0  # kernel launches (see _launch_chunk_conv)
+chunk_conv.launches = 0  # wrapper calls that launched the kernel
 
 
-def _launch_chunk_conv(feats, in_idx, lidx, w) -> torch.Tensor:
+def _run_chunk_conv(what, feats, in_idx, lidx, w) -> torch.Tensor:
+    """Launch the forward kernel (and, with split steps, its sum of
+    partials) on CUDA tensors; the caller counts the launch."""
     dt = feats.dtype
     kernels.require_cuda_input(feats, "feats", (torch.float32,
                                                 torch.bfloat16), 2)
@@ -279,20 +330,30 @@ def _launch_chunk_conv(feats, in_idx, lidx, w) -> torch.Tensor:
     Cl, K, M = lidx.shape
     Kw, cin_w, cout = w.shape
     if Cl != C or Kw != K or cin_w != cin:
-        raise _shape_error("chunk_conv", feats=feats, in_idx=in_idx,
-                           lidx=lidx, weight=w)
-    _check_launch("chunk_conv", M, (cin, cout), (feats, in_idx, lidx, w))
+        raise _shape_error(what, feats=feats, in_idx=in_idx, lidx=lidx,
+                           weight=w)
+    _check_launch(what, M, (cin, cout), (feats, in_idx, lidx, w))
+    bf = dt == torch.bfloat16
+    nt = col_tile(cout, bf)
+    splits = conv_splits(C, -(-cout // nt), K * -(-cin // 64),
+                         _sm_count(feats.device.index or 0))
     out = torch.empty((C * M, cout), dtype=dt, device=feats.device)
+    part = (torch.empty((splits, C * M, cout), dtype=torch.float32,
+                        device=feats.device) if splits > 1 else None)
     with torch.cuda.device(feats.device):
         rc = kernels.load().occ_chunk_conv_fwd(
             feats.data_ptr(), N, cin, in_idx.data_ptr(), C, U,
-            lidx.data_ptr(), K, M, w.data_ptr(), cout, out.data_ptr(),
-            int(dt == torch.bfloat16), kernels.stream_ptr(feats))
+            lidx.data_ptr(), K, M, w.data_ptr(), cout, nt, splits,
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            int(bf), kernels.stream_ptr(feats))
     if rc == -2:
-        raise ValueError(f"chunk_conv: no Cin tile of U={U}, Cin={cin}, "
-                         f"K={K} ({dt}) fits in shared memory")
-    kernels.check(rc, "chunk_conv kernel launch")
-    chunk_conv.launches += 1
+        raise ValueError(f"{what}: no Cin tile of U={U}, Cin={cin}, K={K} "
+                         f"({dt}) fits in shared memory")
+    if rc == -4:
+        raise RuntimeError(f"{what}: the tensor-map encoder "
+                           f"(cuTensorMapEncodeTiled) is missing or refused "
+                           f"the weight")
+    kernels.check(rc, f"{what} kernel launch")
     return out
 
 
@@ -306,16 +367,19 @@ def chunk_conv_bwd_fused(ct: torch.Tensor, t_in_idx: torch.Tensor,
         dWt[k]      = sum_c feats_c^T @ G_k     -> [K, Cin, Ct], f32
 
     ct [N_ct, Ct], w_t [K, Ct, Cin] and feats [C*M, Cin] share the feature
-    dtype. CUDA tensors launch `csrc/chunk_conv_bwd.cu` (or raise); CPU
-    tensors run `chunk_conv_bwd_fused_plain`. On the card dWt is summed
-    with f32 atomics, so it is not bitwise deterministic."""
+    dtype. CUDA tensors launch the forward kernel of `csrc/chunk_conv.cu`
+    over the transpose plan for d_feats and the dWt kernel of
+    `csrc/chunk_conv_bwd.cu` (or raise); CPU tensors run
+    `chunk_conv_bwd_fused_plain`. Both results are deterministic on the
+    card: dWt is summed per run of chunks, then over the runs in order."""
     if not feats.is_cuda:
         return chunk_conv_bwd_fused_plain(ct, t_in_idx, t_lidx, w_t, feats)
     return _launch_bwd_fused(ct, t_in_idx, t_lidx, w_t, feats)
 
 
-# kernel launches; `launches_kgrouped` counts those at shapes where the
-# JAX package splits K into groups (TPU kernel #4 rather than #3)
+# wrapper calls that launched the kernels; `launches_kgrouped` counts those
+# at shapes where the JAX package splits K into groups (TPU kernel #4
+# rather than #3)
 chunk_conv_bwd_fused.launches = 0
 chunk_conv_bwd_fused.launches_kgrouped = 0
 
@@ -325,9 +389,6 @@ def _launch_bwd_fused(ct, t_in_idx, t_lidx, w_t, feats):
     kernels.require_cuda_input(feats, "feats", (torch.float32,
                                                 torch.bfloat16), 2)
     kernels.require_cuda_input(ct, "ct", dt, 2)
-    kernels.require_cuda_input(t_in_idx, "t_in_idx", torch.int32, 2)
-    kernels.require_cuda_input(t_lidx, "t_lidx", torch.int32, 3)
-    kernels.require_cuda_input(w_t, "w_t", dt, 3)
     n_ct, Ct = ct.shape
     C, U = t_in_idx.shape
     Cl, K, M = t_lidx.shape
@@ -336,20 +397,22 @@ def _launch_bwd_fused(ct, t_in_idx, t_lidx, w_t, feats):
             or tuple(feats.shape) != (C * M, cin)):
         raise _shape_error("chunk_conv_bwd_fused", ct=ct, t_in_idx=t_in_idx,
                            t_lidx=t_lidx, w_t=w_t, feats=feats)
-    _check_launch("chunk_conv_bwd_fused", M, (cin, Ct),
-                  (ct, t_in_idx, t_lidx, w_t, feats))
-    d_feats = torch.empty((C * M, cin), dtype=dt, device=feats.device)
-    dwt = torch.zeros((K, cin, Ct), dtype=torch.float32, device=feats.device)
+    d_feats = _run_chunk_conv("chunk_conv_bwd_fused", ct, t_in_idx, t_lidx,
+                              w_t)
+    runs = dwt_runs(C, K, cin, Ct, _sm_count(feats.device.index or 0))
+    dwt = torch.empty((K, cin, Ct), dtype=torch.float32, device=feats.device)
+    partial = (torch.empty((runs, K, cin, Ct), dtype=torch.float32,
+                           device=feats.device) if runs > 1 else None)
     with torch.cuda.device(feats.device):
-        rc = kernels.load().occ_chunk_conv_bwd_fused(
+        rc = kernels.load().occ_chunk_conv_dwt(
             ct.data_ptr(), n_ct, Ct, t_in_idx.data_ptr(), C, U,
-            t_lidx.data_ptr(), K, M, w_t.data_ptr(), feats.data_ptr(), cin,
-            d_feats.data_ptr(), dwt.data_ptr(), int(dt == torch.bfloat16),
-            kernels.stream_ptr(feats))
+            t_lidx.data_ptr(), K, M, feats.data_ptr(), cin, runs,
+            None if partial is None else partial.data_ptr(), dwt.data_ptr(),
+            int(dt == torch.bfloat16), kernels.stream_ptr(feats))
     if rc == -2:
         raise ValueError(f"chunk_conv_bwd_fused: no Ct tile of U={U}, "
-                         f"Ct={Ct}, K={K} ({dt}) fits in shared memory")
-    kernels.check(rc, "chunk_conv_bwd_fused kernel launch")
+                         f"Ct={Ct} ({dt}) fits in shared memory")
+    kernels.check(rc, "chunk_conv_bwd_fused dWt kernel launch")
     chunk_conv_bwd_fused.launches += 1
     if 0 < fused_grouping(K, M, Ct, cin, U, feats.element_size()) < K:
         chunk_conv_bwd_fused.launches_kgrouped += 1

@@ -1,0 +1,168 @@
+"""The chunk-conv kernels' launch geometry, chosen on the host, against
+NumPy: the forward's column tile and split steps, the fused backward's
+runs of chunks, and the sums each decomposition implies.
+
+The kernels themselves run on a card (tests/test_torch_kernels.py); here
+the decompositions they implement are replayed in NumPy (f64 sums of the
+same partial products, in the kernels' order) against the plain versions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from occuseg_tpu_torch.core.topology import PlanSpec
+from occuseg_tpu_torch.data.synthetic import SceneConfig, make_batch
+from occuseg_tpu_torch.native.plan import build_plan_host
+from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+
+SMS = 132  # H100 SXM
+
+
+def _ranges(n: int, parts: int) -> np.ndarray:
+    """[parts, 2] bounds of the kernels' split: part s covers
+    [n*s/parts, n*(s+1)/parts)."""
+    s = np.arange(parts + 1, dtype=np.int64)
+    b = n * s // parts
+    return np.stack([b[:-1], b[1:]], 1)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_col_tile_minimises_its_cost(bf16):
+    cands = np.array((128, 96, 64) if bf16 else (64,))
+    for cout in range(16, 656, 16):
+        nt = cc.col_tile(cout, bf16)
+        cost = -(-cout // cands) * (cands + 64)
+        assert nt in cands
+        assert cost[cands == nt][0] == cost.min()
+        assert nt == cands[cost == cost.min()].max()
+
+
+@pytest.mark.parametrize("C,tiles,steps", [(1536, 1, 27), (136, 2, 108),
+                                           (32, 3, 135), (8, 3, 162),
+                                           (8, 3, 40), (1, 1, 8),
+                                           (3, 6, 2)])
+def test_conv_splits_partition_the_steps(C, tiles, steps):
+    S = cc.conv_splits(C, tiles, steps, SMS)
+    blocks = C * tiles
+    assert 1 <= S <= steps
+    if blocks >= 2 * SMS:
+        assert S == 1
+    else:
+        assert S * blocks >= 2 * SMS or S == steps
+    r = _ranges(steps, S)
+    assert r[0, 0] == 0 and r[-1, 1] == steps
+    assert (r[1:, 0] == r[:-1, 1]).all() and (r[:, 1] > r[:, 0]).all()
+
+
+@pytest.mark.parametrize("C,K,cin,ct", [(1536, 27, 64, 64), (1088, 27, 128,
+                                                            128),
+                                        (496, 8, 128, 192), (32, 27, 320,
+                                                             320),
+                                        (8, 8, 320, 384), (3, 27, 16, 32)])
+def test_dwt_runs_partition_the_chunks(C, K, cin, ct):
+    R = cc.dwt_runs(C, K, cin, ct, SMS)
+    r = _ranges(C, R)
+    assert 1 <= R <= C
+    assert (r[:, 1] - r[:, 0] <= 64).all() and (r[:, 1] > r[:, 0]).all()
+    tiles = -(-cin // 64) * -(-ct // 64) * -(-K // 4)
+    assert R * tiles >= 3 * SMS or R == C
+    want = (R if R > 1 else 0) * K * cin * ct + K * cin * ct
+    assert cc.dwt_values(C, K, cin, ct, SMS) == want
+
+
+@pytest.fixture(scope="module")
+def small_plan():
+    batch = make_batch(SceneConfig(num_points=3_000, extent=64,
+                                   num_objects=4),
+                       num_scenes=1, p_cap=4_096, num_instances=8, seed=5)
+    return build_plan_host(batch["coords"],
+                           PlanSpec(caps=(4_096, 2_048, 1_024)))
+
+
+def _gather(x, in_idx, lidx):
+    """[C, K, M, X] f64: row m of offset k of chunk c, 0 where missing."""
+    g = x[np.maximum(in_idx, 0)][np.arange(lidx.shape[0])[:, None, None],
+                                 np.maximum(lidx, 0)]
+    return np.where((lidx >= 0)[..., None], g, 0.0)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7])
+def test_split_steps_sum_to_the_forward(small_plan, splits):
+    """The forward's split: partials over ranges of (64-column Cin tile,
+    offset) steps, summed in split order, give the plain forward."""
+    in_idx, lidx = cc.build_chunk_arrays(small_plan.levels[0].nbr, 128, 512)
+    rng = np.random.default_rng(splits)
+    C, K, M = lidx.shape
+    cin, cout = 128, 48
+    x = rng.standard_normal((small_plan.levels[0].cap, cin))
+    w = rng.standard_normal((K, cin, cout)) / np.sqrt(K * cin)
+    g = _gather(x, in_idx, lidx)                      # [C, K, M, cin]
+    steps = [(ci, k) for ci in range(0, cin, 64) for k in range(K)]
+    out = np.zeros((C, M, cout))
+    for s0, s1 in _ranges(len(steps), splits):
+        part = np.zeros((C, M, cout))
+        for ci, k in steps[s0:s1]:
+            part += g[:, k, :, ci:ci + 64] @ w[k, ci:ci + 64]
+        out += part
+    np.testing.assert_allclose(out, np.einsum("ckmi,kio->cmo", g, w),
+                               rtol=1e-12, atol=1e-12)
+    # the plain version computes in f32
+    ref = cc.chunk_conv_plain(torch.from_numpy(x), torch.from_numpy(in_idx),
+                              torch.from_numpy(lidx), torch.from_numpy(w))
+    err = np.abs(out.reshape(C * M, cout) - ref.numpy()).max()
+    assert err <= 1e-5 * np.abs(out).max()
+
+
+@pytest.mark.parametrize("runs", [1, 2, 5])
+def test_runs_sum_to_the_fused_dw(small_plan, runs):
+    """The fused backward's dWt: per run of consecutive chunks, groups of 4
+    offsets, then the runs in order, give the plain dWt."""
+    in_idx, lidx = cc.build_chunk_arrays(small_plan.levels[0].nbr, 128, 512)
+    rng = np.random.default_rng(runs)
+    C, K, M = lidx.shape
+    cin, ct = 32, 80
+    feats = rng.standard_normal((C * M, cin))
+    cot = rng.standard_normal((small_plan.levels[0].cap, ct))
+    g = _gather(cot, in_idx, lidx)                    # [C, K, M, ct]
+    f = feats.reshape(C, M, cin)
+    dwt = np.zeros((K, cin, ct))
+    for c0, c1 in _ranges(C, runs):
+        part = np.zeros((K, cin, ct))
+        for k0 in range(0, K, 4):
+            for c in range(c0, c1):
+                if in_idx[c, 0] < 0:
+                    continue
+                for k in range(k0, min(k0 + 4, K)):
+                    part[k] += f[c].T @ g[c, k]
+        dwt += part
+    np.testing.assert_allclose(dwt, np.einsum("cmi,ckmt->kit", f, g),
+                               rtol=1e-12, atol=1e-12)
+    # the plain version computes in f32
+    w_t = torch.zeros((K, ct, cin), dtype=torch.float64)
+    _, ref = cc.chunk_conv_bwd_fused_plain(
+        torch.from_numpy(cot), torch.from_numpy(in_idx),
+        torch.from_numpy(lidx), w_t, torch.from_numpy(feats))
+    assert np.abs(dwt - ref.numpy()).max() <= 1e-5 * np.abs(dwt).max()
+
+
+def test_bench_dw_values_fall_eightfold():
+    """On the bench plan, the f32 dW values the fused route writes per
+    step (runs' partials and dWt) against what the first fused kernel
+    added with atomics: one value per (live chunk, offset, Cin row, Ct
+    column)."""
+    import chip_smoke as cs
+    from occuseg_tpu_torch.infer import prepare_scene
+    b = cs.bench_scene(0)
+    plan = prepare_scene(b["coords"], b["features"],
+                         PlanSpec(caps=cs.BENCH_CAPS)).plan
+    new = atomics = 0
+    for cv in cs.conv_calls(plan, cs.N_PLANES):
+        if cs.route_of(cv, 2) == "#5":
+            continue
+        ti, tl = cv.t_chunks.in_idx, cv.t_chunks.lidx
+        K = tl.shape[1]
+        new += cc.dwt_values(tl.shape[0], K, cv.cin, cv.cout, SMS)
+        atomics += int((ti[:, 0] >= 0).sum()) * K * cv.cin * cv.cout
+    assert atomics == 7_052_072_960
+    assert new * 8 <= atomics and new <= 0.9e9

@@ -7,9 +7,12 @@ conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-It covers what the main path does not reach: chunks of M=64, channel
-counts that are not multiples of the kernels' 64-column tiles, the dW
-kernel's split into chunk ranges, both backward routes through autograd,
+It covers what the main path does not reach: chunks of M=32 and 64,
+channel counts that are not multiples of the kernels' column tiles, Cin=16,
+all-pad chunks and offsets whose 16-row fragments miss entirely, the widest
+U (a tier-1.7 transpose plan), a coarse level of a few chunks (the
+forward's split steps), the dW kernels' split into chunk ranges and runs
+(and the fused dWt's determinism), both backward routes through autograd,
 and the wrappers' input checks; and, small, what the training CLI's path
 gives the kernels: the chunk plans of a blocked two-scene plan, and a plan
 uploaded from page-locked memory.
@@ -32,7 +35,7 @@ pytestmark = pytest.mark.cuda
 # a few bf16 ulps (2^-8 relative each) of the largest output
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 # dW is f32 for both input types: exact products, sums of up to ~12k terms
-# in another order (atomics in the fused kernel)
+# in another order (per run of chunks, then over the runs)
 DW_TOL = 1e-4
 
 
@@ -155,6 +158,134 @@ def test_dw_matches_plain(dev, plan, dt, M, kind, cin, cout):
     assert cc.chunk_conv_dw.launches == before + 1
     assert dw.shape == (lidx.shape[1], cin, cout)
     _check(dw, ref, DW_TOL)
+
+
+def _fwd_and_fused(dev, in_idx, lidx, t_in_idx, t_lidx, n_in, n_out, cin,
+                   cout, dt, seed):
+    """The forward over (in_idx, lidx) and the fused backward over the
+    transpose plan, each against its plain version."""
+    g = torch.Generator().manual_seed(seed)
+    K = lidx.shape[1]
+    x = torch.randn(n_in, cin, generator=g).to(dev, dt)
+    w = (torch.randn(K, cin, cout, generator=g) / (cin * K) ** 0.5).to(dev,
+                                                                       dt)
+    cot = torch.randn(n_out, cout, generator=g).to(dev, dt)
+    w_t = w.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        out = cc.chunk_conv(x, in_idx, lidx, w)
+        ref = cc.chunk_conv_plain(x, in_idx, lidx, w)
+        d_f, dwt = cc.chunk_conv_bwd_fused(cot, t_in_idx, t_lidx, w_t, x)
+        r_f, r_w = cc.chunk_conv_bwd_fused_plain(cot, t_in_idx, t_lidx, w_t,
+                                                 x)
+    torch.cuda.synchronize()
+    assert out.shape == (lidx.shape[0] * lidx.shape[2], cout)
+    _check(out, ref, TOL[dt])
+    _check(d_f, r_f, TOL[dt])
+    _check(dwt, r_w, DW_TOL)
+    return out, d_f, dwt
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,cin,cout", [
+    (32, 16, 80),
+    (32, 64, 112),
+    (64, 16, 320),
+    (128, 80, 320),
+    (128, 16, 112),
+])
+def test_column_tiles_and_small_chunks(dev, plan, dt, M, cin, cout):
+    """M=32/64, Cin=16, Cout not a multiple of any column tile (80, 112,
+    320), through the forward and the fused backward (a submanifold plan
+    is its own transpose)."""
+    in_idx, lidx = _chunks(plan.levels[0].nbr, M, 512, dev)
+    n = plan.levels[0].cap
+    _fwd_and_fused(dev, in_idx, lidx, in_idx, lidx, n, n, cin, cout, dt,
+                   M + cin + cout)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_pad_chunks_and_empty_fragments(dev, plan, dt):
+    """All-pad chunks write zeros; offsets whose 16-row fragments have no
+    valid reference (some rows missing everywhere) are skipped without
+    changing the result."""
+    arrs = cc.build_chunk_arrays(plan.levels[0].nbr, 128, 512)
+    in_idx, lidx = (a.copy() for a in arrs)
+    C, K, M = lidx.shape
+    lidx[1, :, 16:48] = -1            # two fragments of every offset
+    lidx[2, 5:20, :] = -1             # whole offsets of a chunk
+    lidx[3, :, :] = -1                # a chunk that references nothing...
+    in_idx[3, :] = -1                 # ...is an all-pad chunk
+    in_idx = np.concatenate([in_idx, np.full((3, in_idx.shape[1]), -1,
+                                             np.int32)])
+    lidx = np.concatenate([lidx, np.full((3, K, M), -1, np.int32)])
+    fi, fl = (torch.from_numpy(a).to(dev) for a in (in_idx, lidx))
+    n = plan.levels[0].cap
+    out, d_f, _ = _fwd_and_fused(dev, fi, fl, fi, fl, n + 3 * M, n + 3 * M,
+                                 32, 64, dt, 11)
+    for t in (out, d_f):
+        assert not t[3 * M:4 * M].any() and not t[C * M:].any()
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_widest_transpose_plan(dev, plan, dt):
+    """The deconvolution backward's transpose plan (child chunks) at U =
+    1312, tier 1.7's budget: the widest staging the kernels take."""
+    tr = plan.transitions[0]
+    n0, n1 = plan.levels[0].cap, plan.levels[1].cap
+    up_i, up_l = _chunks(tr.up, 128, 256, dev)      # forward: L1 -> L0
+    ch_i, ch_l = _chunks(tr.child, 128, 1312, dev)  # its transpose
+    assert ch_i.shape[1] == 1312
+    _fwd_and_fused(dev, up_i, up_l, ch_i, ch_l, n1, n0, 64, 96, dt, 12)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K_kind", ["nbr", "child"])
+def test_coarse_level_split(dev, plan, dt, K_kind):
+    """A coarse level of at most 8 chunks at Cout=384: too few blocks for
+    the card, so the forward splits its (Cin tile, offset) steps and sums
+    the partials in order; the same shape through the fused backward."""
+    if K_kind == "nbr":  # the level's first 8 chunks, closed under nbr
+        nbr = plan.levels[3].nbr[:1024]
+        table = np.where(nbr < 1024, nbr, -1).astype(np.int32)
+    else:
+        table = plan.transitions[3].child
+    in_idx, lidx = _chunks(table, 128, 1024, dev)
+    C = lidx.shape[0]
+    assert C <= 8
+    cin, cout = 320, 384
+    nt = cc.col_tile(cout, dt == torch.bfloat16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert cc.conv_splits(C, -(-cout // nt), lidx.shape[1] * 5, sms) > 1
+    if K_kind == "nbr":
+        _fwd_and_fused(dev, in_idx, lidx, in_idx, lidx, C * 128, C * 128,
+                       cin, cout, dt, 13)
+    else:
+        n_in = plan.levels[3].cap
+        g = torch.Generator().manual_seed(14)
+        x = torch.randn(n_in, cin, generator=g).to(dev, dt)
+        w = (torch.randn(8, cin, cout, generator=g) / (cin * 8) ** 0.5).to(
+            dev, dt)
+        with torch.no_grad():
+            _check(cc.chunk_conv(x, in_idx, lidx, w),
+                   cc.chunk_conv_plain(x, in_idx, lidx, w), TOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_fused_backward_is_deterministic(dev, plan, dt):
+    """dWt is summed per run of chunks and then over the runs in order:
+    two launches give the same bits (so does d_feats)."""
+    in_idx, lidx = _chunks(plan.levels[0].nbr, 128, 512, dev)
+    n = plan.levels[0].cap
+    g = torch.Generator().manual_seed(15)
+    x = torch.randn(n, 64, generator=g).to(dev, dt)
+    cot = torch.randn(n, 64, generator=g).to(dev, dt)
+    w_t = (torch.randn(27, 64, 64, generator=g) / 40).to(dev, dt)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert cc.dwt_runs(in_idx.shape[0], 27, 64, 64, sms) > 1
+    a = cc.chunk_conv_bwd_fused(cot, in_idx, lidx, w_t, x)
+    b = cc.chunk_conv_bwd_fused(cot, in_idx, lidx, w_t, x)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.parametrize("kind", ["nbr", "child", "up"])
