@@ -21,7 +21,8 @@ and no network. Phases (any failure exits non-zero):
    [262144, 64]; the gather conv at levels L3-L5 beside the chunk conv;
    the BCE kernels (radius, sums, backward) at the training CLI's shape
    (P=262144, I=128, E=64) and the bench scene's (I=64), beside the
-   port's chain of calls for the same loss.
+   port's chain of calls for the same loss. The dW kernel and the BCE
+   backward are launched twice more and must give the same bits.
 2. parity: a mid-size scene (20k points) through the full-width model in
    f32 on the card (kernels) and on the CPU (plain versions): the 7
    outputs of an eval forward, then one training step's loss parts,
@@ -41,7 +42,8 @@ and no network. Phases (any failure exits non-zero):
 5. loop: the training CLI (`occuseg_tpu_torch.train.cli.main`) at m=64
    with OCC_PALLAS_BCE=1 on blocked 4-scene batches from 4 plan threads:
    first the 33 f32 convolutions of one such plan against their plain
-   versions (forward and both backward routes), then one epoch with its
+   versions (forward and both backward routes, dW repeated bitwise),
+   then one epoch with its
    launch counts, checkpoint and semantic eval, the plan upload pageable
    against pinned, a profiled step, and a resume from the checkpoint.
 
@@ -312,14 +314,6 @@ def check_close(label, out, ref, tol):
     return err, scale
 
 
-def _dw_values(C: int, K: int, cin: int, cout: int, dev) -> int:
-    """f32 values the dW kernel (#5) writes for one call: each chunk
-    range's partial (when there are several), then dW."""
-    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
-    r = cc._dw_ranges(C, K, cin, cout, dev)
-    return (r if r > 1 else 0) * K * cin * cout + K * cin * cout
-
-
 def phase_kernels(dev):
     from occuseg_tpu_torch.core.topology import PlanSpec
     from occuseg_tpu_torch.infer import prepare_scene
@@ -407,6 +401,8 @@ def phase_kernels(dev):
                 dw = cc.chunk_conv_dw(xd, fi, fl, ctd)
                 r_dw = cc.chunk_conv_dw_plain(xd, fi, fl, ctd)
                 e_dw, s_dw = check_close(f"dw {name}", dw, r_dw, DW_TOL)
+                check(torch.equal(dw, cc.chunk_conv_dw(xd, fi, fl, ctd)),
+                      f"dw {name}: a second launch gave other bits")
                 d_t = cc.chunk_conv(ctd, ti, tl, wtd)
                 r_t = cc.chunk_conv_plain(ctd, ti, tl, wtd)
                 e_t, _ = check_close(f"chunk_conv (transpose) {name}", d_t,
@@ -438,8 +434,9 @@ def phase_kernels(dev):
                             2.0 * nnz_t * cv.cin * cv.cout,
                             nbytes(ctd, ti, tl, wtd, d_t),
                             dense_flops=dense_t)
-                    dw_values["#5"] += _dw_values(
-                        fl.shape[0], K, cv.cin, cv.cout, dev)
+                    dw_values["#5"] += cc.dwt_values(
+                        fl.shape[0], K, cv.cout, cv.cin,
+                        cc._sm_count(dev.index))
                 else:  # feats in, d_feats out (same shape), dWt out in f32
                     tot.add(route, f_ms, f_pms, max(e_f, e_w),
                             4.0 * nnz_t * cv.cin * cv.cout,
@@ -552,6 +549,9 @@ def phase_kernels_bce(dev, tot):
             e8 = max(check_close(f"bce backward I={I} {n}", a, b, DW_TOL)[0]
                      for n, a, b in zip(("de", "drx", "dmu", "dsig2"), got,
                                         want))
+            check(all(torch.equal(a, b) for a, b in
+                      zip(got, bl.bce_sums_bwd(*args, g))),
+                  f"bce backward I={I}: a second launch gave other bits")
             del got, want
             reps = 10
             ms6 = cuda_ms(lambda: bl.radius_sq(x4, seg, mp4, mp_sq), reps)
@@ -1107,6 +1107,9 @@ def check_blocked_convs(dev, host_plan):
                 errs[key] = err / max(scale, 1e-30)
                 worst[key] = max(worst[key], errs[key])
                 del out, ref
+            check(torch.equal(cc.chunk_conv_dw(xd, fi, fl, ctd),
+                              cc.chunk_conv_dw(xd, fi, fl, ctd)),
+                  f"[loop] dW {cv.label} f32: two launches gave other bits")
             print(f"[loop] blocked conv {cv.label:<22} f32 rows {cv.n_in}->"
                   f"{cv.n_out} U={fi.shape[1]}/{ti.shape[1]} route={route} "
                   f"error/max: " + ", ".join(f"{k} {v:.1e}"

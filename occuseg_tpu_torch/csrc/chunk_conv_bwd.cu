@@ -1,78 +1,62 @@
-// Chunk convolution backward for Hopper (sm_90a).
+// Chunk convolution weight gradients for Hopper (sm_90a): one kernel
+// template for both backward routes.
 //
-// 1. Fused backward (the wrapper `chunk_conv_bwd_fused`).
-//    Replaces: `_pallas_bwd_fused` (kernel `_make_bwd_fused_kernel`) and
-//    `_pallas_bwd_fused_v2` (kernel `_make_bwd_fused_v2_kernel`, the same
+// Both routes need the same product. Over a chunk plan (in_idx [C, U],
+// lidx [C, K, M]), a GATHERED operand X [N_x, Cx] (its rows reached through
+// the plan) and a DENSE operand D [C*M, Cd] (chunk c's rows c*M..c*M+M):
+//
+//   GX_k[m] = lidx[c,k,m] >= 0 ? X[in_idx[c, lidx[c,k,m]]] : 0
+//   P[k]    = sum_c GX_k^T @ D_c                 (f32, [K, Cx, Cd])
+//
+// 1. dWt of the fused backward (occ_chunk_conv_dwt).
+//    Replaces the dW half of `_pallas_bwd_fused` (kernel
+//    `_make_bwd_fused_kernel`) and `_pallas_bwd_fused_v2` (the same
 //    contract with K split into groups to fit the TPU's VMEM) of
-//    occuseg_tpu/ops/pallas/chunk_conv.py. Over the TRANSPOSE chunk plan
-//    (t_in_idx [C, U], t_lidx [C, K, M]) of a convolution, with the
-//    cotangent ct [N_ct, Ct], the transposed weights W' [K, Ct, Cin] and the
-//    forward input feats [C*M, Cin], all in the feature dtype:
-//
-//      Gct_k[m]    = t_lidx[c,k,m] >= 0 ? ct[t_in_idx[c, t_lidx[c,k,m]]] : 0
-//      d_feats_c   = sum_k Gct_k @ W'_k                  (feature dtype)
-//      dWt[k]      = sum_c feats_c^T @ Gct_k             (f32, [K, Cin, Ct])
-//
-//    d_feats is the forward contract over the transpose plan: the wrapper
-//    runs the forward kernel of chunk_conv.cu for it. dWt is the kernel
-//    below (occ_chunk_conv_dwt). The caller maps dWt to dW (offset reversal
-//    for submanifold maps, none for the strided/deconvolution pairs).
-//
-//    What bounded the first version (one kernel for both products):
-//    every block added its [64, Ct] slice of every offset's dWt into device
-//    memory with f32 atomics, C*K*Cin*Ct adds per call (7.05e9 per bf16
-//    bench step), serialised in L2 on one small tensor. The TPU kernel never
-//    paid this: its dW block stays in VMEM across the sequential chunk grid.
-//    Shared memory cannot hold dWt for all 27 offsets (27 x 64 x 64 f32 is
-//    442 KB), so here dWt stays in registers across a RUN of chunks
-//    instead: one block per (64 Cin rows, a Ct tile, 4 offsets, run of
-//    consecutive chunks), two warpgroups of two offsets each. Per chunk it
-//    stages the chunk's referenced ct rows (one Ct tile, pad slots skipped,
-//    zero row at U) and its 64 feats columns (the next chunk's in_idx and
-//    t_lidx rows load meanwhile). bf16 runs on wgmma as dWt[k]^T = Gct_k^T
-//    @ feats_c: per 16-row slice each warp gathers its 16 Ct rows of A =
-//    Gct_k^T with ldmatrix.trans from the staged ct rows, every lane's row
-//    address read from t_lidx, and B is the feats tile, staged in the
-//    128-byte swizzle, through a descriptor; a slice with no valid
-//    reference is skipped. At the end of the run the block writes its f32
-//    partial once with plain stores ([runs, K, Cin, Ct]); a second launch
-//    sums the partials in run order. dWt is deterministic and the values
-//    written per bench step fall from 7.05e9 to 2.43e8 (the wrapper's
-//    `dwt_values`). f32 (training CLI, parity): the same blocks with exact
-//    FMA products, each thread an 8 x (CT/8) register tile, rows with no
-//    valid reference skipped.
-//    What bounds it: latency per chunk. A block stages a chunk, waits, and
-//    then runs ~4 MFLOP; only the other resident block overlaps that. On
-//    the H100, per bench step: mma.sync in place of wgmma measured 9.9 ms
-//    against 9.0; 8 offsets per block (16 warps, half the restaging) with
-//    the next chunk's rows loaded during this one's products measured
-//    10.3-10.8 ms against 9.8-10.0 for mma.sync at 4 offsets (one block per
-//    SM fitted); without the dW atomics the first fused kernel measured 7%
-//    faster. Neither the adds, nor the staged bytes, nor the MMA
-//    instructions set the pace.
-//
+//    occuseg_tpu/ops/pallas/chunk_conv.py. Over the TRANSPOSE plan,
+//    X = the cotangent ct [N_ct, Ct] and D = the forward input feats
+//    [C*M, Cin]: dWt[k] = sum_c feats_c^T @ Gct_k = P[k]^T, written
+//    [K, Cin, Ct]. The caller maps dWt to dW (offset reversal for
+//    submanifold maps, none for the strided/deconvolution pairs). The
+//    d_feats half is the forward kernel of chunk_conv.cu over the transpose
+//    plan.
 // 2. dW over the forward plan (occ_chunk_conv_dw).
-//    Replaces: `_pallas_dw` (kernel `_make_dw_kernel`), the route the JAX
-//    package takes where the fused kernel does not fit its VMEM budget:
+//    Replaces `_pallas_dw` (kernel `_make_dw_kernel`), the route the JAX
+//    package takes where the fused kernel does not fit its VMEM budget.
+//    Over the FORWARD plan, X = feats [N, Cin] and D = ct [C*M, Cout]:
+//    dW[k] = sum_c G_k^T @ ct_c = P[k], written [K, Cin, Cout] as it is
+//    (no transpose pass). The d_feats half of that route is the forward
+//    kernel on the transpose plan.
 //
-//      dW[k] = sum_c G_k^T @ ct_c,  G_k[m] = feats[in_idx[c, lidx[c,k,m]]]
+// The kernel (`dw_kernel<T, CT, kRowsGathered>`): one block per (64 of
+// D's columns, a CT-column tile of X, 4 offsets, run of <= 64 consecutive
+// chunks), two warpgroups of two offsets each. Per chunk it stages the
+// chunk's referenced X rows (one CT-column tile, pad slots skipped, a zero
+// row at U that every missing reference reads) and its 64 D columns (the
+// next chunk's in_idx and lidx rows load meanwhile). bf16 runs on wgmma as
+// P[k] = GX_k^T @ D_c: per 16-row slice each warp gathers its 16 rows of
+// A = GX_k^T with ldmatrix.trans from the staged X rows, every lane's row
+// address read from lidx, and B is the D tile, staged in the 128-byte
+// swizzle by cp.async and read through a descriptor after
+// fence.proxy.async; a slice with no valid reference is skipped. The
+// accumulator's rows are X's columns and its columns D's, so the epilogue
+// writes P[k] directly for dW and its transpose for dWt (kRowsGathered).
+// At the end of the run the block writes its f32 partial once with plain
+// stores ([runs, K, rows, cols]); a second launch sums the partials in run
+// order. Both results are deterministic, and no accumulator sums more than
+// 64 chunks (8192 rows) before the ordered sum. f32 (training CLI,
+// parity): the same blocks with exact FMA products, each thread an
+// 8 x (CT/8) register tile, rows with no valid reference skipped.
 //
-//    in f32, [K, Cin, Cout]. The d_feats half of that route is the forward
-//    kernel (chunk_conv.cu) on the transpose plan.
-//    It is bound by its gathers: each block reads the M rows of one offset
-//    straight from device memory (no staging), two 16 KB tiles per chunk,
-//    with few blocks' worth of independent work at the coarse levels where
-//    it runs. One block per (64x64 tile of dW[k], offset k, range of
-//    chunks): per chunk the M gathered feats rows and the M ct rows of the
-//    tile are loaded with cp.async (missing references read as zeros) and
-//    accumulated in registers (WMMA bf16 -> f32, or FMA in f32). With one
-//    range per tile the block writes dW directly; with several (small
-//    shapes that would not fill the card) each writes its partial and a
-//    second launch sums the partials in range order. Either way dW is
-//    deterministic. wgmma, TMA and double-buffered chunk loads are left for
-//    later work.
-
-#include <mma.h>
+// What bounds it: latency per chunk. A block stages a chunk, waits, and
+// then runs ~4 MFLOP; only the other resident block overlaps that. On the
+// H100, per bench step (dWt at the 29 fused shapes): mma.sync in place of
+// wgmma measured 9.9 ms against 9.0; 8 offsets per block (16 warps, half
+// the restaging) measured 10.3-10.8 ms against 9.8-10.0 at 4 offsets (one
+// block per SM fitted). The dW route's first kernel (one block per 64x64
+// tile and ONE offset, M gathered rows and M ct rows read per chunk
+// straight into WMMA tiles, nothing overlapped) read the ct tile again
+// for every offset: 27x the ct traffic, 2.20 ms per bench step for its
+// four convolutions.
 
 #include <type_traits>
 
@@ -82,42 +66,38 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// ---------------------------------------------------------------------------
-// dWt over the transpose plan, in run partials
-// ---------------------------------------------------------------------------
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kOffsets = 4;    // offsets per block
+constexpr int kRows = 64;      // D columns per block
 
-constexpr int kDwtThreads = 256;  // 8 warps
-constexpr int kDwtOffsets = 4;    // offsets per block
-constexpr int kDwtRows = 64;      // Cin rows (dWt rows) per block
-
-struct DwtArgs {
-  const void* ct;
-  const int32_t* in_idx;
-  const int32_t* lidx;
-  const void* feats;
-  float* out;  // dWt [K, cin, Ct] (runs == 1) or partials [runs, K, cin, Ct]
-  int n_ct, Ct, C, U, K, M, cin, runs;
+struct DwArgs {
+  const void* x;          // gathered operand [n_x, cx]
+  const int32_t* in_idx;  // [C, U]
+  const int32_t* lidx;    // [C, K, M]
+  const void* d;          // dense operand [C*M, cd]
+  float* out;  // the result (runs == 1) or the runs' partials
+  int n_x, cx, C, U, K, M, cd, runs;
 };
 
-// Shared memory plan, from a 1024-byte aligned base: the feats tile first
+// Shared memory plan, from a 1024-byte aligned base: the D tile first
 // (bf16: kMaxM rows of 64 columns, 128 bytes each, in the 128-byte swizzle
 // that wgmma reads through a descriptor; f32: rows padded against bank
 // conflicts), two buffers of the chunk's lidx rows and in_idx row (the
 // next chunk's are loaded while this one computes), then one set of staged
-// ct rows.
+// X rows.
 template <typename T, int CT>
-struct DwtLayout {
+struct DwLayout {
   static constexpr int kVec = 16 / sizeof(T);
   static constexpr bool kSwizzled = sizeof(T) == 2;
-  static constexpr int kLdf = kDwtRows + kVec;  // f32 feats tile stride
-  // staged ct row stride: bf16 rows are read by ldmatrix at 8 different
+  static constexpr int kLdf = kRows + kVec;  // f32 D tile stride
+  // staged X row stride: bf16 rows are read by ldmatrix at 8 different
   // rows per instruction and are padded against bank conflicts; a warp of
   // the f32 tile reads one row, 128 contiguous bytes, and needs no padding
   // (which lets tier 1.7's U=1312 fit at CT=32)
   static constexpr int kLdg = CT + (kSwizzled ? kVec : 0);
-  static constexpr size_t kLidx = static_cast<size_t>(kDwtOffsets) * kMaxM;
+  static constexpr size_t kLidx = static_cast<size_t>(kOffsets) * kMaxM;
   size_t lidx_off, in_off, g_off, total;
-  __host__ __device__ DwtLayout(int U) {
+  __host__ __device__ DwLayout(int U) {
     size_t off = align128(static_cast<size_t>(kMaxM) *
                           (kSwizzled ? 128 : kLdf * sizeof(T)));
     lidx_off = off;
@@ -134,22 +114,32 @@ struct DwtLayout {
   }
 };
 
-// bf16: dWt[k]^T = Gct_k^T @ feats_c on wgmma. Warpgroup g holds, for
-// offsets k0 + 2g and k0 + 2g + 1, the [64 Ct, 64 Cin] tile of dWt^T as
-// m64n64 accumulators; per 16-row slice of the chunk its warps gather A =
-// Gct_k^T (Ct rows 16w..+16 of the group's 64) with ldmatrix.trans from the
-// staged ct rows, every lane's row address read from t_lidx, and B is the
-// swizzled feats tile through a descriptor. A slice with no valid
+// Where element (X column gx, D column dx) of offset j's product goes:
+// dW [K, cx, cd] keeps it, dWt [K, cd, cx] transposes it.
+template <bool kRowsGathered>
+__device__ __forceinline__ size_t out_at(int j, int gx, int dx, int cx,
+                                         int cd) {
+  const size_t base = static_cast<size_t>(j) * cx * cd;
+  return kRowsGathered ? base + static_cast<size_t>(gx) * cd + dx
+                       : base + static_cast<size_t>(dx) * cx + gx;
+}
+
+// bf16: P[k] = GX_k^T @ D_c on wgmma. Warpgroup g holds, for offsets
+// k0 + 2g and k0 + 2g + 1, the [64 X columns, 64 D columns] tile as
+// m64n64 accumulators; per 16-row slice of the chunk its warps gather
+// A = GX_k^T (X columns 16w..+16 of the group's 64) with ldmatrix.trans
+// from the staged X rows, every lane's row address read from lidx, and B
+// is the swizzled D tile through a descriptor. A slice with no valid
 // reference at the offset is skipped (uniform over the group).
-template <int CT>
-struct DwtWgTile {
-  static_assert(CT == 64, "wgmma takes 64 Ct rows");
+template <int CT, bool kRowsGathered>
+struct DwWgTile {
+  static_assert(CT == 64, "wgmma takes 64 rows of A");
   static constexpr int kLdg = CT + 8;
   float acc[2][32];
   int g, w, lane;
   int j;  // the block's first offset of this thread's warpgroup
 
-  __device__ DwtWgTile(int t) {
+  __device__ DwWgTile(int t) {
     const int warp = t / 32;
     lane = t % 32;
     g = warp >> 2;
@@ -162,8 +152,7 @@ struct DwtWgTile {
   }
 
   __device__ void chunk(const bf16* f_s, const bf16* g_s,
-                        const int32_t* lidx_s, int M, int U, int nk,
-                        int ncols) {
+                        const int32_t* lidx_s, int M, int U, int nk) {
     const uint32_t f0 = smem_u32(f_s);
 #pragma unroll
     for (int o = 0; o < 2; ++o) {
@@ -196,35 +185,42 @@ struct DwtWgTile {
     }
   }
 
-  // dst = this block's [cin, Ct] slice of offset k0 (row k0 of dWt);
-  // element (ct row r, cin column c) of the accumulator goes to
-  // dst[o][ci0 + c][ct0 + r].
-  __device__ void store(float* dst, int cin, int Ct, int ci0, int ct0,
-                        int nk, int ncols) const {
+  // dst = the block's offset k0 of the result (or of its run's partial);
+  // accumulator row r, column c of the tile at (x0, d0) is P[k] at
+  // (x0 + r, d0 + c). Columns come in pairs (i, i + 1).
+  __device__ void store(float* dst, int cx, int cd, int d0, int x0, int nk,
+                        int ncols) const {
 #pragma unroll
     for (int o = 0; o < 2; ++o) {
       if (j + o >= nk) continue;
-      float* d = dst + static_cast<size_t>(j + o) * cin * Ct;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < 32; i += 2) {
         const int r = w * 16 + (lane >> 2) + ((i >> 1) & 1) * 8;
-        const int c = (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
-        if (r < ncols && ci0 + c < cin)
-          d[static_cast<size_t>(ci0 + c) * Ct + ct0 + r] = acc[o][i];
+        const int c = (i >> 2) * 8 + (lane & 3) * 2;
+        if (r >= ncols || d0 + c >= cd) continue;  // cd: a multiple of 16
+        if constexpr (kRowsGathered) {
+          *reinterpret_cast<float2*>(
+              dst + out_at<true>(j + o, x0 + r, d0 + c, cx, cd)) =
+              make_float2(acc[o][i], acc[o][i + 1]);
+        } else {
+          dst[out_at<false>(j + o, x0 + r, d0 + c, cx, cd)] = acc[o][i];
+          dst[out_at<false>(j + o, x0 + r, d0 + c + 1, cx, cd)] =
+              acc[o][i + 1];
+        }
       }
     }
   }
 };
 
-// f32: thread t holds dWt[k0 + t/64] rows ci0 + rg*8..+8, columns
-// ct0 + q*32 + cg*4..+4 (q < CT/32); exact FMA products.
-template <int CT>
-struct DwtFmaTile {
-  static constexpr int kLdf = kDwtRows + 4, kLdg = CT, kNQ = CT / 32;
+// f32: thread t holds P[k0 + t/64] at D columns d0 + rg*8..+8 and X
+// columns x0 + q*32 + cg*4..+4 (q < CT/32); exact FMA products.
+template <int CT, bool kRowsGathered>
+struct DwFmaTile {
+  static constexpr int kLdf = kRows + 4, kLdg = CT, kNQ = CT / 32;
   float acc[8][kNQ][4];
   int j, rg, cg;
 
-  __device__ DwtFmaTile(int t) : j(t / 64), rg((t % 64) / 8), cg(t % 8) {
+  __device__ DwFmaTile(int t) : j(t / 64), rg((t % 64) / 8), cg(t % 8) {
 #pragma unroll
     for (int r = 0; r < 8; ++r)
 #pragma unroll
@@ -234,8 +230,7 @@ struct DwtFmaTile {
   }
 
   __device__ void chunk(const float* f_s, const float* g_s,
-                        const int32_t* lidx_s, int M, int U, int nk,
-                        int ncols) {
+                        const int32_t* lidx_s, int M, int U, int nk) {
     if (j >= nk) return;
     const int32_t* lk = lidx_s + j * M;  // offsets packed at stride M
     for (int m = 0; m < M; ++m) {
@@ -263,38 +258,49 @@ struct DwtFmaTile {
     }
   }
 
-  // dst = the block's offset k0 of dWt (or of its run's partial).
-  __device__ void store(float* dst, int cin, int Ct, int ci0, int ct0,
-                        int nk, int ncols) const {
-    if (j >= nk) return;
-    dst += static_cast<size_t>(j) * cin * Ct;
+  // acc[r][q][e] is P[k] at (X column x0 + q*32 + cg*4 + e, D column
+  // d0 + rg*8 + r); cx and cd are multiples of 16, so a thread's 8 D
+  // columns and 4 X columns are in range together.
+  __device__ void store(float* dst, int cx, int cd, int d0, int x0, int nk,
+                        int ncols) const {
+    const int dr = d0 + rg * 8;
+    if (j >= nk || dr >= cd) return;
 #pragma unroll
     for (int q = 0; q < kNQ; ++q) {
       const int c = q * 32 + cg * 4;
       if (c >= ncols) continue;
+      if constexpr (kRowsGathered) {
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int row = ci0 + rg * 8 + r;
-        if (row >= cin) break;
-        *reinterpret_cast<float4*>(dst + static_cast<size_t>(row) * Ct + ct0 +
-                                   c) =
-            make_float4(acc[r][q][0], acc[r][q][1], acc[r][q][2],
-                        acc[r][q][3]);
+        for (int e = 0; e < 4; ++e) {
+          float* o = dst + out_at<true>(j, x0 + c + e, dr, cx, cd);
+          *reinterpret_cast<float4*>(o) = make_float4(
+              acc[0][q][e], acc[1][q][e], acc[2][q][e], acc[3][q][e]);
+          *reinterpret_cast<float4*>(o + 4) = make_float4(
+              acc[4][q][e], acc[5][q][e], acc[6][q][e], acc[7][q][e]);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          *reinterpret_cast<float4*>(
+              dst + out_at<false>(j, x0 + c, dr + r, cx, cd)) =
+              make_float4(acc[r][q][0], acc[r][q][1], acc[r][q][2],
+                          acc[r][q][3]);
       }
     }
   }
 };
 
-template <typename T, int CT>
-using DwtTileOf = typename std::conditional<sizeof(T) == 2, DwtWgTile<CT>,
-                                            DwtFmaTile<CT>>::type;
+template <typename T, int CT, bool kRowsGathered>
+using DwTileOf =
+    typename std::conditional<sizeof(T) == 2, DwWgTile<CT, kRowsGathered>,
+                              DwFmaTile<CT, kRowsGathered>>::type;
 
-// blockIdx: x = (64-row Cin tile, CT-column Ct tile), y = group of 4
+// blockIdx: x = (64-column D tile, CT-column X tile), y = group of 4
 // offsets, z = run of consecutive chunks.
-template <typename T, int CT>
-__global__ void __launch_bounds__(kDwtThreads, 2)
-dwt_kernel(const DwtArgs a) {
-  using L = DwtLayout<T, CT>;
+template <typename T, int CT, bool kRowsGathered>
+__global__ void __launch_bounds__(kThreads, 2)
+dw_kernel(const DwArgs a) {
+  using L = DwLayout<T, CT>;
   constexpr int kVec = L::kVec;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
@@ -306,33 +312,33 @@ dwt_kernel(const DwtArgs a) {
   T* g_s = reinterpret_cast<T*>(smem + lay.g_off);
 
   const int U = a.U, K = a.K, M = a.M;
-  const int tiles_ct = (a.Ct + CT - 1) / CT;
-  const int ci0 = (blockIdx.x / tiles_ct) * kDwtRows;
-  const int ct0 = (blockIdx.x % tiles_ct) * CT;
-  const int ncols = min(CT, a.Ct - ct0);
-  const int k0 = blockIdx.y * kDwtOffsets, run = blockIdx.z;
-  const int nk = min(kDwtOffsets, K - k0);
+  const int tiles_x = (a.cx + CT - 1) / CT;
+  const int d0 = (blockIdx.x / tiles_x) * kRows;
+  const int x0 = (blockIdx.x % tiles_x) * CT;
+  const int ncols = min(CT, a.cx - x0);
+  const int k0 = blockIdx.y * kOffsets, run = blockIdx.z;
+  const int nk = min(kOffsets, K - k0);
   const int c_begin =
       static_cast<int>(static_cast<long long>(a.C) * run / a.runs);
   const int c_end =
       static_cast<int>(static_cast<long long>(a.C) * (run + 1) / a.runs);
   const int t = threadIdx.x;
-  const T* ct = static_cast<const T*>(a.ct);
-  const T* feats = static_cast<const T*>(a.feats);
+  const T* xs = static_cast<const T*>(a.x);
+  const T* ds = static_cast<const T*>(a.d);
   const size_t in_stride = lay.in_stride(U);
 
   // chunk c's in_idx row and the lidx rows of offsets k0.. into buffer b
   auto load_meta = [&](int c, int b) {
     copy_ints(in_b + b * in_stride, a.in_idx + static_cast<size_t>(c) * U, U,
-              t, kDwtThreads);
+              t, kThreads);
     copy_ints(lidx_b + b * L::kLidx,
               a.lidx + (static_cast<size_t>(c) * K + k0) * M, nk * M, t,
-              kDwtThreads);
+              kThreads);
   };
 
-  DwtTileOf<T, CT> tile(t);
+  DwTileOf<T, CT, kRowsGathered> tile(t);
   zero_bytes(g_s + static_cast<size_t>(U) * L::kLdg, L::kLdg * sizeof(T), t,
-             kDwtThreads);
+             kThreads);
   if (c_begin < c_end) load_meta(c_begin, 0);
   for (int c = c_begin; c < c_end; ++c) {
     const int b = (c - c_begin) & 1;
@@ -342,21 +348,20 @@ dwt_kernel(const DwtArgs a) {
     __syncthreads();
     const bool live = in_s[0] >= 0;  // uniform: all-pad chunks add nothing
     if (live) {
-      // feats rows c*M.., columns ci0..ci0+64 (zero past cin); bf16 rows
-      // are 128 bytes, their 16-byte pieces swizzled by the row's low bits
-      constexpr int kVpr = kDwtRows / kVec;
-      for (int i = t; i < M * kVpr; i += kDwtThreads) {
-        const int m = i / kVpr, v = i % kVpr, col = ci0 + v * kVec;
-        T* d = L::kSwizzled ? f_s + m * kDwtRows + ((v ^ (m & 7)) * kVec)
-                            : f_s + m * L::kLdf + v * kVec;
-        if (col < a.cin)
-          cp_async16(d,
-                     feats + (static_cast<size_t>(c) * M + m) * a.cin + col);
+      // D rows c*M.., columns d0..d0+64 (zero past cd); bf16 rows are 128
+      // bytes, their 16-byte pieces swizzled by the row's low bits
+      constexpr int kVpr = kRows / kVec;
+      for (int i = t; i < M * kVpr; i += kThreads) {
+        const int m = i / kVpr, v = i % kVpr, col = d0 + v * kVec;
+        T* dd = L::kSwizzled ? f_s + m * kRows + ((v ^ (m & 7)) * kVec)
+                             : f_s + m * L::kLdf + v * kVec;
+        if (col < a.cd)
+          cp_async16(dd, ds + (static_cast<size_t>(c) * M + m) * a.cd + col);
         else
-          *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(dd) = make_uint4(0, 0, 0, 0);
       }
-      stage_rows<T, CT>(g_s, L::kLdg, ct, a.n_ct, a.Ct, a.Ct, in_s, U, ct0,
-                        t, kDwtThreads);
+      stage_rows<T, CT>(g_s, L::kLdg, xs, a.n_x, a.cx, a.cx, in_s, U, x0, t,
+                        kThreads);
     }
     asm volatile("cp.async.commit_group;\n" ::);
     if (c + 1 < c_end) load_meta(c + 1, b ^ 1);
@@ -365,215 +370,25 @@ dwt_kernel(const DwtArgs a) {
     if (!live) continue;
     if constexpr (L::kSwizzled) fence_proxy_async();  // wgmma reads f_s
     __syncthreads();
-    tile.chunk(f_s, g_s, lidx_b + b * L::kLidx, M, U, nk, ncols);
+    tile.chunk(f_s, g_s, lidx_b + b * L::kLidx, M, U, nk);
   }
   cp_async_wait_all();
-  float* dst =
-      a.out + (static_cast<size_t>(run) * K + k0) * a.cin * a.Ct;
-  tile.store(dst, a.cin, a.Ct, ci0, ct0, nk, ncols);
+  float* dst = a.out + (static_cast<size_t>(run) * K + k0) * a.cx * a.cd;
+  tile.store(dst, a.cx, a.cd, d0, x0, nk, ncols);
 }
 
-template <typename T, int CT>
-int launch_dwt(const DwtArgs& a, cudaStream_t stream) {
-  const DwtLayout<T, CT> lay(a.U);
+template <typename T, int CT, bool kRowsGathered>
+int launch_dw(const DwArgs& a, cudaStream_t stream) {
+  const DwLayout<T, CT> lay(a.U);
   const int smem = static_cast<int>(lay.total);
-  auto kernel = dwt_kernel<T, CT>;
+  auto kernel = dw_kernel<T, CT, kRowsGathered>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(((a.cin + kDwtRows - 1) / kDwtRows) * ((a.Ct + CT - 1) / CT),
-                  (a.K + kDwtOffsets - 1) / kDwtOffsets, a.runs);
-  kernel<<<grid, kDwtThreads, smem, stream>>>(a);
+  const dim3 grid(((a.cd + kRows - 1) / kRows) * ((a.cx + CT - 1) / CT),
+                  (a.K + kOffsets - 1) / kOffsets, a.runs);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-// bf16 takes 64 Ct columns (wgmma's 64 rows), f32 the widest tile that
-// fits.
-template <typename T>
-int launch_dwt_fitting(const DwtArgs& a, cudaStream_t s) {
-  const size_t limit = static_cast<size_t>(max_dynamic_smem());
-  if (DwtLayout<T, 64>(a.U).total <= limit) return launch_dwt<T, 64>(a, s);
-  if constexpr (sizeof(T) == 4)
-    if (DwtLayout<T, 32>(a.U).total <= limit) return launch_dwt<T, 32>(a, s);
-  return -2;
-}
-
-// ---------------------------------------------------------------------------
-// dW over the forward plan
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kCoT = 64;  // dW tile edge
-
-template <typename T>
-struct DwLayout {
-  static constexpr int kVec = 16 / sizeof(T);
-  static constexpr int kLd = kCoT + kVec;   // gathered-row / ct-row stride
-  static constexpr int kLdd = kCoT + 4;     // f32 epilogue staging stride
-  static constexpr size_t kA = 0;
-  static constexpr size_t kB = align128(static_cast<size_t>(kMaxM) * kLd * sizeof(T));
-  static constexpr size_t kD = kB + kB;
-  static constexpr size_t kTotal =
-      kD + (sizeof(T) == 2 ? align128(static_cast<size_t>(kCoT) * kLdd * sizeof(float)) : 0);
-};
-
-// Load chunk c's M gathered feats rows (offset k, columns ci0..) into a_s
-// and its M ct rows (columns co0..) into b_s; missing references are zero.
-template <typename T>
-__device__ void load_dw_chunk(T* a_s, T* b_s, const T* __restrict__ feats,
-                              int n_rows, int cin,
-                              const int32_t* __restrict__ in_c, int U,
-                              const int32_t* __restrict__ l_ck, int M,
-                              const T* __restrict__ ct_c, int cout, int ci0,
-                              int co0) {
-  using D = DwLayout<T>;
-  constexpr int kVpr = kCoT / D::kVec;
-  for (int i = threadIdx.x; i < M * kVpr; i += kThreads) {
-    const int m = i / kVpr, v = i % kVpr;
-    const int l = l_ck[m];
-    const int row = (l >= 0 && l < U) ? in_c[l] : -1;
-    const int ca = ci0 + v * D::kVec, cb = co0 + v * D::kVec;
-    T* da = a_s + m * D::kLd + v * D::kVec;
-    T* db = b_s + m * D::kLd + v * D::kVec;
-    if (row >= 0 && row < n_rows && ca < cin)
-      cp_async16(da, feats + static_cast<size_t>(row) * cin + ca);
-    else
-      *reinterpret_cast<uint4*>(da) = make_uint4(0, 0, 0, 0);
-    if (cb < cout)
-      cp_async16(db, ct_c + static_cast<size_t>(m) * cout + cb);
-    else
-      *reinterpret_cast<uint4*>(db) = make_uint4(0, 0, 0, 0);
-  }
-  cp_async_wait_all();
-}
-
-// blockIdx: x = 64x64 tile of dW[k] (ci-major), y = offset k, z = chunk
-// range. out is dW [K, cin, cout] when gridDim.z == 1, else the partials
-// [gridDim.z, K, cin, cout].
-__global__ void __launch_bounds__(kThreads)
-dw_bf16_kernel(const bf16* __restrict__ feats, int n_rows, int cin,
-               const int32_t* __restrict__ in_idx, int C, int U,
-               const int32_t* __restrict__ lidx, int K, int M,
-               const bf16* __restrict__ ct, int cout,
-               float* __restrict__ out) {
-  using T = bf16;
-  using D = DwLayout<T>;
-  namespace wmma = nvcuda::wmma;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* a_s = reinterpret_cast<T*>(smem + D::kA);
-  T* b_s = reinterpret_cast<T*>(smem + D::kB);
-  float* d_s = reinterpret_cast<float*>(smem + D::kD);
-
-  const int tiles_co = (cout + kCoT - 1) / kCoT;
-  const int ci0 = (blockIdx.x / tiles_co) * kCoT;
-  const int co0 = (blockIdx.x % tiles_co) * kCoT;
-  const int k = blockIdx.y, r = blockIdx.z, R = gridDim.z;
-  const int c_begin = static_cast<int>(static_cast<long long>(C) * r / R);
-  const int c_end = static_cast<int>(static_cast<long long>(C) * (r + 1) / R);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int drow = (warp >> 1) * 16, dcol = (warp & 1) * 32;
-  const bool drow_live = ci0 + drow < cin;
-  bool dcol_live[2];
-  for (int j = 0; j < 2; ++j) dcol_live[j] = co0 + dcol + j * 16 < cout;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  for (int c = c_begin; c < c_end; ++c) {
-    const int32_t* in_c = in_idx + static_cast<size_t>(c) * U;
-    if (in_c[0] < 0) continue;  // all-pad chunk (uniform across the block)
-    __syncthreads();  // the previous chunk's readers are done
-    load_dw_chunk<T>(a_s, b_s, feats, n_rows, cin, in_c, U,
-                     lidx + (static_cast<size_t>(c) * K + k) * M, M,
-                     ct + static_cast<size_t>(c) * M * cout, cout, ci0, co0);
-    __syncthreads();
-    if (!drow_live) continue;
-    for (int mm = 0; mm < M; mm += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> fa;
-      wmma::load_matrix_sync(fa, a_s + mm * D::kLd + drow, D::kLd);
-      for (int j = 0; j < 2; ++j) {
-        if (!dcol_live[j]) continue;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, b_s + mm * D::kLd + dcol + j * 16, D::kLd);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-  }
-
-  if (!drow_live) return;
-  const int ncol = dcol_live[1] ? 32 : (dcol_live[0] ? 16 : 0);
-  if (ncol == 0) return;
-  float* d_w = d_s + drow * D::kLdd + dcol;
-  for (int j = 0; j < 2; ++j)
-    if (dcol_live[j])
-      wmma::store_matrix_sync(d_w + j * 16, acc[j], D::kLdd,
-                              wmma::mem_row_major);
-  __syncwarp();
-  const int vpr = ncol / 4;
-  float* o = out + ((static_cast<size_t>(r) * K + k) * cin + ci0 + drow) * cout +
-             co0 + dcol;
-  for (int i = lane; i < 16 * vpr; i += 32) {
-    const int rr = i / vpr, q = i % vpr;
-    *reinterpret_cast<float4*>(o + static_cast<size_t>(rr) * cout + q * 4) =
-        *reinterpret_cast<const float4*>(d_w + rr * D::kLdd + q * 4);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-dw_f32_kernel(const float* __restrict__ feats, int n_rows, int cin,
-              const int32_t* __restrict__ in_idx, int C, int U,
-              const int32_t* __restrict__ lidx, int K, int M,
-              const float* __restrict__ ct, int cout,
-              float* __restrict__ out) {
-  using T = float;
-  using D = DwLayout<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* a_s = reinterpret_cast<T*>(smem + D::kA);
-  T* b_s = reinterpret_cast<T*>(smem + D::kB);
-
-  const int tiles_co = (cout + kCoT - 1) / kCoT;
-  const int ci0 = (blockIdx.x / tiles_co) * kCoT;
-  const int co0 = (blockIdx.x % tiles_co) * kCoT;
-  const int k = blockIdx.y, r = blockIdx.z, R = gridDim.z;
-  const int c_begin = static_cast<int>(static_cast<long long>(C) * r / R);
-  const int c_end = static_cast<int>(static_cast<long long>(C) * (r + 1) / R);
-
-  // thread tile: rows (Cin) rg*4..+4, columns (Cout) cg*4..+4 of 64 x 64
-  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
-  float acc[4][4];
-  for (int i = 0; i < 4; ++i)
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
-
-  for (int c = c_begin; c < c_end; ++c) {
-    const int32_t* in_c = in_idx + static_cast<size_t>(c) * U;
-    if (in_c[0] < 0) continue;
-    __syncthreads();
-    load_dw_chunk<T>(a_s, b_s, feats, n_rows, cin, in_c, U,
-                     lidx + (static_cast<size_t>(c) * K + k) * M, M,
-                     ct + static_cast<size_t>(c) * M * cout, cout, ci0, co0);
-    __syncthreads();
-    for (int m = 0; m < M; ++m) {
-      const float4 a = *reinterpret_cast<const float4*>(a_s + m * D::kLd + rg * 4);
-      const float4 b = *reinterpret_cast<const float4*>(b_s + m * D::kLd + cg * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
-        acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
-        acc[i][2] = fmaf(av[i], b.z, acc[i][2]);
-        acc[i][3] = fmaf(av[i], b.w, acc[i][3]);
-      }
-    }
-  }
-  const int col = co0 + cg * 4;
-  if (col >= cout) return;
-  for (int i = 0; i < 4; ++i) {
-    const int row = ci0 + rg * 4 + i;
-    if (row >= cin) break;
-    *reinterpret_cast<float4*>(
-        out + ((static_cast<size_t>(r) * K + k) * cin + row) * cout + col) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
 }
 
 // out[i] = sum over r in order of part[r][i] (n4 float4s per partial).
@@ -594,31 +409,38 @@ sum_partials_kernel(const float4* __restrict__ part, int R, size_t n4,
   }
 }
 
-template <typename T, typename Kernel>
-int launch_dw(Kernel kernel, const void* feats, int n_rows, int cin,
-              const void* in_idx, int C, int U, const void* lidx, int K, int M,
-              const void* ct, int cout, int n_ranges, void* partial, void* out,
-              cudaStream_t stream) {
-  const int smem = static_cast<int>(DwLayout<T>::kTotal);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = ((cin + kCoT - 1) / kCoT) * ((cout + kCoT - 1) / kCoT);
-  const dim3 grid(tiles, K, n_ranges);
-  float* dst = static_cast<float*>(n_ranges > 1 ? partial : out);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(feats), n_rows, cin,
-      static_cast<const int32_t*>(in_idx), C, U,
-      static_cast<const int32_t*>(lidx), K, M, static_cast<const T*>(ct),
-      cout, dst);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_ranges == 1) return static_cast<int>(err);
-  const size_t n4 = static_cast<size_t>(K) * cin * cout / 4;
+// Shared memory of one block when two share an SM (228 KiB less 1 KiB
+// reserved per block, halved).
+constexpr size_t kTwoPerSm = 115712;
+
+// bf16 takes 64 X columns (wgmma's 64 rows). f32 takes the widest tile
+// with which two blocks share an SM (at U=384, 64 columns of staged f32
+// rows leave room for one), else the widest that fits. Then, with
+// runs > 1, the ordered sum of the runs' partials into `out`. Returns a
+// cudaError_t, or -2 when no X tile fits in shared memory.
+template <typename T, bool kRowsGathered>
+int run_dw(const DwArgs& a, float* out, cudaStream_t s) {
+  const size_t limit = static_cast<size_t>(max_dynamic_smem());
+  const size_t s64 = DwLayout<T, 64>(a.U).total;
+  int rc = -2;
+  if constexpr (sizeof(T) == 4) {
+    const size_t s32 = DwLayout<T, 32>(a.U).total;
+    if (s64 > kTwoPerSm && s32 <= kTwoPerSm)
+      rc = launch_dw<T, 32, kRowsGathered>(a, s);
+    else if (s64 <= limit)
+      rc = launch_dw<T, 64, kRowsGathered>(a, s);
+    else if (s32 <= limit)
+      rc = launch_dw<T, 32, kRowsGathered>(a, s);
+  } else if (s64 <= limit) {
+    rc = launch_dw<T, 64, kRowsGathered>(a, s);
+  }
+  if (rc != 0 || a.runs == 1) return rc;
+  const size_t n4 = static_cast<size_t>(a.K) * a.cx * a.cd / 4;
   const size_t want = (n4 + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  sum_partials_kernel<<<blocks, kThreads, 0, stream>>>(
-      static_cast<const float4*>(partial), n_ranges, n4,
-      static_cast<float4*>(out));
+  sum_partials_kernel<<<static_cast<int>(want < 4096 ? want : 4096),
+                        kThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(a.out), a.runs, n4,
+      reinterpret_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -636,35 +458,32 @@ int occ_chunk_conv_dwt(const void* ct, int n_ct, int Ct, const void* t_in_idx,
                        const void* feats, int cin, int runs, void* partial,
                        void* dwt, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dst = static_cast<float*>(runs > 1 ? partial : dwt);
-  const DwtArgs a{ct, static_cast<const int32_t*>(t_in_idx),
-                  static_cast<const int32_t*>(t_lidx), feats, dst, n_ct, Ct,
-                  C, U, K, M, cin, runs};
-  const int rc = is_bf16 ? launch_dwt_fitting<bf16>(a, s)
-                         : launch_dwt_fitting<float>(a, s);
-  if (rc != 0 || runs == 1) return rc;
-  const size_t n4 = static_cast<size_t>(K) * cin * Ct / 4;
-  const size_t want = (n4 + kThreads - 1) / kThreads;
-  sum_partials_kernel<<<static_cast<int>(want < 4096 ? want : 4096), kThreads,
-                        0, s>>>(static_cast<const float4*>(partial), runs, n4,
-                                static_cast<float4*>(dwt));
-  return static_cast<int>(cudaGetLastError());
+  float* out = static_cast<float*>(dwt);
+  const DwArgs a{ct, static_cast<const int32_t*>(t_in_idx),
+                 static_cast<const int32_t*>(t_lidx), feats,
+                 runs > 1 ? static_cast<float*>(partial) : out, n_ct, Ct, C,
+                 U, K, M, cin, runs};
+  return is_bf16 ? run_dw<bf16, false>(a, out, s)
+                 : run_dw<float, false>(a, out, s);
 }
 
-// dw [K, cin, cout] f32 = sum over chunks of G_k^T @ ct_c over the forward
-// plan (see the header). n_ranges > 1 splits the chunks into that many
-// ranges whose partials ([n_ranges, K, cin, cout] f32, caller-allocated)
-// are then summed in order. Returns a cudaError_t.
+// dw [K, cin, cout] f32 = sum over the chunks of the forward plan of
+// G_k^T @ ct_c (see the header), in `runs` runs of consecutive chunks;
+// with runs > 1, partial is caller-owned f32 scratch [runs, K, cin, cout]
+// whose runs are then summed in order. Returns a cudaError_t, or -2 when
+// no Cin tile fits in shared memory.
 int occ_chunk_conv_dw(const void* feats, int n_rows, int cin,
                       const void* in_idx, int C, int U, const void* lidx,
-                      int K, int M, const void* ct, int cout, int n_ranges,
+                      int K, int M, const void* ct, int cout, int runs,
                       void* partial, void* dw, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dw<bf16>(dw_bf16_kernel, feats, n_rows, cin, in_idx, C, U,
-                           lidx, K, M, ct, cout, n_ranges, partial, dw, s);
-  return launch_dw<float>(dw_f32_kernel, feats, n_rows, cin, in_idx, C, U,
-                          lidx, K, M, ct, cout, n_ranges, partial, dw, s);
+  float* out = static_cast<float*>(dw);
+  const DwArgs a{feats, static_cast<const int32_t*>(in_idx),
+                 static_cast<const int32_t*>(lidx), ct,
+                 runs > 1 ? static_cast<float*>(partial) : out, n_rows, cin,
+                 C, U, K, M, cout, runs};
+  return is_bf16 ? run_dw<bf16, true>(a, out, s)
+                 : run_dw<float, true>(a, out, s);
 }
 
 }  // extern "C"

@@ -136,14 +136,57 @@ def bce_sums_bwd_plain(e, rx4, x4, seg, scene, mu, mp4, cons, gvec):
 # Kernel wrappers (CUDA tensors launch the kernel or raise)
 # ---------------------------------------------------------------------------
 
-def _blocks(P: int, device) -> Tuple[int, int]:
-    """(blocks, points per block) of the forward and backward kernels: two
-    blocks per SM, ranges a multiple of the 32-point tile. Fixed by P and
-    the card, so one card always sums the partials in one order."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n = max(1, min(-(-P // 32), 2 * sms))
-    rng = -(-max(1, -(-P // n)) // 32) * 32
+def _ranges(P: int, sms: int, tile: int) -> Tuple[int, int]:
+    """(blocks, points per block): two blocks per SM, ranges a multiple of
+    the kernel's point tile. Fixed by P and the card, so one card always
+    sums the partials in one order."""
+    n = max(1, min(-(-P // tile), 2 * sms))
+    rng = -(-max(1, -(-P // n)) // tile) * tile
     return max(1, -(-P // rng)), rng
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# Shared memory of one H100 block (the opt-in maximum) and of one block
+# when two share an SM (228 KiB less 1 KiB reserved per block, halved)
+SMEM_BLOCK = 232_448
+SMEM_TWO_PER_SM = 115_712
+BWD_TILES = (128, 64, 32)   # points per backward tile, widest first
+
+
+def bwd_smem_bytes(pt: int, I: int, E: int, lcap: int) -> int:
+    """Shared memory of the backward kernel (`BwdSmem` in
+    `csrc/bce_loss.cu`) for tiles of pt points and a pair list of lcap
+    entries: mu [E][I+1], the point rows, the candidate list, the per-point
+    masks and list slots, the per-instance point masks, the (point,
+    instance) -> entry map (int16) and the list (a float4 and an int an
+    entry). Rows of e are padded to E + 4."""
+    words = -(-E * (I + 1) // 4) * 4
+    words += 4 * I + 8 * pt + 7 * I + I + pt * (E + 4) + 5 * pt
+    words += (MAX_INSTANCES + 1) + 4 * pt + (pt + 1) + MAX_INSTANCES * 4
+    words += -(-pt * I // 2)
+    return 4 * (-(-words // 4) * 4 + 5 * lcap)
+
+
+def bwd_geometry(P: int, I: int, E: int, sms: int):
+    """(blocks, points per block, points per tile, list entries) of the
+    backward kernel: the widest tile whose shared memory lets two blocks
+    share an SM (else the widest that fits one block), a pair list of 16
+    entries per point of the tile (a denser tile is walked in several
+    windows of whole points), and ranges as the forward's, in whole
+    tiles."""
+    fits = [pt for pt in BWD_TILES
+            if bwd_smem_bytes(pt, I, E, 16 * pt) <= SMEM_TWO_PER_SM]
+    fits = fits or [pt for pt in BWD_TILES
+                    if bwd_smem_bytes(pt, I, E, 16 * pt) <= SMEM_BLOCK]
+    if not fits:
+        raise ValueError(f"bce backward: no point tile of I={I}, E={E} fits "
+                         f"in shared memory")
+    pt = fits[0]
+    n_blocks, rng = _ranges(P, sms, pt)
+    return n_blocks, rng, pt, 16 * pt
 
 
 def _check_inputs(e, rx4, x4, seg, scene, mu, mp4, cons):
@@ -192,7 +235,7 @@ def radius_sq(x4: torch.Tensor, seg: torch.Tensor, mp4: torch.Tensor,
                         ("mp_sq", mp_sq, torch.float32)):
         kernels.require_cuda_input(t, name, dt, t.dim())
     out = torch.zeros(I, dtype=torch.float32, device=x4.device)
-    sms = torch.cuda.get_device_properties(x4.device).multi_processor_count
+    sms = _sms(x4.device)
     with torch.cuda.device(x4.device):
         rc = kernels.load().occ_bce_radius(
             x4.data_ptr(), seg.data_ptr(), P, mp4.data_ptr(),
@@ -213,7 +256,7 @@ def bce_sums(e, rx4, x4, seg, scene, mu, mp4, cons) -> torch.Tensor:
     if not e.is_cuda:
         return bce_sums_plain(e, rx4, x4, seg, scene, mu, mp4, cons)
     P, E, I = _check_inputs(e, rx4, x4, seg, scene, mu, mp4, cons)
-    n_blocks, rng = _blocks(P, e.device)
+    n_blocks, rng = _ranges(P, _sms(e.device), 32)
     part = torch.empty((n_blocks, 5, I), dtype=torch.float32,
                        device=e.device)
     out = torch.empty((5, I), dtype=torch.float32, device=e.device)
@@ -241,7 +284,9 @@ def bce_sums_bwd(e, rx4, x4, seg, scene, mu, mp4, cons, gvec):
     kernels.require_cuda_input(gvec, "gvec", torch.float32, 1)
     if tuple(gvec.shape) != (I,) or gvec.device != e.device:
         raise ValueError(f"bce backward: gvec {tuple(gvec.shape)}")
-    n_blocks, rng = _blocks(P, e.device)
+    if E % 4:
+        raise ValueError(f"bce backward: E={E} is not a multiple of 4")
+    n_blocks, rng, pt, lcap = bwd_geometry(P, I, E, _sms(e.device))
     dev = e.device
     de = torch.empty((P, E), dtype=torch.float32, device=dev)
     drx = torch.empty((P, 4), dtype=torch.float32, device=dev)
@@ -254,7 +299,7 @@ def bce_sums_bwd(e, rx4, x4, seg, scene, mu, mp4, cons, gvec):
         rc = kernels.load().occ_bce_bwd(
             e.data_ptr(), P, E, rx4.data_ptr(), x4.data_ptr(),
             seg.data_ptr(), scene.data_ptr(), mu.data_ptr(), mp4.data_ptr(),
-            cons.data_ptr(), I, gvec.data_ptr(), rng, n_blocks,
+            cons.data_ptr(), I, gvec.data_ptr(), rng, n_blocks, pt, lcap,
             de.data_ptr(), drx.data_ptr(), dmu_part.data_ptr(),
             scal_part.data_ptr(), gte.data_ptr(), scal.data_ptr(),
             kernels.stream_ptr(e))
@@ -309,7 +354,7 @@ def exact_inputs(P: int, I: int, E: int, seed: int, device="cpu"):
 def with_radius(x4, seg, mp4, cons):
     """cons with its R16 row set to 16 x `radius_sq` of the inputs."""
     cons = cons.clone()
-    cons[R16] = 16.0 * radius_sq(x4, seg, mp4, cons[MP_SQ].contiguous())
+    cons[R16] = 16.0 * radius_sq(x4, seg, mp4, cons[MP_SQ].clone())
     return cons
 
 

@@ -19,10 +19,11 @@ in f32 with the output in the feature dtype. The same call serves
 submanifold layers (level chunks), strided convolutions (child chunks,
 output = coarse cap) and deconvolutions (up chunks, output = fine cap).
 The backward has two routes: `chunk_conv_bwd_fused` computes d_feats (the
-forward kernel over the TRANSPOSE plan) and dW (the dWt kernel of
-`csrc/chunk_conv_bwd.cu`, also over the transpose plan, summed per run of
-chunks); the dW route runs `chunk_conv_dw` over the forward plan and the
-forward kernel over the transpose plan. The launch geometry (column tile,
+forward kernel over the TRANSPOSE plan) and dWt (the weight-gradient
+kernel of `csrc/chunk_conv_bwd.cu`, also over the transpose plan, summed
+per run of chunks); the dW route runs `chunk_conv_dw` (the same kernel
+with its operands' roles swapped, over the forward plan) and the forward
+kernel over the transpose plan. The launch geometry (column tile,
 split steps at the coarse levels, runs of chunks) is chosen here from
 static shapes (`col_tile`, `conv_splits`, `dwt_runs`).
 `fused_grouping` picks the route from static shapes with the JAX
@@ -279,17 +280,23 @@ def conv_splits(C: int, n_tiles: int, n_steps: int, sms: int) -> int:
 
 
 def dwt_runs(C: int, K: int, cin: int, Ct: int, sms: int) -> int:
-    """Runs of consecutive chunks of the dWt kernel: enough for three blocks
-    per SM over its (64 Cin rows x 64 Ct columns x 4 offsets) tiles, and at
-    most 64 chunks (8192 rows) per run, so that no f32 accumulator sums
-    more products before the runs are summed in order."""
+    """Runs of consecutive chunks of the weight-gradient kernel
+    (`csrc/chunk_conv_bwd.cu`): enough for three blocks per SM over its
+    (64 dense columns x 64 gathered columns x 4 offsets) tiles, and at most
+    64 chunks (8192 rows) per run, so that no f32 accumulator sums more
+    products before the runs are summed in order (a longer running sum
+    loses accuracy: 46k rows measured 5e-5 of max|dW| on the H100). The
+    fused route's dWt passes (C, K, cin, Ct) of its transpose plan, the dW
+    route (C, K, cout, cin) of its forward plan; the rule is symmetric in
+    the two widths."""
     tiles = -(-cin // 64) * -(-Ct // 64) * -(-K // 4)
     return max(1, min(C, max(-(-C // 64), -(-3 * sms // tiles))))
 
 
 def dwt_values(C: int, K: int, cin: int, Ct: int, sms: int) -> int:
-    """f32 values the dWt kernel writes into device memory for one call:
-    each run's partial once (when there are several), then dWt."""
+    """f32 values the weight-gradient kernel writes into device memory for
+    one call of `dwt_runs`' arguments: each run's partial once (when there
+    are several), then the result."""
     runs = dwt_runs(C, K, cin, Ct, sms)
     return (runs if runs > 1 else 0) * K * cin * Ct + K * cin * Ct
 
@@ -426,25 +433,17 @@ def chunk_conv_dw(feats: torch.Tensor, in_idx: torch.Tensor,
         dW[k] = sum_c G_k^T @ ct_c,  G_k[m] = feats[in_idx[c, lidx[c,k,m]]]
 
     feats [N, Cin] and ct [C*M, Cout] in one dtype -> [K, Cin, Cout] f32.
-    CUDA tensors launch `csrc/chunk_conv_bwd.cu` (or raise; deterministic);
-    CPU tensors run `chunk_conv_dw_plain`."""
+    CUDA tensors launch the weight-gradient kernel of
+    `csrc/chunk_conv_bwd.cu` with feats as its gathered operand and ct as
+    its dense one (the dWt kernel's roles swapped), summed per run of
+    chunks (`dwt_runs`) and then over the runs in order, so dW is
+    deterministic (or raise); CPU tensors run `chunk_conv_dw_plain`."""
     if not feats.is_cuda:
         return chunk_conv_dw_plain(feats, in_idx, lidx, ct)
     return _launch_dw(feats, in_idx, lidx, ct)
 
 
 chunk_conv_dw.launches = 0  # kernel launches
-
-
-def _dw_ranges(C: int, K: int, cin: int, cout: int, device) -> int:
-    """Chunk ranges per dW tile: enough for four blocks per SM, and at
-    most 64 chunks (8192 rows) per range, so that no f32 accumulator sums
-    more products than that before the partials are summed in order (a
-    longer running sum loses accuracy: 46k rows measured 5e-5 of max|dW|
-    on the H100)."""
-    tiles = -(-cin // 64) * -(-cout // 64) * K
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(C, max(-(-C // 64), -(-4 * sms // tiles))))
 
 
 def _launch_dw(feats, in_idx, lidx, ct) -> torch.Tensor:
@@ -462,16 +461,19 @@ def _launch_dw(feats, in_idx, lidx, ct) -> torch.Tensor:
         raise _shape_error("chunk_conv_dw", feats=feats, in_idx=in_idx,
                            lidx=lidx, ct=ct)
     _check_launch("chunk_conv_dw", M, (cin, cout), (feats, in_idx, lidx, ct))
-    ranges = _dw_ranges(C, K, cin, cout, feats.device)
+    runs = dwt_runs(C, K, cout, cin, _sm_count(feats.device.index or 0))
     dw = torch.empty((K, cin, cout), dtype=torch.float32, device=feats.device)
-    partial = (torch.empty((ranges, K, cin, cout), dtype=torch.float32,
-                           device=feats.device) if ranges > 1 else None)
+    partial = (torch.empty((runs, K, cin, cout), dtype=torch.float32,
+                           device=feats.device) if runs > 1 else None)
     with torch.cuda.device(feats.device):
         rc = kernels.load().occ_chunk_conv_dw(
             feats.data_ptr(), N, cin, in_idx.data_ptr(), C, U,
-            lidx.data_ptr(), K, M, ct.data_ptr(), cout, ranges,
+            lidx.data_ptr(), K, M, ct.data_ptr(), cout, runs,
             None if partial is None else partial.data_ptr(), dw.data_ptr(),
             int(dt == torch.bfloat16), kernels.stream_ptr(feats))
+    if rc == -2:
+        raise ValueError(f"chunk_conv_dw: no Cin tile of U={U}, Cin={cin} "
+                         f"({dt}) fits in shared memory")
     kernels.check(rc, "chunk_conv_dw kernel launch")
     chunk_conv_dw.launches += 1
     return dw

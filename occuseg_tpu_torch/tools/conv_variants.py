@@ -1,15 +1,16 @@
-"""Time this checkout's chunk-conv kernels in variants, each with one part
-of their work taken out, at the 33 convolutions of the bench plan (bf16),
-to see what sets their pace.
+"""Time this checkout's kernels in variants, each with one part of their
+work taken out or one choice changed, in `chip_smoke.py`'s `[kernels]`
+phase (the 33 convolutions of the bench plan, the BCE kernels at the
+CLI's shape), to see what sets their pace.
 
-    python -m occuseg_tpu_torch.tools.conv_variants OUT_DIR
+    python -m occuseg_tpu_torch.tools.conv_variants OUT_DIR [NAME ...]
 
 Each variant is a copy of the checkout (chip_smoke.py, the package, the
 planner's csrc/) with one edit in the kernel sources. The variants compute
 wrong values on purpose, so their copies of chip_smoke.py print failed
 checks instead of raising. `tools.ab_kernels` then times the unchanged
-copy and the variants in one process each, in order and in reverse.
-Needs a CUDA card and nvcc.
+copy and the variants (all, or the NAMEs given) in one process each, in
+order and in reverse. Needs a CUDA card and nvcc.
 
 - `no_restage`: the forward stages the chunk's rows for its first Cin
   tile only (later tiles compute on stale rows);
@@ -19,9 +20,22 @@ Needs a CUDA card and nvcc.
   staged row m, not through lidx;
 - `no_refill_wait`: thread 0 refills a W stage without waiting for the
   warps to release it;
-- `dwt_no_stage`: the dWt kernel stages the rows of its run's first
-  chunk only;
-- `dwt_no_mma`: the dWt kernel issues no wgmma.
+- `dwt_no_stage`: the weight-gradient kernel (dWt of the fused route,
+  dW of the dW route) stages the rows of its run's first chunk only;
+- `dwt_no_mma`: the weight-gradient kernel issues no wgmma;
+- `dw_f32_ct64`: the f32 weight-gradient kernel takes 64 X columns
+  wherever they fit, also where only one block then fits on an SM (the
+  rule before it preferred two blocks per SM);
+- `bce_no_dot`: the BCE backward skips the e.mu dot of its pairs;
+- `bce_no_walk`: the BCE backward skips its walks over the pair list (de,
+  drx, dmu, d(sig^2));
+- `bce_256`: the BCE backward in blocks of 256 threads (8 warps) instead
+  of 512;
+- `bce_no_de`: the BCE backward skips its per-point walk (de, drx);
+- `bce_no_dmu`: the BCE backward skips its per-instance walk (dmu,
+  d(sig^2));
+- `bce_one_block`: the BCE backward compiled for one block per SM (128
+  registers a thread, no spills) instead of two (64 registers).
 """
 
 from __future__ import annotations
@@ -35,6 +49,7 @@ from occuseg_tpu_torch.tools import ab_kernels
 
 FWD = "occuseg_tpu_torch/csrc/chunk_conv.cu"
 BWD = "occuseg_tpu_torch/csrc/chunk_conv_bwd.cu"
+BCE = "occuseg_tpu_torch/csrc/bce_loss.cu"
 VARIANTS = {
     "no_restage": [(FWD, "    if (cit != staged) {",
                     "    if (staged < 0) {")],
@@ -44,10 +59,34 @@ VARIANTS = {
                    "    const int l = m < M ? m % U : U;")],
     "no_refill_wait": [(FWD, "      mbar_wait(empty + stage, (i / kStages) & 1);\n",
                         "")],
-    "dwt_no_stage": [(BWD, "    if (live) {\n      // feats rows",
-                      "    if (live && c == c_begin) {\n      // feats rows")],
+    "dwt_no_stage": [(BWD, "    if (live) {\n      // D rows",
+                      "    if (live && c == c_begin) {\n      // D rows")],
     "dwt_no_mma": [(BWD, "          wgmma_bf16<64>(acc[o], af[sl],",
                     "          if (M < 0) wgmma_bf16<64>(acc[o], af[sl],")],
+    "dw_f32_ct64": [(BWD, "if (s64 > kTwoPerSm && s32 <= kTwoPerSm)",
+                     "if (s64 < 0)")],
+    "bce_no_dot": [(BCE, "for (int d = 0; d < E; ++d) dot = fmaf(e_r[d], "
+                    "mu_s[d * L.ldmu + i]",
+                    "for (int d = 0; d < 0; ++d) dot = fmaf(e_r[d], "
+                    "mu_s[d * L.ldmu + i]")],
+    "bce_no_walk": [(BCE, "      // 4a. de and drx: one warp per point",
+                     "      if (E > 0) goto walked;\n"
+                     "      // 4a. de and drx: one warp per point"),
+                    (BCE, "      __syncthreads();  // the next window or",
+                     "    walked:\n"
+                     "      __syncthreads();  // the next window or")],
+    "bce_256": [(BCE, "constexpr int kBwdThreads = 512;",
+                 "constexpr int kBwdThreads = 256;")],
+    "bce_one_block": [(BCE, "__launch_bounds__(kBwdThreads, 2)",
+                       "__launch_bounds__(kBwdThreads, 1)")],
+    "bce_no_de": [(BCE, "      for (int r = r0 + warp; r < r1; r += kBwdWarps) {\n"
+                   "        float G0",
+                   "      for (int r = r1; r < r1; r += kBwdWarps) {\n"
+                   "        float G0")],
+    "bce_no_dmu": [(BCE, "        const int i = warp + kBwdWarps * s;\n"
+                    "        if (i >= I) break;\n        float a[2]",
+                    "        const int i = warp + kBwdWarps * s;\n"
+                    "        if (i >= 0) break;\n        float a[2]")],
 }
 CHECK = ("    if not cond:\n        raise SmokeFailure(what)",
          "    if not cond:\n        print(\"variant, not checked: \" + what[:60])")
@@ -70,11 +109,12 @@ def _edit(path: str, old: str, new: str) -> None:
         f.write(text.replace(old, new))
 
 
-def main(out_dir: str) -> int:
+def main(out_dir: str, names=()) -> int:
     root = os.getcwd()
+    chosen = [(n, VARIANTS[n]) for n in (names or VARIANTS)]
     with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as tmp:
         roots = []
-        for name, edits in [("base", [])] + list(VARIANTS.items()):
+        for name, edits in [("base", [])] + chosen:
             dst = os.path.join(tmp, name)
             os.makedirs(dst)
             _copy(root, dst)
@@ -87,6 +127,6 @@ def main(out_dir: str) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 2:
         raise SystemExit(__doc__)
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(sys.argv[1], sys.argv[2:]))

@@ -221,3 +221,235 @@ def test_unsupported_shape_runs_the_chain(monkeypatch):
     monkeypatch.setenv("OCC_PALLAS_BCE", "0")
     assert on == _port_loss(data, n=300)
     assert np.isfinite(on[0])
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel's pair list (TPU row #8), replayed in NumPy
+# ---------------------------------------------------------------------------
+
+SMS = 132  # H100 SXM
+
+
+def _listed_inputs(P, I, E, scenes, seed):
+    """Kernel inputs on which every squared distance and s_raw is exact in
+    f32 (coordinates in 1/8, embeddings in 1/16, sig^2 powers of two or
+    the clip bounds over a power of two), with `scenes` contiguous scenes.
+    The points of the backward's third tile are far from every instance
+    (no pair of that tile is sampled), and two members sit exactly on the
+    clip bounds: s_raw == S_HI (instance 0) and s_raw == S_LO (instance
+    1). Returns NumPy arrays (e, rx4, x4, seg, scene, mu, mp4, cons, g)
+    with cons' R16 row still zero."""
+    rng = np.random.default_rng(seed)
+    pt = bce_loss.bwd_geometry(P, I, E, SMS)[2]
+    scene = (np.arange(P) * scenes // P).astype(np.int32)
+    # instance i lives in scene i % scenes
+    per = np.array([len(range(s, I, scenes)) for s in range(scenes)])
+    seg = scene + scenes * (rng.integers(0, 1 << 30, P) % np.maximum(
+        per[scene], 1))
+    seg[(rng.random(P) < 0.2) | (per[scene] == 0)] = -1
+    far = np.arange(2 * pt, min(P, 3 * pt))
+    seg[far] = -1
+    for inst in range(min(I, 2)):  # three members each, outside that tile
+        pool = np.setdiff1d(np.flatnonzero(scene == inst % scenes), far)
+        seg[rng.choice(pool, 3, replace=False)] = inst
+    centers = rng.integers(-16, 17, (I, 3)) / 2.0
+    # instance 1 (its sig0^2 is S_LO) apart: a sampled non-member would
+    # put 1 - exp(-s) at s ~ 1e-6, where the plain versions' exp differ
+    centers[1:2] = 100.0
+    x = centers[np.clip(seg, 0, I - 1)] + rng.integers(-8, 9, (P, 3)) / 8.0
+    x[far] = 1000.0 + rng.integers(-8, 9, (far.size, 3)) / 8.0
+    rx = x + rng.integers(-4, 5, (P, 3)) / 8.0
+    e = rng.integers(-8, 9, (P, E)) / 16.0
+    mu = rng.integers(-8, 9, (I, E)) / 16.0
+    sig_sq = 2.0 ** -rng.integers(2, 5, (I, 2)).astype(np.float64)
+    scene_i = np.full(I, -1.0)
+    np.maximum.at(scene_i, seg[seg >= 0], scene[seg >= 0])
+    cnt = np.bincount(seg[seg >= 0], minlength=I)
+    use = (cnt >= 2).astype(np.float64)
+    # members on the clip bounds: |e - mu|^2 = 4 (resp. 1) exactly
+    for inst, bound, sq in ((0, bce_loss.S_HI, 4.0), (1, bce_loss.S_LO, 1.0)):
+        if inst >= I:
+            continue
+        mine = np.flatnonzero(seg == inst)
+        x[mine[1], 0] = centers[inst, 0] + 0.5  # a radius > 0
+        use[inst] = 1.0
+        p = mine[0]
+        e[p] = mu[inst]
+        e[p, 0] += np.sqrt(sq)
+        sig_sq[inst] = (np.float32(bound) / np.float32(sq), 0.0)
+    cons = np.zeros((8, I))
+    cons[bce_loss.MU_SQ] = (mu * mu).sum(1)
+    cons[bce_loss.MP_SQ] = (centers * centers).sum(1)
+    cons[bce_loss.SIG0], cons[bce_loss.SIG1] = sig_sq[:, 0], sig_sq[:, 1]
+    cons[bce_loss.SCENE], cons[bce_loss.USE] = scene_i, use
+    pad = np.zeros((P, 1))
+    f = np.float32
+    return (e.astype(f), np.hstack([rx, pad]).astype(f),
+            np.hstack([x, pad]).astype(f), seg.astype(np.int32), scene,
+            mu.astype(f), np.hstack([centers, np.zeros((I, 1))]).astype(f),
+            cons.astype(f), rng.standard_normal(I).astype(f))
+
+
+def _pair_terms_f32(e, rx4, x4, seg, scene, mu, mp4, cons):
+    """[P, I] f32 pair terms in the kernels' formulation: (sampled, s_raw,
+    sq_emb, sq_r, member)."""
+    def sq(a, b, b_sq):
+        a_sq = (a * a).sum(1, dtype=np.float32)
+        return np.maximum(a_sq[:, None] + b_sq[None] - np.float32(2) * (a @ b.T),
+                          np.float32(0))
+    sq_x = sq(x4, mp4, cons[bce_loss.MP_SQ])
+    sq_emb = sq(e, mu, cons[bce_loss.MU_SQ])
+    sq_r = sq(rx4, mp4, cons[bce_loss.MP_SQ])
+    sampled = ((sq_x < cons[bce_loss.R16][None])
+               & (scene.astype(np.float32)[:, None] == cons[bce_loss.SCENE][None])
+               & (cons[bce_loss.USE][None] > 0))
+    eps = np.float32(1e-12)
+    s_raw = ((sq_emb + eps) * cons[bce_loss.SIG0][None]
+             + (sq_r + eps) * cons[bce_loss.SIG1][None])
+    member = seg[:, None] == np.arange(mu.shape[0])[None]
+    return sampled, s_raw, sq_emb, sq_r, member
+
+
+def _replay_bwd(e, rx4, x4, seg, scene, mu, mp4, cons, g):
+    """The backward kernel's walk in NumPy: its block ranges and point
+    tiles, the candidate instances of each tile, the sampled pairs listed
+    point-major with instances ascending in windows of at most `lcap`
+    entries, g per entry, then de / drx summed over each point's entries
+    in list order and dmu / d(sig^2) over each instance's points in order
+    (per window, then added to the block's sums), block partials summed in
+    block order (f64 sums of the f32 terms).
+    Returns (de, drx, dmu, d_sig_sq) and what the walk met."""
+    P, E = e.shape
+    I = mu.shape[0]
+    n_blocks, rng, pt, lcap = bce_loss.bwd_geometry(P, I, E, SMS)
+    sampled, s_raw, sq_emb, sq_r, member = _pair_terms_f32(
+        e, rx4, x4, seg, scene, mu, mp4, cons)
+    sig0, sig1 = cons[bce_loss.SIG0], cons[bce_loss.SIG1]
+    use, scene_i = cons[bce_loss.USE], cons[bce_loss.SCENE]
+    de = np.zeros((P, E))
+    drx = np.zeros((P, 4))
+    gte = np.zeros((I, E))
+    scal = np.zeros((3, I))
+    met = dict(tiles=0, empty_tiles=0, one_scene=0, bounds=0)
+    for b in range(n_blocks):
+        acc = np.zeros((I, E))
+        sc = np.zeros((3, I))
+        for p0 in range(b * rng, min(P, (b + 1) * rng), pt):
+            n = min(pt, min(P, (b + 1) * rng) - p0)
+            rows = np.arange(p0, p0 + n)
+            one = bool((scene[rows] == scene[p0]).all())
+            cand = [i for i in range(I) if use[i] > 0
+                    and (not one or scene_i[i] == np.float32(scene[p0]))]
+            counts = sampled[np.ix_(rows, cand)].sum(1) if cand else \
+                np.zeros(n, int)
+            start = np.concatenate([[0], np.cumsum(counts)])
+            met["tiles"] += 1
+            met["one_scene"] += one
+            n_grad = 0
+            r0 = 0
+            while r0 < n:
+                r1 = r0 + 1
+                while r1 < n and start[r1 + 1] - start[r0] <= lcap:
+                    r1 += 1
+                ent = [(r, i) for r in range(r0, r1) for i in cand
+                       if sampled[p0 + r, i]]
+                assert len(ent) <= lcap
+                gs = []
+                for r, i in ent:
+                    s = s_raw[p0 + r, i]
+                    gv = np.float32(0)
+                    if bce_loss.S_LO < s < bce_loss.S_HI:
+                        pr = np.exp(-s, dtype=np.float32)
+                        d = np.float32(1) if member[p0 + r, i] else \
+                            -pr / max(np.float32(1) - pr, np.float32(1e-16))
+                        gv = g[i] * d
+                    met["bounds"] += s in (np.float32(bce_loss.S_LO),
+                                           np.float32(bce_loss.S_HI))
+                    gs.append(np.float64(gv))
+                n_grad += sum(x != 0 for x in gs)
+                for r in range(r0, r1):  # one warp per point
+                    G0 = G1 = 0.0
+                    v = np.zeros(E)
+                    w = np.zeros(4)
+                    for (rr, i), gv in zip(ent, gs):
+                        if rr != r or gv == 0:
+                            continue
+                        G0 += gv * sig0[i]
+                        v += gv * sig0[i] * mu[i]
+                        G1 += gv * sig1[i]
+                        w += gv * sig1[i] * mp4[i]
+                    de[p0 + r] = 2 * (G0 * e[p0 + r] - v)
+                    drx[p0 + r] = 2 * (G1 * rx4[p0 + r] - w)
+                for i in range(I):  # one warp per instance, per window
+                    a = np.zeros(E)
+                    t = np.zeros(3)
+                    for (r, ii), gv in zip(ent, gs):
+                        if ii != i or gv == 0:
+                            continue
+                        a += gv * sig0[i] * e[p0 + r]
+                        t += (gv * sig0[i], gv * (sq_emb[p0 + r, i] + 1e-12),
+                              gv * (sq_r[p0 + r, i] + 1e-12))
+                    acc[i] += a
+                    sc[:, i] += t
+                r0 = r1
+            met["empty_tiles"] += n_grad == 0
+        gte += acc
+        scal += sc
+    dmu = 2 * (mu * scal[0][:, None] - gte)
+    return (de, drx, dmu, scal[1:3].T), met
+
+
+def _jax_bwd(e, rx4, x4, seg, scene, mu, mp4, cons, g):
+    """The JAX package's VJP of `_bce_sums` (interpret mode), with P padded
+    to its 128-row blocks by points that no instance samples."""
+    P = e.shape[0]
+    n = -(-P // 128) * 128 - P
+
+    def pad(a, v):
+        return np.concatenate([a, np.full((n,) + a.shape[1:], v, a.dtype)])
+    args = (jnp.asarray(pad(e, 0)), jnp.asarray(_pad(pad(rx4, 0), 8)),
+            jnp.asarray(_pad(mu, mu.shape[1])))
+    sig_sq = np.stack([cons[bce_loss.SIG0], cons[bce_loss.SIG1]], 1)
+    fixed = (jnp.asarray(_pad(mp4, 8)), jnp.asarray(_pad(pad(x4, 1e3), 8)),
+             jnp.asarray(pad(seg, -1)[:, None]),
+             jnp.asarray(pad(scene.astype(np.float32), -5.0)[:, None]),
+             jnp.asarray(cons))
+
+    def f(e_, rx8, sig_sq_, mu_):
+        return jax_bce._bce_sums(e_, rx8, sig_sq_, mu_, *fixed, True)
+    _, vjp = jax.vjp(f, args[0], args[1], jnp.asarray(sig_sq), args[2])
+    gg = np.zeros((8, mu.shape[0]), np.float32)
+    gg[0] = g
+    de, drx, dsig, dmu = (np.asarray(a) for a in vjp(jnp.asarray(gg)))
+    return de[:P], drx[:P, :4], dmu, dsig
+
+
+@pytest.mark.parametrize("scenes", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(512, 16, 16), (300, 16, 16),
+                                   (512, 4, 16), (512, 128, 64)])
+def test_backward_pair_list_replay(shape, scenes):
+    """The new backward's compaction replayed in NumPy equals the plain
+    version and the JAX package's `_bce_sums_bwd` (interpret mode) within
+    1e-5 of each output's max: only the sampled pairs with a gradient are
+    walked, a tile with none and the pairs on the clip bounds included."""
+    P, I, E = shape
+    arrs = _listed_inputs(P, I, E, scenes, seed=P + I + scenes)
+    e, rx4, x4, seg, scene, mu, mp4, cons, g = arrs
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
+    cons = cons.copy()
+    cons[bce_loss.R16] = 16.0 * bce_loss.radius_sq_plain(
+        t[2], t[3], t[6], t[7][bce_loss.MP_SQ]).numpy()
+    t[7] = torch.from_numpy(cons)
+    got, met = _replay_bwd(e, rx4, x4, seg, scene, mu, mp4, cons, g)
+    assert met["empty_tiles"] >= 1
+    assert met["bounds"] >= (2 if I > 1 else 1)
+    assert met["one_scene"] >= 1
+    plain = [a.numpy() for a in bce_loss.bce_sums_bwd_plain(*t)]
+    ref_j = _jax_bwd(e, rx4, x4, seg, scene, mu, mp4, cons, g)
+    for name, a, b, c in zip(("de", "drx", "dmu", "dsig"), got, plain,
+                             ref_j):
+        assert np.abs(b).max() > 0, name
+        for want in (b, c):
+            np.testing.assert_allclose(a, want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max(),
+                                       err_msg=name)

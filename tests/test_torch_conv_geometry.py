@@ -146,18 +146,23 @@ def test_runs_sum_to_the_fused_dw(small_plan, runs):
     assert np.abs(dwt - ref.numpy()).max() <= 1e-5 * np.abs(dwt).max()
 
 
-def test_bench_dw_values_fall_eightfold():
+@pytest.fixture(scope="module")
+def bench_plan():
+    import chip_smoke as cs
+    from occuseg_tpu_torch.infer import prepare_scene
+    b = cs.bench_scene(0)
+    return prepare_scene(b["coords"], b["features"],
+                         PlanSpec(caps=cs.BENCH_CAPS)).plan
+
+
+def test_bench_dw_values_fall_eightfold(bench_plan):
     """On the bench plan, the f32 dW values the fused route writes per
     step (runs' partials and dWt) against what the first fused kernel
     added with atomics: one value per (live chunk, offset, Cin row, Ct
     column)."""
     import chip_smoke as cs
-    from occuseg_tpu_torch.infer import prepare_scene
-    b = cs.bench_scene(0)
-    plan = prepare_scene(b["coords"], b["features"],
-                         PlanSpec(caps=cs.BENCH_CAPS)).plan
     new = atomics = 0
-    for cv in cs.conv_calls(plan, cs.N_PLANES):
+    for cv in cs.conv_calls(bench_plan, cs.N_PLANES):
         if cs.route_of(cv, 2) == "#5":
             continue
         ti, tl = cv.t_chunks.in_idx, cv.t_chunks.lidx
@@ -166,3 +171,123 @@ def test_bench_dw_values_fall_eightfold():
         atomics += int((ti[:, 0] >= 0).sum()) * K * cv.cin * cv.cout
     assert atomics == 7_052_072_960
     assert new * 8 <= atomics and new <= 0.9e9
+
+
+# The convolutions that take the dW route (TPU kernel #5): at the bench
+# plan in bf16 (C = cap / 128 chunks of its level) and at the training
+# CLI's blocked 4-scene plan in f32 (caps 79872, 49152 and 32256 at
+# L3-L5); U is the level's tier-1.0 budget, Cin of dec0.conv1 the concat.
+DW_ROUTE = {
+    "bench enc0.conv{1,2} L5": (8, 27, 384, 384, 320, 2),
+    "bench dec0.conv1 L4": (32, 27, 640, 320, 384, 2),
+    "bench dec0.conv1 L3": (136, 27, 512, 256, 384, 2),
+    "cli enc0.conv{1,2} L5": (252, 27, 384, 384, 320, 4),
+    "cli enc0.conv{1,2} L4, dec0.conv2 L4": (384, 27, 320, 320, 384, 4),
+    "cli dec0.conv1 L4": (384, 27, 640, 320, 384, 4),
+    "cli dec0.conv1 L3": (624, 27, 512, 256, 384, 4),
+}
+
+
+@pytest.mark.parametrize("shape", list(DW_ROUTE.values()),
+                         ids=list(DW_ROUTE))
+def test_dw_runs_partition_the_chunks(shape):
+    """The dW kernel's runs of chunks (the dWt rule over 64 Cout x 64 Cin
+    x 4 offsets tiles): a partition of the C chunks into runs of at most
+    64, enough for three blocks per SM, at the shapes that take it."""
+    C, K, cin, cout, U, esize = shape
+    assert cc.fused_grouping(K, 128, cout, cin, U, esize) == 0
+    R = cc.dwt_runs(C, K, cout, cin, SMS)
+    r = _ranges(C, R)
+    assert 1 <= R <= C
+    assert r[0, 0] == 0 and r[-1, 1] == C and (r[1:, 0] == r[:-1, 1]).all()
+    assert (r[:, 1] - r[:, 0] <= 64).all() and (r[:, 1] > r[:, 0]).all()
+    tiles = -(-cout // 64) * -(-cin // 64) * -(-K // 4)
+    assert R * tiles >= 3 * SMS or R == C
+    assert cc.dwt_runs(C, K, cout, cin, SMS) == cc.dwt_runs(C, K, cin, cout,
+                                                            SMS)
+    want = (R if R > 1 else 0) * K * cin * cout + K * cin * cout
+    assert cc.dwt_values(C, K, cout, cin, SMS) == want
+
+
+@pytest.mark.parametrize("runs", [1, 2, 5])
+def test_runs_sum_to_the_dw(small_plan, runs):
+    """The dW kernel over the forward plan: per run of consecutive chunks,
+    groups of 4 offsets, G_k^T @ ct_c per live chunk, then the runs in
+    order, give the plain dW."""
+    in_idx, lidx = cc.build_chunk_arrays(small_plan.levels[0].nbr, 128, 512)
+    rng = np.random.default_rng(runs + 10)
+    C, K, M = lidx.shape
+    cin, cout = 48, 32
+    feats = rng.standard_normal((small_plan.levels[0].cap, cin))
+    cot = rng.standard_normal((C * M, cout))
+    g = _gather(feats, in_idx, lidx)                  # [C, K, M, cin]
+    c_t = cot.reshape(C, M, cout)
+    dw = np.zeros((K, cin, cout))
+    for c0, c1 in _ranges(C, runs):
+        part = np.zeros((K, cin, cout))
+        for k0 in range(0, K, 4):
+            for c in range(c0, c1):
+                if in_idx[c, 0] < 0:
+                    continue
+                for k in range(k0, min(k0 + 4, K)):
+                    part[k] += g[c, k].T @ c_t[c]
+        dw += part
+    np.testing.assert_allclose(dw, np.einsum("ckmi,cmo->kio", g, c_t),
+                               rtol=1e-12, atol=1e-12)
+    ref = cc.chunk_conv_dw_plain(torch.from_numpy(feats),
+                                 torch.from_numpy(in_idx),
+                                 torch.from_numpy(lidx),
+                                 torch.from_numpy(cot))
+    assert np.abs(dw - ref.numpy()).max() <= 1e-5 * np.abs(dw).max()
+
+
+@pytest.mark.parametrize("kind", ["nbr", "child", "up"])
+def test_dw_is_the_dwt_contract_with_roles_swapped(small_plan, kind):
+    """What lets one kernel serve both routes: dW over a forward plan
+    (feats gathered, ct dense) is the transpose of the dWt contract with
+    feats and ct exchanged and the plan bound as the transpose plan, on a
+    submanifold, a child (strided) and an up (deconvolution) plan."""
+    tr = small_plan.transitions[0]
+    table, n_in, U = {"nbr": (small_plan.levels[0].nbr,
+                              small_plan.levels[0].cap, 512),
+                      "child": (tr.child, small_plan.levels[0].cap, 1024),
+                      "up": (tr.up, small_plan.levels[1].cap, 256)}[kind]
+    in_idx, lidx = (torch.from_numpy(a)
+                    for a in cc.build_chunk_arrays(np.asarray(table), 128, U))
+    C, K, M = lidx.shape
+    cin, cout = 32, 48
+    gen = torch.Generator().manual_seed(K + C)
+    feats = torch.randn(n_in, cin, generator=gen)
+    cot = torch.randn(C * M, cout, generator=gen)
+    dw = cc.chunk_conv_dw_plain(feats, in_idx, lidx, cot)
+    _, dwt = cc.chunk_conv_bwd_fused_plain(
+        feats, in_idx, lidx, torch.zeros(K, cin, cout), cot)
+    assert dwt.shape == (K, cout, cin)
+    assert float(dw.abs().max()) > 0
+    torch.testing.assert_close(dwt.transpose(1, 2), dw, rtol=1e-6,
+                               atol=1e-6 * float(dw.abs().max()))
+
+
+def test_bench_dw_route_values(bench_plan):
+    """On the bench plan in bf16: the four convolutions that take the dW
+    route are DW_ROUTE's bench shapes, and the f32 values the dW kernel
+    writes per step (its runs' partials, then dW) are what its run rule
+    gives them."""
+    import chip_smoke as cs
+    got = []
+    values = 0
+    for cv in cs.conv_calls(bench_plan, cs.N_PLANES):
+        if cs.route_of(cv, 2) != "#5":
+            continue
+        C, K, _ = cv.chunks.lidx.shape
+        got.append((cv.label, (C, K, cv.cin, cv.cout)))
+        values += cc.dwt_values(C, K, cv.cout, cv.cin, SMS)
+    assert [s for _, s in got] == [(8, 27, 384, 384), (8, 27, 384, 384),
+                                   (32, 27, 640, 320), (136, 27, 512, 256)]
+    assert [lb for lb, _ in got] == ["enc0.conv1 L5", "enc0.conv2 L5",
+                                     "dec0.conv1 L4", "dec0.conv1 L3"]
+    want = sum((r if r > 1 else 0) * K * cin * cout + K * cin * cout
+               for C, K, cin, cout in [s for _, s in got]
+               for r in [cc.dwt_runs(C, K, cout, cin, SMS)])
+    assert values == want == 3 * 2 * 27 * 384 * 384 + 3 * 27 * 640 * 320 \
+        + 4 * 27 * 512 * 256

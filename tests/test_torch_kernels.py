@@ -11,11 +11,14 @@ It covers what the main path does not reach: chunks of M=32 and 64,
 channel counts that are not multiples of the kernels' column tiles, Cin=16,
 all-pad chunks and offsets whose 16-row fragments miss entirely, the widest
 U (a tier-1.7 transpose plan), a coarse level of a few chunks (the
-forward's split steps), the dW kernels' split into chunk ranges and runs
-(and the fused dWt's determinism), both backward routes through autograd,
-and the wrappers' input checks; and, small, what the training CLI's path
-gives the kernels: the chunk plans of a blocked two-scene plan, and a plan
-uploaded from page-locked memory.
+forward's split steps), the weight-gradient kernel's runs on both routes
+(one chunk, all-pad chunks, Cin 640, U=1312 for dW; both results
+bitwise repeatable), both backward routes through autograd, the BCE
+kernels from I=1 to 128 (a P that is not a multiple of their tiles, a
+backward whose tiles overflow the pair list, the backward's bits
+repeated) and the wrappers' input checks; and, small, what the training
+CLI's path gives the kernels: the chunk plans of a blocked two-scene
+plan, and a plan uploaded from page-locked memory.
 """
 
 import numpy as np
@@ -158,6 +161,58 @@ def test_dw_matches_plain(dev, plan, dt, M, kind, cin, cout):
     assert cc.chunk_conv_dw.launches == before + 1
     assert dw.shape == (lidx.shape[1], cin, cout)
     _check(dw, ref, DW_TOL)
+
+
+def _dw_case(plan, case):
+    """(forward table, input rows, U, M, cin, cout) of a dW edge case:
+    one chunk; a plan whose last two chunks are all pad; the widest bench
+    width (dec0.conv1 at L4: 640 -> 320); the widest U tier (a child plan
+    at tier 1.7, U=1312)."""
+    nbr = np.asarray(plan.levels[0].nbr)
+    n0 = plan.levels[0].cap
+    if case == "one_chunk":
+        return nbr[:128], n0, 512, 128, 64, 48
+    if case == "all_pad":
+        pad = np.full((256, nbr.shape[1]), -1, nbr.dtype)
+        return np.concatenate([nbr[:1024], pad]), n0, 512, 128, 32, 64
+    if case == "wide":
+        return nbr[:2048], n0, 512, 128, 640, 320
+    return np.asarray(plan.transitions[0].child), n0, 1312, 128, 64, 64
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["one_chunk", "all_pad", "wide",
+                                  "widest_u"])
+def test_dw_edge_cases_match_plain(dev, plan, dt, case):
+    table, n_in, U, M, cin, cout = _dw_case(plan, case)
+    in_idx, lidx = _chunks(table, M, U, dev)
+    if case == "all_pad":
+        assert (in_idx[-2:, 0] < 0).all()
+    g = torch.Generator().manual_seed(cin + cout + U)
+    feats = torch.randn(n_in, cin, generator=g).to(dev, dt)
+    cot = torch.randn(table.shape[0], cout, generator=g).to(dev, dt)
+    dw = cc.chunk_conv_dw(feats, in_idx, lidx, cot)
+    ref = cc.chunk_conv_dw_plain(feats, in_idx, lidx, cot)
+    torch.cuda.synchronize()
+    assert dw.shape == (lidx.shape[1], cin, cout)
+    _check(dw, ref, DW_TOL)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_dw_is_deterministic(dev, plan, dt):
+    """dW is summed per run of chunks and then over the runs in order: two
+    launches give the same bits."""
+    in_idx, lidx = _chunks(plan.levels[0].nbr, 128, 512, dev)
+    n = plan.levels[0].cap
+    g = torch.Generator().manual_seed(16)
+    x = torch.randn(n, 64, generator=g).to(dev, dt)
+    cot = torch.randn(n, 128, generator=g).to(dev, dt)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert cc.dwt_runs(in_idx.shape[0], 27, 128, 64, sms) > 1
+    a = cc.chunk_conv_dw(x, in_idx, lidx, cot)
+    b = cc.chunk_conv_dw(x, in_idx, lidx, cot)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def _fwd_and_fused(dev, in_idx, lidx, t_in_idx, t_lidx, n_in, n_out, cin,
@@ -442,15 +497,18 @@ def test_segment_sum_matches_plain(dev, plan):
 # the card's exp/log (1e-5 of the largest sum for the forward; 1e-4 for the
 # backward, whose dmu = 2 (mu * sum g0 - sum g0 e) cancels).
 @pytest.mark.parametrize("P,I,E", [(1000, 8, 16), (4096, 128, 64),
-                                   (2000, 40, 136)])
+                                   (2000, 40, 136), (1000, 1, 16),
+                                   (4100, 128, 64), (3001, 100, 128),
+                                   (2050, 128, 16), (1500, 100, 64)])
 def test_bce_kernels_match_plain(dev, P, I, E):
     from occuseg_tpu_torch.ops.kernels import bce_loss
     e, rx4, x4, seg, scene, mu, mp4, cons, g = bce_loss.exact_inputs(
         P, I, E, seed=P + I, device=dev)
     before = (bce_loss.radius_sq.launches, bce_loss.bce_sums.launches,
               bce_loss.bce_sums_bwd.launches)
-    r = bce_loss.radius_sq(x4, seg, mp4, cons[bce_loss.MP_SQ])
-    r_ref = bce_loss.radius_sq_plain(x4, seg, mp4, cons[bce_loss.MP_SQ])
+    mp_sq = cons[bce_loss.MP_SQ].clone()  # a row of cons: unaligned at I=1
+    r = bce_loss.radius_sq(x4, seg, mp4, mp_sq)
+    r_ref = bce_loss.radius_sq_plain(x4, seg, mp4, mp_sq)
     assert torch.equal(r, r_ref)
     cons = bce_loss.with_radius(x4, seg, mp4, cons)
     out = bce_loss.bce_sums(e, rx4, x4, seg, scene, mu, mp4, cons)
@@ -469,6 +527,43 @@ def test_bce_kernels_match_plain(dev, P, I, E):
     assert (bce_loss.radius_sq.launches, bce_loss.bce_sums.launches,
             bce_loss.bce_sums_bwd.launches) == \
         tuple(n + k for n, k in zip(before, (2, 1, 1)))
+
+
+@pytest.mark.parametrize("P,I,E", [(4100, 128, 64), (3001, 100, 128)])
+def test_bce_backward_is_deterministic(dev, P, I, E):
+    """The backward's pair lists have a fixed order and its block partials
+    are summed in block order: two launches give the same bits."""
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    e, rx4, x4, seg, scene, mu, mp4, cons, g = bce_loss.exact_inputs(
+        P, I, E, seed=P, device=dev)
+    cons = bce_loss.with_radius(x4, seg, mp4, cons)
+    args = (e, rx4, x4, seg, scene, mu, mp4, cons, g)
+    a = bce_loss.bce_sums_bwd(*args)
+    b = bce_loss.bce_sums_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_bce_backward_dense_tiles_match_plain(dev):
+    """Every pair sampled (radii larger than the scene): the pair list of
+    a tile overflows its capacity and is walked in several windows."""
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    P, I, E = 2000, 100, 64
+    e, rx4, x4, seg, scene, mu, mp4, cons, g = bce_loss.exact_inputs(
+        P, I, E, seed=5, device=dev)
+    cons = cons.clone()
+    cons[bce_loss.R16] = 4096.0
+    cons[bce_loss.SCENE] = 0.0
+    cons[bce_loss.USE] = 1.0
+    scene = torch.zeros_like(scene)
+    args = (e, rx4, x4, seg, scene, mu, mp4, cons)
+    _, _, pt, lcap = bce_loss.bwd_geometry(P, I, E, 132)
+    assert pt * I > lcap
+    got = bce_loss.bce_sums_bwd(*args, g)
+    want = bce_loss.bce_sums_bwd_plain(*args, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _check(a, b, 1e-4)
 
 
 def test_bce_membership_sums_gradients_match_plain(dev):
