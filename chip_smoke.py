@@ -21,8 +21,10 @@ and no network. Phases (any failure exits non-zero):
    [262144, 64]; the gather conv at levels L3-L5 beside the chunk conv;
    the BCE kernels (radius, sums, backward) at the training CLI's shape
    (P=262144, I=128, E=64) and the bench scene's (I=64), beside the
-   port's chain of calls for the same loss. The dW kernel and the BCE
-   backward are launched twice more and must give the same bits.
+   port's chain of calls for the same loss. The dW kernel, the segment
+   sum and the BCE forward and backward are launched again and must give
+   the same bits; the segment sum and its `index_add` are also timed
+   inside a CUDA graph (no host cost per launch).
 2. parity: a mid-size scene (20k points) through the full-width model in
    f32 on the card (kernels) and on the CPU (plain versions): the 7
    outputs of an eval forward, then one training step's loss parts,
@@ -319,6 +321,7 @@ def phase_kernels(dev):
     from occuseg_tpu_torch.infer import prepare_scene
     from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
     from occuseg_tpu_torch.ops.kernels import segsum
+    from occuseg_tpu_torch.tools.ab_kernels import graph_ms
 
     batch = bench_scene(0)
     scene = prepare_scene(batch["coords"], batch["features"],
@@ -461,26 +464,47 @@ def phase_kernels(dev):
         valid = seg >= 0
         dst = ((torch.arange(B * R, device=dev) // R) * (cap0 // B)
                + seg)[valid]
+        tot.segsum_shapes = []
         for C in (3, 64):
             xp = torch.randn(scene.num_points, C, generator=gen).to(dev)
             out = segsum.blocked_segment_sum(xp, vox_seg, cap0)
             ref = segsum.blocked_segment_sum_plain(xp, vox_seg, cap0)
             err, scale = check_close(f"blocked_segment_sum C={C}", out, ref,
                                      F32_TOL)
-            ms = cuda_ms(lambda: segsum.blocked_segment_sum(xp, vox_seg,
-                                                            cap0), 20)
+            check(torch.equal(out, segsum.blocked_segment_sum(
+                xp, vox_seg, cap0)), f"blocked_segment_sum C={C}: a second "
+                  f"launch gave other bits")
+
+            def kernel():
+                segsum.blocked_segment_sum(xp, vox_seg, cap0)
+            ms = cuda_ms(kernel, 20)
             pms = cuda_ms(lambda: segsum.blocked_segment_sum_plain(
                 xp, vox_seg, cap0), 20)
             xv = xp[:B * R][valid]
             zeros = torch.zeros((cap0, C), device=dev)
-            lms = cuda_ms(lambda: zeros.index_add(0, dst, xv), 20)
+
+            def library():
+                zeros.index_add(0, dst, xv)
+            lms = cuda_ms(library, 20)
+            # the same calls with the host's launch cost taken out
+            gms, glms = graph_ms(kernel, 20), graph_ms(library, 20)
+            g_txt = ("not measured (no capture)" if None in (gms, glms) else
+                     f"kernel={gms:.4f} ms index_add={glms:.4f} ms")
+            bnd = bound_ms(float(int(valid.sum()) * C),
+                           nbytes(xp[:B * R], vox_seg, out), PEAK_F32)[0]
             print(f"[kernels] blocked_segment_sum x={tuple(xp.shape)} "
-                  f"vox_seg={tuple(vox_seg.shape)} max_abs_err={err:.3e} "
-                  f"max|out|={scale:.3e} kernel={ms:.4f} ms "
-                  f"plain={pms:.4f} ms index_add={lms:.4f} ms")
+                  f"vox_seg={tuple(vox_seg.shape)} (threads, columns) "
+                  f"{segsum.geometry(R, C)} "
+                  f"max_abs_err={err:.3e} max|out|={scale:.3e} "
+                  f"kernel={ms:.4f} ms plain={pms:.4f} ms index_add="
+                  f"{lms:.4f} ms; in a CUDA graph {g_txt}; bound {bnd:.4f} "
+                  f"ms; bitwise repeat ok")
             tot.add("blocked_segment_sum", ms, pms, err,
                     float(int(valid.sum()) * C),
                     nbytes(xp[:B * R], vox_seg, out), PEAK_F32, lms)
+            tot.segsum_shapes.append(dict(
+                C=C, ms=ms, graph_ms=gms, plain_ms=pms, library_ms=lms,
+                library_graph_ms=glms, bound_ms=bnd, max_abs_err=err))
     phase_kernels_gather(dev, tot, plan)
     tot.chain_ms = phase_kernels_bce(dev, tot)
     r = tot.rows
@@ -544,14 +568,24 @@ def phase_kernels_bce(dev, tot):
                   f"bce forward I={I}: counts differ from the plain version")
             e7, _ = check_close(f"bce forward I={I} bce_sum", out[0], ref[0],
                                 F32_TOL)
+            check(torch.equal(out, bl.bce_sums(*args)),
+                  f"bce forward I={I}: a second launch gave other bits")
             got = bl.bce_sums_bwd(*args, g)
             want = bl.bce_sums_bwd_plain(*args, g)
-            e8 = max(check_close(f"bce backward I={I} {n}", a, b, DW_TOL)[0]
+            errs8 = {n: check_close(f"bce backward I={I} {n}", a, b, DW_TOL)
                      for n, a, b in zip(("de", "drx", "dmu", "dsig2"), got,
-                                        want))
+                                        want)}
+            e8_of = max(errs8, key=lambda n: errs8[n][0])
+            e8 = errs8[e8_of][0]
             check(all(torch.equal(a, b) for a, b in
                       zip(got, bl.bce_sums_bwd(*args, g))),
                   f"bce backward I={I}: a second launch gave other bits")
+            each = ", ".join(f"{n} {a:.3e}/{s:.3e}"
+                             for n, (a, s) in errs8.items())
+            print(f"[kernels] bce I={I}: forward counts equal the plain "
+                  f"version's, bce_sum max_abs_err {e7:.3e}, two launches "
+                  f"the same bits; backward max_abs_err/max|ref| {each}, "
+                  f"two launches the same bits")
             del got, want
             reps = 10
             ms6 = cuda_ms(lambda: bl.radius_sq(x4, seg, mp4, mp_sq), reps)
@@ -596,8 +630,8 @@ def phase_kernels_bce(dev, tot):
               f"{n_grad} with a gradient; radius {ms6:.4f} ms (plain "
               f"{pms6:.4f}), forward {ms7:.4f} ms (plain {pms7:.4f}, "
               f"max_abs_err {e7:.3e}), backward {ms8:.4f} ms (plain "
-              f"{pms8:.4f}, max_abs_err {e8:.3e}); chain forward {cf:.4f} "
-              f"ms, forward+backward {cfb:.4f} ms; bounds "
+              f"{pms8:.4f}, max_abs_err {e8:.3e} of {e8_of}); chain forward "
+              f"{cf:.4f} ms, forward+backward {cfb:.4f} ms; bounds "
               f"{bound_ms(8.0 * P, by, PEAK_F32)[0]:.4f} / "
               f"{bound_ms(f7, bf, PEAK_F32)[0]:.4f} / "
               f"{bound_ms(f8, bb, PEAK_F32)[0]:.4f} ms")
@@ -605,6 +639,7 @@ def phase_kernels_bce(dev, tot):
             tot.add("bce_radius", ms6, pms6, 0.0, 8.0 * P, by, PEAK_F32)
             tot.add("bce_fwd", ms7, pms7, e7, f7, bf, PEAK_F32)
             tot.add("bce_bwd", ms8, pms8, e8, f8, bb, PEAK_F32)
+            tot.bce_bwd_err_of = e8_of
         del args, out, e, rx4, x4, seg, scene, mu, mp4, cons, g, leaves
         torch.cuda.empty_cache()
     return chain[CLI_I]
@@ -1322,7 +1357,8 @@ def main() -> int:
         entry("chunk_conv_fwd", "chunk_conv", "chunk_conv.cu",
               "chunk_conv.py:671", launches["chunk_conv"]),
         entry("blocked_segment_sum", "blocked_segment_sum", "segsum.cu",
-              "segsum.py:67", launches["blocked_segment_sum"]),
+              "segsum.py:67", launches["blocked_segment_sum"],
+              shapes=tot.segsum_shapes),
         entry("chunk_conv_bwd_fused (#3 shapes)", "#3", "chunk_conv_bwd.cu",
               "chunk_conv.py:442", fused - grouped),
         entry("chunk_conv_bwd_fused (#4 shapes)", "#4", "chunk_conv_bwd.cu",
@@ -1336,7 +1372,7 @@ def main() -> int:
         entry("bce_fwd", "bce_fwd", "bce_loss.cu", "bce_loss.py:258",
               loop_launches["bce_fwd"], chain_ms=tot.chain_ms[0]),
         entry("bce_bwd", "bce_bwd", "bce_loss.cu", "bce_loss.py:289",
-              loop_launches["bce_bwd"],
+              loop_launches["bce_bwd"], max_abs_err_of=tot.bce_bwd_err_of,
               chain_ms=tot.chain_ms[1] - tot.chain_ms[0]),
         # no caller in either package: L3-L5 of the bench plan, summed
         entry("gather_conv", "gather_conv", "gather_conv.cu",

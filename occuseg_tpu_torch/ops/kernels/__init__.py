@@ -64,13 +64,16 @@ def load() -> ctypes.CDLL:
                                       _int, _vp]
     lib.occ_blocked_segment_sum.restype = _int
     lib.occ_blocked_segment_sum.argtypes = [_vp, _int, _vp, _int, _int, _int,
-                                            _vp, _vp]
+                                            _int, _int, _vp, _vp]
     lib.occ_bce_radius.restype = _int
     lib.occ_bce_radius.argtypes = [_vp, _vp, _int, _vp, _vp, _int, _vp, _int,
                                    _vp]
     lib.occ_bce_fwd.restype = _int
     lib.occ_bce_fwd.argtypes = [_vp, _int, _int, _vp, _vp, _vp, _vp, _vp, _vp,
-                                _vp, _int, _int, _int, _vp, _vp, _vp]
+                                _vp, _int, _int, _int, _int, _int, _vp, _vp,
+                                _vp]
+    lib.occ_bce_list_smem.restype = ctypes.c_longlong
+    lib.occ_bce_list_smem.argtypes = [_int, _int, _int, _int, _int]
     lib.occ_bce_bwd.restype = _int
     lib.occ_bce_bwd.argtypes = [_vp, _int, _int, _vp, _vp, _vp, _vp, _vp, _vp,
                                 _vp, _int, _vp, _int, _int, _int, _int, _vp,
@@ -89,7 +92,10 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream on t's device, as
+    `torch.cuda.current_stream(t.device).cuda_stream` gives it, without
+    building a Python Stream object at every launch."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require_cuda_input(t: torch.Tensor, name: str, dtype, ndim: int) -> None:

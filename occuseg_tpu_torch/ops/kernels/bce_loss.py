@@ -153,40 +153,66 @@ def _sms(device) -> int:
 # when two share an SM (228 KiB less 1 KiB reserved per block, halved)
 SMEM_BLOCK = 232_448
 SMEM_TWO_PER_SM = 115_712
-BWD_TILES = (128, 64, 32)   # points per backward tile, widest first
+LIST_TILES = (128, 64, 32)   # points per pair-list tile, widest first
+
+
+def list_smem_bytes(pt: int, I: int, E: int, lcap: int, bwd: bool) -> int:
+    """Shared memory of a pair-list kernel (`ListSmem` in
+    `csrc/bce_loss.cu`) for tiles of pt points and a pair list of lcap
+    entries: mu [I][E+4], the constants, the point rows (e padded to
+    E + 4), the candidate list and each instance's slot in it, the
+    per-point candidate masks and list slots, and the list (an int and two
+    floats an entry). The backward adds its cotangent, the per-instance
+    point masks, the (point, instance) -> entry map (int16) and two more
+    floats an entry."""
+    def up4(n):
+        return -(-n // 4) * 4
+    words = up4(I * (E + 4) + 4 * I + 8 * pt + 7 * I + (I if bwd else 0))
+    words += pt * (E + 4) + 5 * pt
+    words += (MAX_INSTANCES + 1) + MAX_INSTANCES + 4 * pt + (pt + 1)
+    if bwd:
+        words += MAX_INSTANCES * 4 + -(-pt * I // 2)
+    return 4 * (up4(words) + (5 if bwd else 3) * lcap)
 
 
 def bwd_smem_bytes(pt: int, I: int, E: int, lcap: int) -> int:
-    """Shared memory of the backward kernel (`BwdSmem` in
-    `csrc/bce_loss.cu`) for tiles of pt points and a pair list of lcap
-    entries: mu [E][I+1], the point rows, the candidate list, the per-point
-    masks and list slots, the per-instance point masks, the (point,
-    instance) -> entry map (int16) and the list (a float4 and an int an
-    entry). Rows of e are padded to E + 4."""
-    words = -(-E * (I + 1) // 4) * 4
-    words += 4 * I + 8 * pt + 7 * I + I + pt * (E + 4) + 5 * pt
-    words += (MAX_INSTANCES + 1) + 4 * pt + (pt + 1) + MAX_INSTANCES * 4
-    words += -(-pt * I // 2)
-    return 4 * (-(-words // 4) * 4 + 5 * lcap)
+    """Shared memory of the backward kernel (`list_smem_bytes`)."""
+    return list_smem_bytes(pt, I, E, lcap, True)
 
 
-def bwd_geometry(P: int, I: int, E: int, sms: int):
-    """(blocks, points per block, points per tile, list entries) of the
-    backward kernel: the widest tile whose shared memory lets two blocks
-    share an SM (else the widest that fits one block), a pair list of 16
-    entries per point of the tile (a denser tile is walked in several
-    windows of whole points), and ranges as the forward's, in whole
-    tiles."""
-    fits = [pt for pt in BWD_TILES
-            if bwd_smem_bytes(pt, I, E, 16 * pt) <= SMEM_TWO_PER_SM]
-    fits = fits or [pt for pt in BWD_TILES
-                    if bwd_smem_bytes(pt, I, E, 16 * pt) <= SMEM_BLOCK]
+def fwd_smem_bytes(pt: int, I: int, E: int, lcap: int) -> int:
+    """Shared memory of the forward kernel (`list_smem_bytes`)."""
+    return list_smem_bytes(pt, I, E, lcap, False)
+
+
+def _list_geometry(P: int, I: int, E: int, sms: int, smem_bytes, what: str):
+    """(blocks, points per block, points per tile, list entries): the
+    widest tile whose shared memory lets two blocks share an SM (else the
+    widest that fits one block), a pair list of 16 entries per point of
+    the tile (a denser tile is walked in several windows of whole points),
+    and ranges as `_ranges`, in whole tiles."""
+    fits = [pt for pt in LIST_TILES
+            if smem_bytes(pt, I, E, 16 * pt) <= SMEM_TWO_PER_SM]
+    fits = fits or [pt for pt in LIST_TILES
+                    if smem_bytes(pt, I, E, 16 * pt) <= SMEM_BLOCK]
     if not fits:
-        raise ValueError(f"bce backward: no point tile of I={I}, E={E} fits "
+        raise ValueError(f"bce {what}: no point tile of I={I}, E={E} fits "
                          f"in shared memory")
     pt = fits[0]
     n_blocks, rng = _ranges(P, sms, pt)
     return n_blocks, rng, pt, 16 * pt
+
+
+def fwd_geometry(P: int, I: int, E: int, sms: int):
+    """(blocks, points per block, points per tile, list entries) of the
+    forward kernel (`_list_geometry`)."""
+    return _list_geometry(P, I, E, sms, fwd_smem_bytes, "forward")
+
+
+def bwd_geometry(P: int, I: int, E: int, sms: int):
+    """(blocks, points per block, points per tile, list entries) of the
+    backward kernel (`_list_geometry`)."""
+    return _list_geometry(P, I, E, sms, bwd_smem_bytes, "backward")
 
 
 def _check_inputs(e, rx4, x4, seg, scene, mu, mp4, cons):
@@ -256,7 +282,9 @@ def bce_sums(e, rx4, x4, seg, scene, mu, mp4, cons) -> torch.Tensor:
     if not e.is_cuda:
         return bce_sums_plain(e, rx4, x4, seg, scene, mu, mp4, cons)
     P, E, I = _check_inputs(e, rx4, x4, seg, scene, mu, mp4, cons)
-    n_blocks, rng = _ranges(P, _sms(e.device), 32)
+    if E % 4:
+        raise ValueError(f"bce forward: E={E} is not a multiple of 4")
+    n_blocks, rng, pt, lcap = fwd_geometry(P, I, E, _sms(e.device))
     part = torch.empty((n_blocks, 5, I), dtype=torch.float32,
                        device=e.device)
     out = torch.empty((5, I), dtype=torch.float32, device=e.device)
@@ -264,7 +292,7 @@ def bce_sums(e, rx4, x4, seg, scene, mu, mp4, cons) -> torch.Tensor:
         rc = kernels.load().occ_bce_fwd(
             e.data_ptr(), P, E, rx4.data_ptr(), x4.data_ptr(),
             seg.data_ptr(), scene.data_ptr(), mu.data_ptr(), mp4.data_ptr(),
-            cons.data_ptr(), I, rng, n_blocks, part.data_ptr(),
+            cons.data_ptr(), I, rng, n_blocks, pt, lcap, part.data_ptr(),
             out.data_ptr(), kernels.stream_ptr(e))
     kernels.check(rc, "bce forward kernel launch")
     bce_sums.launches += 1

@@ -6,13 +6,40 @@ Block b of R point slots holds exactly the points of voxel block b (W
 voxels); `vox_seg[b, 0, r]` is slot r's voxel id relative to the block's
 first voxel (-1 = pad slot). Points that overflow a block's R slots live
 in the array tail past B*R and go through `tail_segment_sum`.
+
+The kernel (`csrc/segsum.cu`) stages each voxel block's slot ids and its
+slab of x in shared memory and sums every voxel's run of slots in slot
+order; `geometry` is the host's plan of its threads and column chunks.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from occuseg_tpu_torch.ops import kernels
+
+
+# Floats of x a CTA stages: up to SMALL_SLAB with 128 threads, else with
+# 256; a slab of more than BLOCK_SLAB (64 KiB) in chunks of columns
+SMALL_SLAB = 2048
+BLOCK_SLAB = 16384
+
+
+def geometry(R: int, C: int) -> Tuple[int, int]:
+    """The kernel's (threads, column chunk) for blocks of R slots and C
+    channels: one CTA per voxel block, of 128 threads where its slab of
+    R*C floats is small and 256 otherwise, staging all C columns where the
+    slab fits BLOCK_SLAB, else the most that fit (a multiple of 4 where C
+    is one, so chunks stay 16-byte aligned)."""
+    threads = 128 if R * C <= SMALL_SLAB else 256
+    if R * C <= BLOCK_SLAB:
+        return threads, C
+    cc = max(1, BLOCK_SLAB // R)
+    if C % 4 == 0 and cc >= 4:
+        cc -= cc % 4
+    return threads, min(cc, C)
 
 
 def _check_shapes(x: torch.Tensor, vox_seg: torch.Tensor, num_out: int):
@@ -57,8 +84,8 @@ def blocked_segment_sum(x: torch.Tensor, vox_seg: torch.Tensor,
     out = torch.empty((num_out, C), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = kernels.load().occ_blocked_segment_sum(
-            x.data_ptr(), C, vox_seg.data_ptr(), B, R, W, out.data_ptr(),
-            kernels.stream_ptr(x))
+            x.data_ptr(), C, vox_seg.data_ptr(), B, R, W, *geometry(R, C),
+            out.data_ptr(), kernels.stream_ptr(x))
     kernels.check(rc, "blocked_segment_sum kernel launch")
     blocked_segment_sum.launches += 1
     return out

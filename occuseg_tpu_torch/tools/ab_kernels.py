@@ -3,63 +3,229 @@ other on one card, in one call.
 
     python -m occuseg_tpu_torch.tools.ab_kernels OUT_DIR DIR_A DIR_B [...]
     python -m occuseg_tpu_torch.tools.ab_kernels --smoke OUT_DIR DIR_A ...
+    python -m occuseg_tpu_torch.tools.ab_kernels --focus OUT_DIR DIR_A ...
 
 Each run is `chip_smoke.py`'s build and `[kernels]` phase (every kernel at
 the bench plan's shapes, against its plain version) in a process of its
 own, from the checkout's root; with --smoke, the whole `chip_smoke.py`
-(every phase, end to end). The checkouts run in the order given and then
-in reverse (A, B, B, A for two), so that a drift of the card's clocks over
-the call falls on all of them alike. Prints the card's name and power
-limit and each run's summary lines (per-step kernel sums and the BCE
-lines; with --smoke also the `[slice]` requests, the `[train]` and
-`[loop]` medians and busy shares); the full output of
-run i goes to OUT_DIR/ab_<i>.log (smoke_<i>.log). Needs a CUDA card and
-nvcc.
+(every phase, end to end); with --focus, this module's `focus` on the
+checkout's package: the segment sum (#2) at the bench plan's two shapes
+and the BCE forward (#7) and backward (#8) at the CLI's shape and the
+bench's, each timed as `chip_smoke.cuda_ms` does (CUDA events around back
+to back calls, the host's launch cost included) and inside a CUDA graph
+(without it), with the segment sum's `index_add` beside it, digests of
+the outputs saved to OUT_DIR/focus_<i>.pt, and the first checkout's
+outputs compared bit for bit with each other's. The checkouts run in the order given and
+then in reverse (A, B, B, A for two), so that a drift of the card's clocks
+over the call falls on all of them alike. Prints the card's name and
+power limit and each run's summary lines; the full output of run i goes
+to OUT_DIR/ab_<i>.log (smoke_<i>.log, focus_<i>.log). Needs a CUDA card
+and nvcc.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 
 RUN = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as cs; "
        "torch.backends.cuda.matmul.allow_tf32 = False; cs.phase_build(); "
        "cs.phase_kernels(torch.device('cuda', 0))")
-SUMMARY = ("[kernels] per step", "[kernels] bce")
+SUMMARY = ("[kernels] per step", "[kernels] bce", "[kernels] blocked_segment")
 SMOKE_SUMMARY = SUMMARY + ("[slice] request", "[train] 9 steps",
                            "[train] device busy", "[loop] cli.main",
                            "[loop] device busy", "all phases passed")
+FOCUS_SUMMARY = ("[focus]",)
 
 
-def main(out_dir: str, roots, smoke: bool = False) -> int:
+def event_ms(fn, reps: int) -> float:
+    """Mean ms per call over `reps` back to back calls after one warm-up
+    call, between CUDA events: the host's cost of each launch included
+    where it exceeds the device's (as `chip_smoke.cuda_ms`)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int):
+    """Device ms per call without the host's cost of each launch: `reps`
+    calls captured in one CUDA graph, the graph replayed three times
+    between CUDA events. None (and a printed reason) where the capture
+    fails."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as exc:
+        print(f"CUDA graph capture failed: {exc}")
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def _both(fn, reps: int) -> str:
+    g = graph_ms(fn, reps)
+    return (f"{event_ms(fn, reps):.4f} ms (graph "
+            f"{'not measured' if g is None else f'{g:.4f}'})")
+
+
+def _ptxas(path: str, names=("segsum", "bce")):
+    """The nvcc log's register and spill lines of the named kernels."""
+    fn = ""
+    for line in open(path + ".log"):
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            fn = m.group(1)
+        elif any(n in fn for n in names) and ("Used" in line
+                                              or "spill" in line):
+            print(f"[focus] ptxas {fn[:60]}: {line.split(':')[-1].strip()}")
+
+
+def focus(out_path: str) -> None:
+    """Time #2, #7 and #8 of the package under the working directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from occuseg_tpu_torch.infer import prepare_scene
+    from occuseg_tpu_torch.ops import kernels
+    from occuseg_tpu_torch.ops.kernels import bce_loss as bl
+    from occuseg_tpu_torch.ops.kernels import segsum
+    _ptxas(kernels.library_path())
+    dev = torch.device("cuda", 0)
+    batch = make_batch(SceneConfig(num_points=200_000, extent=512,
+                                   num_objects=24), num_scenes=1,
+                       p_cap=262_144, num_instances=64, seed=0)
+    plan = prepare_scene(batch["coords"], batch["features"], PlanSpec(
+        caps=(196_608, 139_264, 63_488, 17_408, 4_096, 1_024))).plan.to(dev)
+    cap0, vox_seg = plan.levels[0].cap, plan.vox_seg
+    B, _, R = vox_seg.shape
+    seg = vox_seg.reshape(-1).long()
+    valid = seg >= 0
+    dst = ((torch.arange(B * R, device=dev) // R) * (cap0 // B) + seg)[valid]
+    gen = torch.Generator().manual_seed(1)
+    saved = {}
+    with torch.inference_mode():
+        for C in (3, 64):
+            x = torch.randn(262_144, C, generator=gen).to(dev)
+            xv = x[:B * R][valid]
+            zeros = torch.zeros((cap0, C), device=dev)
+
+            def kernel():
+                return segsum.blocked_segment_sum(x, vox_seg, cap0)
+
+            def library():
+                return zeros.index_add(0, dst, xv)
+            saved[f"segsum_{C}"] = _digest(kernel())
+            print(f"[focus] segsum C={C}: kernel {_both(kernel, 20)}, "
+                  f"index_add {_both(library, 20)}", flush=True)
+        for I in (128, 64):
+            e, rx4, x4, sg, sc, mu, mp4, cons, g = bl.exact_inputs(
+                262_144, I, 64, seed=I, device=dev)
+            cons = bl.with_radius(x4, sg, mp4, cons)
+            args = (e, rx4, x4, sg, sc, mu, mp4, cons)
+            saved[f"fwd_{I}"] = _digest(bl.bce_sums(*args), keep=True)
+            saved[f"bwd_{I}"] = _digest(*bl.bce_sums_bwd(*args, g))
+            fwd = lambda: bl.bce_sums(*args)  # noqa: E731
+            bwd = lambda: bl.bce_sums_bwd(*args, g)  # noqa: E731
+            print(f"[focus] bce I={I}: forward {_both(fwd, 10)}, backward "
+                  f"{_both(bwd, 10)}", flush=True)
+    torch.save(saved, out_path)
+
+
+def _digest(*tensors, keep: bool = False):
+    """(sha256 of the tensors' bytes, the tensors on the CPU if `keep`)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest(), ([t.cpu() for t in tensors] if keep else None)
+
+
+def _diff(a, b) -> str:
+    """"same bits", or how they differ."""
+    if a[0] == b[0]:
+        return "same bits"
+    if a[1] is None:
+        return "other bits"
+    return "max |diff| " + ", ".join(
+        f"{(x - y).abs().max().item():.3e}" for x, y in zip(a[1], b[1]))
+
+
+def main(out_dir: str, roots, mode: str = "kernels") -> int:
+    out_dir = os.path.abspath(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    cmd = ["chip_smoke.py"] if smoke else ["-c", RUN]
-    keep = SMOKE_SUMMARY if smoke else SUMMARY
+    keep = {"kernels": SUMMARY, "smoke": SMOKE_SUMMARY,
+            "focus": FOCUS_SUMMARY}[mode]
+    runs = list(roots) + list(roots)[::-1]
     rc = 0
-    for i, root in enumerate(list(roots) + list(roots)[::-1]):
+    for i, root in enumerate(runs):
+        if mode == "smoke":
+            cmd = ["chip_smoke.py"]
+        elif mode == "focus":
+            cmd = [os.path.abspath(__file__), "--run-focus",
+                   os.path.join(out_dir, f"focus_{i}.pt")]
+        else:
+            cmd = ["-c", RUN]
         r = subprocess.run([sys.executable, *cmd], cwd=root,
                            capture_output=True, text=True)
-        name = f"{'smoke' if smoke else 'ab'}_{i}.log"
+        name = f"{'ab' if mode == 'kernels' else mode}_{i}.log"
         with open(os.path.join(out_dir, name), "w") as f:
             f.write(r.stdout + r.stderr)
         print(f"run {i} ({root}) rc={r.returncode}", flush=True)
         for line in r.stdout.splitlines():
             if line.startswith(keep):
-                print("  " + line[:160], flush=True)
+                print("  " + line[:200], flush=True)
         if r.returncode:
             print(r.stderr[-3000:])
             rc = 1
+    if mode == "focus" and rc == 0:
+        import torch
+        outs = [torch.load(os.path.join(out_dir, f"focus_{i}.pt"))
+                for i in range(len(runs))]
+        for i, root in enumerate(runs[1:len(roots)], 1):
+            print(f"[focus] {root} against {runs[0]}: " + "; ".join(
+                f"{k} {_diff(v, outs[i][k])}" for k, v in outs[0].items()))
     return rc
 
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    smoke = args[:1] == ["--smoke"]
-    args = args[1:] if smoke else args
+    if args[:1] == ["--run-focus"]:
+        focus(args[1])
+        sys.exit(0)
+    mode = "kernels"
+    if args[:1] in (["--smoke"], ["--focus"]):
+        mode, args = args[0][2:], args[1:]
     if len(args) < 2:
         raise SystemExit(__doc__)
-    sys.exit(main(args[0], args[1:], smoke))
+    sys.exit(main(args[0], args[1:], mode))

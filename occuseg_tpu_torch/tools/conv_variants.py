@@ -1,7 +1,7 @@
 """Time this checkout's kernels in variants, each with one part of their
 work taken out or one choice changed, in `chip_smoke.py`'s `[kernels]`
-phase (the 33 convolutions of the bench plan, the BCE kernels at the
-CLI's shape), to see what sets their pace.
+phase (the 33 convolutions of the bench plan, the segment sum, the BCE
+kernels at the CLI's shape), to see what sets their pace.
 
     python -m occuseg_tpu_torch.tools.conv_variants OUT_DIR [NAME ...]
 
@@ -26,16 +26,27 @@ order and in reverse. Needs a CUDA card and nvcc.
 - `dw_f32_ct64`: the f32 weight-gradient kernel takes 64 X columns
   wherever they fit, also where only one block then fits on an SM (the
   rule before it preferred two blocks per SM);
-- `bce_no_dot`: the BCE backward skips the e.mu dot of its pairs;
+- `bce_no_dot`: the BCE forward and backward skip the e.mu dot of their
+  pairs;
 - `bce_no_walk`: the BCE backward skips its walks over the pair list (de,
   drx, dmu, d(sig^2));
-- `bce_256`: the BCE backward in blocks of 256 threads (8 warps) instead
-  of 512;
+- `bce_256`: the BCE forward and backward in blocks of 256 threads (8
+  warps) instead of 512;
 - `bce_no_de`: the BCE backward skips its per-point walk (de, drx);
 - `bce_no_dmu`: the BCE backward skips its per-instance walk (dmu,
   d(sig^2));
 - `bce_one_block`: the BCE backward compiled for one block per SM (128
-  registers a thread, no spills) instead of two (64 registers).
+  registers a thread, no spills) instead of two (64 registers);
+- `bce_fwd_no_walk`: the BCE forward skips its per-instance walk (the
+  sums);
+- `bce_fwd_no_terms`: the BCE forward computes no entry's terms (dot, s,
+  bce);
+- `bce_fwd_no_list`: the BCE forward builds each tile's candidate masks
+  and list slots but never writes or walks the list;
+- `bce_no_test`: the BCE forward and backward stage each tile and list
+  its candidates but test no pair (every list is empty);
+- `segsum_128`, `segsum_256`: the segment sum in CTAs of 128 (resp. 256)
+  threads at every C.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from occuseg_tpu_torch.tools import ab_kernels
 FWD = "occuseg_tpu_torch/csrc/chunk_conv.cu"
 BWD = "occuseg_tpu_torch/csrc/chunk_conv_bwd.cu"
 BCE = "occuseg_tpu_torch/csrc/bce_loss.cu"
+SEG = "occuseg_tpu_torch/ops/kernels/segsum.py"
 VARIANTS = {
     "no_restage": [(FWD, "    if (cit != staged) {",
                     "    if (staged < 0) {")],
@@ -65,28 +77,54 @@ VARIANTS = {
                     "          if (M < 0) wgmma_bf16<64>(acc[o], af[sl],")],
     "dw_f32_ct64": [(BWD, "if (s64 > kTwoPerSm && s32 <= kTwoPerSm)",
                      "if (s64 < 0)")],
-    "bce_no_dot": [(BCE, "for (int d = 0; d < E; ++d) dot = fmaf(e_r[d], "
-                    "mu_s[d * L.ldmu + i]",
-                    "for (int d = 0; d < 0; ++d) dot = fmaf(e_r[d], "
-                    "mu_s[d * L.ldmu + i]")],
+    "bce_no_dot": [(BCE, "  for (int k = 0; k < E / 4; ++k) {",
+                    "  for (int k = 0; k < 0; ++k) {")],
     "bce_no_walk": [(BCE, "      // 4a. de and drx: one warp per point",
                      "      if (E > 0) goto walked;\n"
                      "      // 4a. de and drx: one warp per point"),
-                    (BCE, "      __syncthreads();  // the next window or",
+                    (BCE, "          scal[2] += t2;\n        }\n      }\n"
+                     "      __syncthreads();  // the next window or",
+                     "          scal[2] += t2;\n        }\n      }\n"
                      "    walked:\n"
                      "      __syncthreads();  // the next window or")],
-    "bce_256": [(BCE, "constexpr int kBwdThreads = 512;",
-                 "constexpr int kBwdThreads = 256;")],
-    "bce_one_block": [(BCE, "__launch_bounds__(kBwdThreads, 2)",
-                       "__launch_bounds__(kBwdThreads, 1)")],
-    "bce_no_de": [(BCE, "      for (int r = r0 + warp; r < r1; r += kBwdWarps) {\n"
+    "bce_256": [(BCE, "constexpr int kListThreads = 512;",
+                 "constexpr int kListThreads = 256;")],
+    "bce_one_block": [(BCE, "__launch_bounds__(kListThreads, 2)\n"
+                       "bce_bwd_kernel",
+                       "__launch_bounds__(kListThreads, 1)\n"
+                       "bce_bwd_kernel")],
+    "bce_no_de": [(BCE, "      for (int r = r0 + warp; r < r1; r += kListWarps) {\n"
                    "        float G0",
-                   "      for (int r = r1; r < r1; r += kBwdWarps) {\n"
+                   "      for (int r = r1; r < r1; r += kListWarps) {\n"
                    "        float G0")],
-    "bce_no_dmu": [(BCE, "        const int i = warp + kBwdWarps * s;\n"
+    "bce_no_dmu": [(BCE, "        const int i = warp + kListWarps * s;\n"
                     "        if (i >= I) break;\n        float a[2]",
-                    "        const int i = warp + kBwdWarps * s;\n"
+                    "        const int i = warp + kListWarps * s;\n"
                     "        if (i >= 0) break;\n        float a[2]")],
+    "bce_fwd_no_walk": [(BCE, "        const int j = T.cpos[i];",
+                         "        const int j = -1;")],
+    "bce_fwd_no_terms": [(BCE, "      // 3. the entries' terms\n"
+                          "      for (int q = t; q < nw;",
+                          "      // 3. the entries' terms\n"
+                          "      for (int q = nw; q < nw;")],
+    "bce_fwd_no_list": [(BCE, "    for (int r0 = 0; r0 < n;) {\n"
+                         "      const int r1 = window_end(T.rstart, r0, n, "
+                         "lcap);\n      const int base = T.rstart[r0], nw = "
+                         "T.rstart[r1] - base;\n      list_window(",
+                         "    for (int r0 = n; r0 < n;) {\n"
+                         "      const int r1 = window_end(T.rstart, r0, n, "
+                         "lcap);\n      const int base = T.rstart[r0], nw = "
+                         "T.rstart[r1] - base;\n      list_window(")],
+    "bce_no_test": [(BCE, "  const int nc = T.cand[kMaxI];\n"
+                     "  // the sample test",
+                     "  const int nc = T.cand[kMaxI];\n  if (I > 0) {\n"
+                     "    for (int r = t; r <= n; r += kListThreads) "
+                     "T.rstart[r] = 0;\n    __syncthreads();\n"
+                     "    return nc;\n  }\n  // the sample test")],
+    "segsum_128": [(SEG, "    threads = 128 if R * C <= SMALL_SLAB else 256",
+                    "    threads = 128")],
+    "segsum_256": [(SEG, "    threads = 128 if R * C <= SMALL_SLAB else 256",
+                    "    threads = 256")],
 }
 CHECK = ("    if not cond:\n        raise SmokeFailure(what)",
          "    if not cond:\n        print(\"variant, not checked: \" + what[:60])")

@@ -12,6 +12,10 @@ classification loss's kernel dispatch against the JAX package on the CPU.
   3e-5 x max, rtol 2e-4), and each to the JAX package's same path.
 * The static gate equals the JAX package's; all-invalid points; a shape
   the gate refuses runs the chain.
+* The forward's and the backward's shared pair list (tiles, candidates,
+  list order, windows) and their fixed-order sums, replayed in NumPy,
+  against the plain versions and the JAX package's kernels (interpret
+  mode), at 1, 2 and 4 scenes.
 """
 
 import jax
@@ -25,6 +29,8 @@ from occuseg_tpu.losses.instance import (
     classification_loss as jax_classification_loss,
 )
 from occuseg_tpu.ops.pallas import bce_loss as jax_bce
+
+from tests import jax_planner  # noqa: F401  (heals the JAX planner)
 
 from occuseg_tpu_torch.losses.instance import LossConfig, classification_loss
 from occuseg_tpu_torch.ops.kernels import bce_loss
@@ -230,17 +236,22 @@ def test_unsupported_shape_runs_the_chain(monkeypatch):
 SMS = 132  # H100 SXM
 
 
-def _listed_inputs(P, I, E, scenes, seed):
+def _listed_inputs(P, I, E, scenes, seed, geometry=bce_loss.bwd_geometry,
+                   dense=False):
     """Kernel inputs on which every squared distance and s_raw is exact in
     f32 (coordinates in 1/8, embeddings in 1/16, sig^2 powers of two or
     the clip bounds over a power of two), with `scenes` contiguous scenes.
-    The points of the backward's third tile are far from every instance
-    (no pair of that tile is sampled), and two members sit exactly on the
-    clip bounds: s_raw == S_HI (instance 0) and s_raw == S_LO (instance
-    1). Returns NumPy arrays (e, rx4, x4, seg, scene, mu, mp4, cons, g)
-    with cons' R16 row still zero."""
+    The points of the third tile of `geometry` (the backward's unless
+    given) are far from every instance (no pair of that tile is sampled),
+    and two members sit exactly on the clip bounds: s_raw == S_HI
+    (instance 0) and s_raw == S_LO (instance 1). With `dense`, one member
+    of every other instance lies 6 further out, so its sample ball covers
+    every centre and a tile's points sample most instances of their
+    scene. Returns NumPy arrays (e,
+    rx4, x4, seg, scene, mu, mp4, cons, g) with cons' R16 row still
+    zero."""
     rng = np.random.default_rng(seed)
-    pt = bce_loss.bwd_geometry(P, I, E, SMS)[2]
+    pt = geometry(P, I, E, SMS)[2]
     scene = (np.arange(P) * scenes // P).astype(np.int32)
     # instance i lives in scene i % scenes
     per = np.array([len(range(s, I, scenes)) for s in range(scenes)])
@@ -258,6 +269,11 @@ def _listed_inputs(P, I, E, scenes, seed):
     centers[1:2] = 100.0
     x = centers[np.clip(seg, 0, I - 1)] + rng.integers(-8, 9, (P, 3)) / 8.0
     x[far] = 1000.0 + rng.integers(-8, 9, (far.size, 3)) / 8.0
+    if dense:
+        for inst in range(2, I):
+            mine = np.flatnonzero(seg == inst)
+            if mine.size:
+                x[mine[-1], 0] += 6.0
     rx = x + rng.integers(-4, 5, (P, 3)) / 8.0
     e = rng.integers(-8, 9, (P, E)) / 16.0
     mu = rng.integers(-8, 9, (I, E)) / 16.0
@@ -453,3 +469,144 @@ def test_backward_pair_list_replay(shape, scenes):
             np.testing.assert_allclose(a, want, rtol=0,
                                        atol=1e-5 * np.abs(want).max(),
                                        err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel (TPU row #7) on the same pair list, replayed in NumPy
+# ---------------------------------------------------------------------------
+
+def _tree32(v):
+    """Lane 0 of the kernel's xor-shuffle sum over a warp's 32 lanes (f32)."""
+    v = v.astype(np.float32)
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[lanes ^ o]
+    return v[0]
+
+
+def _replay_fwd(e, rx4, x4, seg, scene, mu, mp4, cons):
+    """The forward kernel's walk in NumPy, in f32: its block ranges and
+    point tiles, the candidate instances and their slots, each point's
+    candidate mask, the list in windows of at most `lcap` entries
+    (point-major, instances ascending), each entry's bce term and
+    prediction; then per window one warp per instance, lane l over the
+    points l, l + 32, ... of the window, each lane finding its entry from
+    the point's first slot and the mask bits below the instance's, adding
+    the bce term to its running sum; at the end the lanes' sums by the
+    kernel's xor tree, and the block partials summed in block order.
+    Returns the [5, I] sums and what the walk met."""
+    P, E = e.shape
+    I = mu.shape[0]
+    n_blocks, rng, pt, lcap = bce_loss.fwd_geometry(P, I, E, SMS)
+    sampled, s_raw, _, _, member = _pair_terms_f32(e, rx4, x4, seg, scene,
+                                                   mu, mp4, cons)
+    f = np.float32
+    s = np.clip(s_raw, f(bce_loss.S_LO), f(bce_loss.S_HI)).astype(f)
+    not_mem = -np.log(np.maximum(f(1) - np.exp(-s), f(1e-16)))
+    bce = np.where(member, s, not_mem).astype(f)
+    pred = s < f(bce_loss.S_PRED)
+    use, scene_i = cons[bce_loss.USE], cons[bce_loss.SCENE]
+    out = np.zeros((5, I), f)
+    met = dict(tiles=0, empty_tiles=0, windows=0, bounds=0)
+    for b in range(n_blocks):
+        lanes = np.zeros((I, 32), f)      # per-lane bce sums
+        counts = np.zeros((4, I), np.int64)
+        for p0 in range(b * rng, min(P, (b + 1) * rng), pt):
+            n = min(pt, min(P, (b + 1) * rng) - p0)
+            rows = np.arange(p0, p0 + n)
+            one = bool((scene[rows] == scene[p0]).all())
+            cand = [i for i in range(I) if use[i] > 0
+                    and (not one or scene_i[i] == f(scene[p0]))]
+            cpos = {i: j for j, i in enumerate(cand)}
+            smp = sampled[np.ix_(rows, cand)] if cand else \
+                np.zeros((n, 0), bool)
+            start = np.concatenate([[0], np.cumsum(smp.sum(1))])
+            met["tiles"] += 1
+            met["empty_tiles"] += start[n] == 0
+            r0 = 0
+            while r0 < n:
+                r1 = n
+                if start[n] - start[r0] > lcap:
+                    r1 = r0 + 1
+                    while r1 < n and start[r1 + 1] - start[r0] <= lcap:
+                        r1 += 1
+                met["windows"] += 1
+                base = start[r0]
+                ent = [(r, i) for r in range(r0, r1) for i in cand
+                       if sampled[p0 + r, i]]
+                assert len(ent) == start[r1] - base <= lcap
+                terms = [(bce[p0 + r, i], pred[p0 + r, i]) for r, i in ent]
+                met["bounds"] += sum(
+                    s_raw[p0 + r, i] in (f(bce_loss.S_LO), f(bce_loss.S_HI))
+                    for r, i in ent)
+                for i in cand:  # one warp per instance
+                    j = cpos[i]
+                    for wd in range(r0 // 32, -(-r1 // 32)):
+                        bits = [0, 0, 0]   # sampled, predicted, member
+                        for lane in range(32):
+                            r = wd * 32 + lane
+                            if not (r0 <= r < r1 and smp[r, j]):
+                                continue
+                            q = start[r] - base + int(smp[r, :j].sum())
+                            assert ent[q] == (r, i)
+                            lanes[i, lane] += terms[q][0]
+                            bits[0] += 1
+                            bits[1] += terms[q][1] and seg[p0 + r] == i
+                            bits[2] += terms[q][1] and seg[p0 + r] != i
+                            counts[3, i] += seg[p0 + r] == i
+                        counts[:3, i] += bits
+                r0 = r1
+        part = np.stack([np.array([_tree32(lanes[i]) for i in range(I)], f),
+                         *counts.astype(f)])
+        out += part
+    return out, met
+
+
+def _jax_fwd(e, rx4, x4, seg, scene, mu, mp4, cons):
+    """The JAX package's `_bce_sums` (interpret mode) [5, I], with P padded
+    to its 128-row blocks by points that no instance samples."""
+    P = e.shape[0]
+    n = -(-P // 128) * 128 - P
+
+    def pad(a, v):
+        return np.concatenate([a, np.full((n,) + a.shape[1:], v, a.dtype)])
+    sig_sq = np.stack([cons[bce_loss.SIG0], cons[bce_loss.SIG1]], 1)
+    out = jax_bce._bce_sums(
+        jnp.asarray(pad(e, 0)), jnp.asarray(_pad(pad(rx4, 0), 8)),
+        jnp.asarray(sig_sq), jnp.asarray(mu), jnp.asarray(_pad(mp4, 8)),
+        jnp.asarray(_pad(pad(x4, 1e3), 8)), jnp.asarray(pad(seg, -1)[:, None]),
+        jnp.asarray(pad(scene.astype(np.float32), -5.0)[:, None]),
+        jnp.asarray(cons), True)
+    return np.asarray(out)[:5]
+
+
+@pytest.mark.parametrize("scenes", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(512, 16, 16), (300, 16, 16),
+                                   (512, 4, 16), (512, 128, 64)])
+def test_forward_pair_list_replay(shape, scenes):
+    """The new forward's list, windows and fixed-order per-instance sums
+    replayed in NumPy equal the plain version and the JAX package's
+    `_bce_sums` (interpret mode): the counts exactly, bce_sum within 1e-5
+    of its max; a tile with no sampled pair, pairs on the clip bounds and,
+    at I=128, tiles whose list needs several windows included."""
+    P, I, E = shape
+    arrs = _listed_inputs(P, I, E, scenes, seed=P + I + scenes + 1,
+                          geometry=bce_loss.fwd_geometry, dense=I > 16)
+    e, rx4, x4, seg, scene, mu, mp4, cons, _ = arrs
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs[:8]]
+    cons = cons.copy()
+    cons[bce_loss.R16] = 16.0 * bce_loss.radius_sq_plain(
+        t[2], t[3], t[6], t[7][bce_loss.MP_SQ]).numpy()
+    t[7] = torch.from_numpy(cons)
+    got, met = _replay_fwd(e, rx4, x4, seg, scene, mu, mp4, cons)
+    assert met["empty_tiles"] >= 1
+    assert met["bounds"] >= (2 if I > 1 else 1)
+    if I > 16:  # 16 entries a point fit any tile of I <= 16
+        assert met["windows"] > met["tiles"]
+    plain = bce_loss.bce_sums_plain(*t).numpy()
+    ref_j = _jax_fwd(e, rx4, x4, seg, scene, mu, mp4, cons)
+    assert plain[1].sum() > 0 and plain[4].sum() > 0
+    for want in (plain, ref_j):
+        np.testing.assert_array_equal(got[1:], want[1:])
+        np.testing.assert_allclose(got[0], want[0], rtol=0,
+                                   atol=1e-5 * np.abs(want[0]).max())

@@ -13,10 +13,13 @@ all-pad chunks and offsets whose 16-row fragments miss entirely, the widest
 U (a tier-1.7 transpose plan), a coarse level of a few chunks (the
 forward's split steps), the weight-gradient kernel's runs on both routes
 (one chunk, all-pad chunks, Cin 640, U=1312 for dW; both results
-bitwise repeatable), both backward routes through autograd, the BCE
-kernels from I=1 to 128 (a P that is not a multiple of their tiles, a
-backward whose tiles overflow the pair list, the backward's bits
-repeated) and the wrappers' input checks; and, small, what the training
+bitwise repeatable), both backward routes through autograd, the segment
+sum at both block sizes bit for bit against its slot-order replay
+(`tests/segsum_replay.py`), the BCE kernels from I=1 to 128 (a P that is
+not a multiple of their tiles, all points invalid, a forward and a
+backward whose tiles overflow the pair list, both repeated bit for bit,
+their shared-memory plan against the device's) and the wrappers' input
+checks; and, small, what the training
 CLI's path gives the kernels: the chunk plans of a blocked two-scene
 plan, and a plan uploaded from page-locked memory.
 """
@@ -491,6 +494,49 @@ def test_segment_sum_matches_plain(dev, plan):
     _check(out, ref, TOL[torch.float32])
 
 
+def _segsum_replay():
+    """`tests/segsum_replay.py`, loaded from its path (a card's machine may
+    have another package named `tests` on its path)."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "segsum_replay", os.path.join(os.path.dirname(__file__),
+                                      "segsum_replay.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("C", [1, 3, 4, 64, 65, 67, 68])
+def test_segment_sum_replays_slot_order(dev, plan, C):
+    """The kernel (128 threads a voxel block for C <= 8, else 256; C=67
+    and 68 staged in two column chunks, by 4- and 16-byte copies) equals
+    the NumPy replay of its slot-order sums bit for bit, on layouts with a
+    run of 70 points, a block of pads only, ids >= W and a tail that must
+    not be read (R=248, and R=250, whose blocks are not 16-byte aligned),
+    and on the scene's own layout (W=192, R=248); two launches give the
+    same bits."""
+    replay_mod = _segsum_replay()
+    layout, replay = replay_mod.layout, replay_mod.replay
+    rng = np.random.default_rng(C)
+    cases = [(layout(B, R, W, seed=C + R)[0], B * W)
+             for B, R, W in ((6, 248, 192), (5, 250, 190))]
+    for vox_seg, num_out in cases + [(plan.vox_seg, plan.levels[0].cap)]:
+        rows = vox_seg.shape[0] * vox_seg.shape[2]
+        x = rng.standard_normal((rows + 40, C)).astype(np.float32)
+        x[rows:] = 1e6
+        want, _ = replay(x, vox_seg, num_out)
+        xd = torch.from_numpy(x).to(dev)
+        vd = torch.from_numpy(vox_seg).to(dev)
+        before = segsum.blocked_segment_sum.launches
+        out = segsum.blocked_segment_sum(xd, vd, num_out)
+        again = segsum.blocked_segment_sum(xd, vd, num_out)
+        torch.cuda.synchronize()
+        assert segsum.blocked_segment_sum.launches == before + 2
+        assert torch.equal(out.cpu(), torch.from_numpy(want))
+        assert torch.equal(out, again)
+
+
 # The BCE kernels (TPU rows #6-#8) on `bce_loss.exact_inputs`: every pair
 # decision is exact in f32, so the counts must match exactly; the bce and
 # gradient sums differ by f32 summation order over up to P terms and by
@@ -564,6 +610,76 @@ def test_bce_backward_dense_tiles_match_plain(dev):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         _check(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("P,I,E", [(4100, 128, 64), (3001, 100, 128),
+                                   (1000, 1, 16)])
+def test_bce_forward_is_deterministic(dev, P, I, E):
+    """The forward's sums have a fixed order (lanes, a fixed tree, block
+    order): two launches give the same bits."""
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    e, rx4, x4, seg, scene, mu, mp4, cons, _ = bce_loss.exact_inputs(
+        P, I, E, seed=P + 1, device=dev)
+    cons = bce_loss.with_radius(x4, seg, mp4, cons)
+    args = (e, rx4, x4, seg, scene, mu, mp4, cons)
+    a = bce_loss.bce_sums(*args)
+    b = bce_loss.bce_sums(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a[1:], bce_loss.bce_sums_plain(*args)[1:])
+
+
+def test_bce_forward_dense_tiles_match_plain(dev):
+    """Every pair sampled: the forward's pair list overflows its capacity
+    and is walked in several windows; the counts stay exact."""
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    P, I, E = 2000, 100, 64
+    e, rx4, x4, seg, scene, mu, mp4, cons, _ = bce_loss.exact_inputs(
+        P, I, E, seed=6, device=dev)
+    cons = cons.clone()
+    cons[bce_loss.R16] = 4096.0
+    cons[bce_loss.SCENE] = 0.0
+    cons[bce_loss.USE] = 1.0
+    scene = torch.zeros_like(scene)
+    args = (e, rx4, x4, seg, scene, mu, mp4, cons)
+    _, _, pt, lcap = bce_loss.fwd_geometry(P, I, E, 132)
+    assert pt * I > lcap
+    out = bce_loss.bce_sums(*args)
+    ref = bce_loss.bce_sums_plain(*args)
+    torch.cuda.synchronize()
+    assert ref[1].sum() == P * I
+    assert torch.equal(out[1:], ref[1:])
+    _check(out[0], ref[0], 1e-5)
+
+
+def test_bce_forward_all_points_invalid(dev):
+    """No point belongs to an instance: every radius is 0, no pair is
+    sampled, and every sum is exactly 0."""
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    P, I, E = 1500, 64, 64
+    e, rx4, x4, seg, scene, mu, mp4, cons, _ = bce_loss.exact_inputs(
+        P, I, E, seed=8, device=dev)
+    seg = torch.full_like(seg, -1)
+    cons = bce_loss.with_radius(x4, seg, mp4, cons)
+    args = (e, rx4, x4, seg, scene, mu, mp4, cons)
+    out = bce_loss.bce_sums(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bce_loss.bce_sums_plain(*args))
+    assert not out.any()
+
+
+@pytest.mark.parametrize("I,E", [(1, 16), (40, 136), (128, 64), (128, 128)])
+def test_bce_list_smem_matches_device(dev, I, E):
+    """The host's plan of the pair-list kernels' shared memory
+    (`bce_loss.list_smem_bytes`) equals the device code's `ListSmem`, for
+    the forward and the backward at each tile."""
+    from occuseg_tpu_torch.ops import kernels
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    lib = kernels.load()
+    for pt in bce_loss.LIST_TILES:
+        for bwd in (False, True):
+            assert lib.occ_bce_list_smem(I, E, pt, 16 * pt, int(bwd)) == \
+                bce_loss.list_smem_bytes(pt, I, E, 16 * pt, bwd)
 
 
 def test_bce_membership_sums_gradients_match_plain(dev):
