@@ -18,13 +18,16 @@ and no network. Phases (any failure exits non-zero):
    plan plus the forward kernel on the transpose plan), each checked and
    timed, the route the step takes marked; the segment sum at the
    InputLayer shape [262144, 3] and the OutputLayer backward's
-   [262144, 64]; the gather conv at levels L3-L5 beside the chunk conv;
-   the BCE kernels (radius, sums, backward) at the training CLI's shape
-   (P=262144, I=128, E=64) and the bench scene's (I=64), beside the
-   port's chain of calls for the same loss. The dW kernel, the segment
-   sum and the BCE forward and backward are launched again and must give
-   the same bits; the segment sum and its `index_add` are also timed
-   inside a CUDA graph (no host cost per launch).
+   [262144, 64]; the gather conv at levels L3-L5 beside the chunk conv
+   (both also timed inside a CUDA graph); the BCE radius at P=262144,
+   I=128 and 64, on random ids and on the CLI's runs of one instance
+   (back to back and in a CUDA graph); the BCE sums and backward at the
+   training CLI's shape (P=262144, I=128, E=64) and the bench scene's
+   (I=64), beside the port's chain of calls for the same loss. The dW
+   kernel, the segment sum, the BCE radius, sums and backward and the
+   gather conv are launched again and must give the same bits; the
+   segment sum and its `index_add` are also timed inside a CUDA graph
+   (no host cost per launch).
 2. parity: a mid-size scene (20k points) through the full-width model in
    f32 on the card (kernels) and on the CPU (plain versions): the 7
    outputs of an eval forward, then one training step's loss parts,
@@ -506,6 +509,7 @@ def phase_kernels(dev):
                 C=C, ms=ms, graph_ms=gms, plain_ms=pms, library_ms=lms,
                 library_graph_ms=glms, bound_ms=bnd, max_abs_err=err))
     phase_kernels_gather(dev, tot, plan)
+    phase_kernels_radius(dev, tot)
     tot.chain_ms = phase_kernels_bce(dev, tot)
     r = tot.rows
     print(f"[kernels] routes at the bench shapes: {n_route['#3']} fused "
@@ -541,8 +545,62 @@ def bce_flops(n_pairs: int, n_sampled: int, n_grad: int, E: int,
     return f + (4.0 * E + 8.0) * n_grad if backward else f
 
 
+def phase_kernels_radius(dev, tot):
+    """TPU row #6 at the CLI's shape (P=262144) at I=128 and the bench
+    scene's I=64, on `exact_inputs` (every distance exact in f32, so the
+    kernel must equal its plain version bit for bit) with two seg layouts:
+    every point's id drawn at random, and the CLI's runs of one instance
+    (`bce_loss.cli_seg`). Timed back to back (the host's launch cost
+    included) and inside a CUDA graph (without it); launched twice."""
+    from occuseg_tpu_torch.ops.kernels import bce_loss as bl
+    from occuseg_tpu_torch.tools.ab_kernels import graph_ms
+    tot.radius_cases = []
+    for I in (CLI_I, BENCH_INSTANCES):
+        for layout in ("random", "runs"):
+            seg_np = bl.cli_seg(CLI_P, I, seed=I) if layout == "runs" \
+                else None
+            _, _, x4, seg, _, _, mp4, cons, _ = bl.exact_inputs(
+                CLI_P, I, 4, seed=I, device=dev, seg=seg_np)
+            mp_sq = cons[bl.MP_SQ].clone()
+            lens, n_none = bl.run_lengths(seg.cpu().numpy())
+            with torch.no_grad():
+                r = bl.radius_sq(x4, seg, mp4, mp_sq)
+                check(torch.equal(r, bl.radius_sq_plain(x4, seg, mp4,
+                                                        mp_sq)),
+                      f"bce radius I={I} {layout}: differs from the plain "
+                      f"version")
+                check(torch.equal(r, bl.radius_sq(x4, seg, mp4, mp_sq)),
+                      f"bce radius I={I} {layout}: a second launch gave "
+                      f"other bits")
+
+                def kernel():
+                    bl.radius_sq(x4, seg, mp4, mp_sq)
+                ms, gms = cuda_ms(kernel, 20), graph_ms(kernel, 20)
+                pms = cuda_ms(lambda: bl.radius_sq_plain(x4, seg, mp4,
+                                                         mp_sq), 3)
+            by = nbytes(x4, seg, mp4, mp_sq, r)
+            bnd = bound_ms(8.0 * CLI_P, by, PEAK_F32)[0]
+            g_txt = "not measured" if gms is None else f"{gms:.4f}"
+            print(f"[kernels] bce radius P={CLI_P} I={I} seg {layout}: "
+                  f"{len(lens)} runs of one instance (length mean "
+                  f"{lens.mean() if len(lens) else 0:.1f}, max "
+                  f"{lens.max(initial=0)}), {n_none} points without one; "
+                  f"equal to the plain version and repeated bit for bit; "
+                  f"kernel {ms:.4f} ms, in a CUDA graph {g_txt} ms, plain "
+                  f"{pms:.4f} ms, bound {bnd:.4f} ms")
+            tot.radius_cases.append(dict(I=I, seg=layout, ms=ms,
+                                         graph_ms=gms, plain_ms=pms,
+                                         bound_ms=bnd,
+                                         mean_run=float(lens.mean())
+                                         if len(lens) else 0.0))
+            if I == CLI_I and layout == "runs":  # the CLI's path
+                tot.add("bce_radius", ms, pms, 0.0, 8.0 * CLI_P, by,
+                        PEAK_F32)
+            del x4, seg, mp4, cons, r
+
+
 def phase_kernels_bce(dev, tot):
-    """TPU rows #6-#8 at the CLI's shape (I=128) and the bench scene's
+    """TPU rows #7-#8 at the CLI's shape (I=128) and the bench scene's
     (I=64) on `exact_inputs` (every pair decision exact in f32, so the
     counts must match exactly), against their plain versions; beside them
     the port's chain (`classification_loss` with the switch off) forward
@@ -555,11 +613,7 @@ def phase_kernels_bce(dev, tot):
         P, E = CLI_P, EMB
         e, rx4, x4, seg, scene, mu, mp4, cons, g = bl.exact_inputs(
             P, I, E, seed=I, device=dev)
-        mp_sq = cons[bl.MP_SQ].contiguous()
         with torch.no_grad():
-            r = bl.radius_sq(x4, seg, mp4, mp_sq)
-            check(torch.equal(r, bl.radius_sq_plain(x4, seg, mp4, mp_sq)),
-                  f"bce radius I={I}: differs from the plain version")
             cons = bl.with_radius(x4, seg, mp4, cons)
             args = (e, rx4, x4, seg, scene, mu, mp4, cons)
             out = bl.bce_sums(*args)
@@ -588,8 +642,6 @@ def phase_kernels_bce(dev, tot):
                   f"two launches the same bits")
             del got, want
             reps = 10
-            ms6 = cuda_ms(lambda: bl.radius_sq(x4, seg, mp4, mp_sq), reps)
-            pms6 = cuda_ms(lambda: bl.radius_sq_plain(x4, seg, mp4, mp_sq), 3)
             ms7 = cuda_ms(lambda: bl.bce_sums(*args), reps)
             pms7 = cuda_ms(lambda: bl.bce_sums_plain(*args), 3)
             ms8 = cuda_ms(lambda: bl.bce_sums_bwd(*args, g), reps)
@@ -621,22 +673,19 @@ def phase_kernels_bce(dev, tot):
         cf = cuda_ms(chain_fwd, 3)
         cfb = cuda_ms(chain_fwd_bwd, 3)
         chain[I] = (cf, cfb)
-        by = nbytes(x4, seg, mp4, mp_sq, r)
         bf = nbytes(*args, out)
         bb = nbytes(*args, g) + nbytes(e, rx4) + I * E * 4 + I * 8
         f7 = bce_flops(P * I, n_samp, 0, E, False)
         f8 = bce_flops(P * I, n_samp, n_grad, E, True)
         print(f"[kernels] bce P={P} I={I} E={E}: {n_samp} sampled pairs, "
-              f"{n_grad} with a gradient; radius {ms6:.4f} ms (plain "
-              f"{pms6:.4f}), forward {ms7:.4f} ms (plain {pms7:.4f}, "
+              f"{n_grad} with a gradient; forward {ms7:.4f} ms (plain "
+              f"{pms7:.4f}, "
               f"max_abs_err {e7:.3e}), backward {ms8:.4f} ms (plain "
               f"{pms8:.4f}, max_abs_err {e8:.3e} of {e8_of}); chain forward "
               f"{cf:.4f} ms, forward+backward {cfb:.4f} ms; bounds "
-              f"{bound_ms(8.0 * P, by, PEAK_F32)[0]:.4f} / "
               f"{bound_ms(f7, bf, PEAK_F32)[0]:.4f} / "
               f"{bound_ms(f8, bb, PEAK_F32)[0]:.4f} ms")
         if I == CLI_I:  # the CLI's path: once each per step
-            tot.add("bce_radius", ms6, pms6, 0.0, 8.0 * P, by, PEAK_F32)
             tot.add("bce_fwd", ms7, pms7, e7, f7, bf, PEAK_F32)
             tot.add("bce_bwd", ms8, pms8, e8, f8, bb, PEAK_F32)
             tot.bce_bwd_err_of = e8_of
@@ -647,41 +696,73 @@ def phase_kernels_bce(dev, tot):
 
 def phase_kernels_gather(dev, tot, plan):
     """TPU row #9 at levels L3-L5 of the bench plan at their widths,
-    against its plain version, beside the chunk-conv forward (#1) of the
-    same level, width and weights."""
+    against its plain version and the chunk-conv forward (#1) of the same
+    level, width and weights, both timed back to back and inside a CUDA
+    graph; launched twice. The level's pad rows (past num_active) must
+    have no neighbour: the kernel skips every (128-row tile, offset) whose
+    ids are all -1, counted here from the plan."""
+    import numpy as np
     from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
     from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    from occuseg_tpu_torch.tools.ab_kernels import graph_ms
     gen = torch.Generator().manual_seed(9)
+    tot.gather_levels = []
     with torch.inference_mode():
         for lv in (3, 4, 5):
             level = plan.levels[lv]
             C = N_PLANES[lv]
-            nbr_kn = torch.from_numpy(level.nbr.T.copy()).to(dev)
-            N = nbr_kn.shape[1]
+            nbr = np.asarray(level.nbr)
+            N, K = nbr.shape
+            na = int(level.num_active)
+            check(bool((nbr[na:] < 0).all()),
+                  f"gather_conv L{lv}: pad rows past {na} have neighbours")
+            tiles = -(-N // gc.TILE)
+            ids = np.full((tiles * gc.TILE, K), -1)
+            ids[:N] = nbr
+            live = (ids.reshape(tiles, gc.TILE, K) >= 0).any(1)
+            nt, splits = gc.geometry(N, C, C, K,
+                                     cc._sm_count(dev.index or 0))
+            nbr_kn = torch.from_numpy(nbr.T.copy()).to(dev)
             x = torch.randn(N, C, generator=gen)
-            x[level.num_active:] = 0
+            x[na:] = 0
             xd = x.to(dev, torch.bfloat16)
             w = (torch.randn(27, C, C, generator=gen) * (2 / (27 * C)) ** .5
                  ).to(dev, torch.bfloat16)
+            fi, fl = level.chunks.in_idx, level.chunks.lidx
             out = gc.gather_conv(xd, nbr_kn, w)
             ref = gc.gather_conv_plain(xd, nbr_kn, w)
             err, scale = check_close(f"gather_conv L{lv}", out, ref, BF16_TOL)
-            ref_cc = cc.chunk_conv(xd, level.chunks.in_idx, level.chunks.lidx,
-                                   w)
-            check_close(f"gather_conv L{lv} vs chunk_conv", out, ref_cc,
-                        BF16_TOL)
-            ms = cuda_ms(lambda: gc.gather_conv(xd, nbr_kn, w), 20)
+            check_close(f"gather_conv L{lv} vs chunk_conv", out,
+                        cc.chunk_conv(xd, fi, fl, w), BF16_TOL)
+            check(torch.equal(out, gc.gather_conv(xd, nbr_kn, w)),
+                  f"gather_conv L{lv}: a second launch gave other bits")
+
+            def kernel():
+                gc.gather_conv(xd, nbr_kn, w)
+
+            def chunk():
+                cc.chunk_conv(xd, fi, fl, w)
+            ms, gms = cuda_ms(kernel, 20), graph_ms(kernel, 20)
+            cms, cgms = cuda_ms(chunk, 20), graph_ms(chunk, 20)
             pms = cuda_ms(lambda: gc.gather_conv_plain(xd, nbr_kn, w), 3)
-            cms = cuda_ms(lambda: cc.chunk_conv(xd, level.chunks.in_idx,
-                                                level.chunks.lidx, w), 20)
             nnz = int((nbr_kn >= 0).sum())
             flops = 2.0 * nnz * C * C
             nb = nbytes(xd, nbr_kn, w, out)
-            print(f"[kernels] gather_conv L{lv} N={N} C={C}: max_abs_err "
-                  f"{err:.3e} (max|out| {scale:.3e}), kernel {ms:.4f} ms, "
-                  f"plain {pms:.4f} ms, chunk_conv (#1) {cms:.4f} ms, bound "
-                  f"{bound_ms(flops, nb)[0]:.4f} ms")
+            bnd = bound_ms(flops, nb)[0]
+            fmt = (lambda v: "not measured" if v is None else f"{v:.4f}")
+            print(f"[kernels] gather_conv L{lv} N={N} ({na} active) C={C} "
+                  f"tile {nt} columns, {splits} split(s): {int(live.sum())} "
+                  f"of {live.size} (tile, offset) pairs live, "
+                  f"{live.size - int(live.sum())} skipped; max_abs_err "
+                  f"{err:.3e} (max|out| {scale:.3e}), two launches the "
+                  f"same bits; kernel {ms:.4f} ms (graph {fmt(gms)}), "
+                  f"chunk_conv (#1) {cms:.4f} ms (graph {fmt(cgms)}), plain "
+                  f"{pms:.4f} ms, bound {bnd:.4f} ms")
             tot.add("gather_conv", ms, pms, err, flops, nb)
+            tot.gather_levels.append(dict(
+                level=lv, N=N, C=C, ms=ms, graph_ms=gms, chunk_conv_ms=cms,
+                chunk_conv_graph_ms=cgms, bound_ms=bnd,
+                skipped=live.size - int(live.sum()), pairs=live.size))
 
 
 def _mid_scene():
@@ -1368,7 +1449,7 @@ def main() -> int:
         # the training CLI's path: once each per step; beside them the
         # port's [P, I] chain, forward and backward (not a library call)
         entry("bce_radius", "bce_radius", "bce_loss.cu", "bce_loss.py:227",
-              loop_launches["bce_radius"]),
+              loop_launches["bce_radius"], cases=tot.radius_cases),
         entry("bce_fwd", "bce_fwd", "bce_loss.cu", "bce_loss.py:258",
               loop_launches["bce_fwd"], chain_ms=tot.chain_ms[0]),
         entry("bce_bwd", "bce_bwd", "bce_loss.cu", "bce_loss.py:289",
@@ -1376,7 +1457,8 @@ def main() -> int:
               chain_ms=tot.chain_ms[1] - tot.chain_ms[0]),
         # no caller in either package: L3-L5 of the bench plan, summed
         entry("gather_conv", "gather_conv", "gather_conv.cu",
-              "gather_conv.py:112", loop_launches["gather_conv"]),
+              "gather_conv.py:112", loop_launches["gather_conv"],
+              levels=tot.gather_levels),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,11 +32,29 @@
 // tiles, ~93% of them on zeros; 2.16 ms) were latency-bound that way.
 //
 // Design:
-//  * radius: grid-stride over points; each point meets only its own
-//    instance; the max is taken with atomicMax on the float's bits (the
-//    values are non-negative, so the bit order is the value order), first in
-//    shared memory, then once per block and instance in device memory:
-//    exact and deterministic.
+//  * radius: the max is taken on the float's bits (the values are
+//    non-negative, so the bit order is the value order): exact in any
+//    order. One launch writes every output word (0 for an instance with no
+//    point), so the wrapper allocates with torch.empty and no memset runs.
+//    A thread reads four points (one int4 of ids, four float4 of x, its
+//    next four already in flight) and folds equal neighbouring ids; each
+//    of its four slots then takes one warp-wide round in which every run
+//    of one id over consecutive lanes reaches shared memory with one
+//    atomicMax (a segmented max by shuffles; one reduction where the warp
+//    holds one id). The CLI's points come as runs of one instance, so most
+//    of its warps take one atomic per 128 points. Grouping the lanes with
+//    __match_any_sync instead measured 1.9x slower on random ids, where a
+//    warp holds ~28 ids (`tools/conv_variants.py` radius_match_any). The
+//    P % 4 last points take one more round in warp 0 of block 0. Across
+//    blocks, the blocks take their maxima into a device scratch [I] with
+//    global atomics and count themselves on a device counter: the last to
+//    finish moves the scratch into the output, zeroing it, and sets the
+//    counter back to 0 for the next launch. (One thread-block cluster of
+//    16 blocks combining its shared words through distributed shared
+//    memory measured 2.3-2.7x slower: it reads the points with 16 SMs.)
+//    What bounds it on the H100 is latency: the points' 5 MB take ~1.5 us
+//    at full bandwidth, and the last block's fence, count and exchange
+//    add ~1.2 us (`tools/conv_variants.py` radius_no_chain) to ~3.6 us.
 //  * the pair list, shared by the forward and the backward: one block per
 //    range of points (ranges are fixed by P and the SM count, so a card
 //    always sums in the same order), 512 threads, in tiles of 32-128
@@ -78,7 +96,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;     // radius and partial sums
+constexpr int kThreads = 256;     // partial sums
+constexpr int kRadiusThreads = 256;  // the radius kernel's blocks
 constexpr int kMaxI = 128;        // instances
 constexpr int kListThreads = 512; // the pair-list kernels: 16 warps
 constexpr int kListWarps = kListThreads / 32;
@@ -111,26 +130,146 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One warp-wide round of the radius max: each run of one valid id over
+// consecutive lanes takes its max of `bits` (a segmented scan by
+// shuffles) and puts it into r_s[id] with one shared atomicMax from its
+// last lane. A warp of one id reduces with one instruction; a warp whose
+// lanes all differ from their neighbours takes one atomic a lane.
+__device__ __forceinline__ void radius_round(unsigned* r_s, int id,
+                                             unsigned bits, int lane) {
+  if (!__any_sync(kFull, id >= 0)) return;  // uniform over the warp
+  const int prev = __shfl_up_sync(kFull, id, 1);
+  const unsigned starts = __ballot_sync(kFull, lane == 0 || prev != id);
+  if (starts == 1u) {  // one run: every lane holds the same valid id
+    const unsigned m = __reduce_max_sync(kFull, bits);
+    if (lane == 0) atomicMax(r_s + id, m);
+    return;
+  }
+  if (starts != kFull) {
+    const int head = 31 - __clz(starts & (kFull >> (31 - lane)));
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned up = __shfl_up_sync(kFull, bits, d);
+      if (lane - d >= head) bits = max(bits, up);
+    }
+  }
+  const int next = __shfl_down_sync(kFull, id, 1);
+  if (id >= 0 && (lane == 31 || next != id)) atomicMax(r_s + id, bits);
+}
+
+// A thread's 4 consecutive points (one int4 of ids, four float4 of x);
+// ids out of range, and every id of a vector past P / 4, are -1.
+struct Quad {
+  int id[4];
+  float4 x[4];
+};
+
+__device__ __forceinline__ Quad radius_load(const float4* __restrict__ x4,
+                                            const int32_t* __restrict__ seg,
+                                            int v, int P4, int I) {
+  Quad q;
+  int4 s4 = make_int4(-1, -1, -1, -1);
+  if (v < P4) s4 = reinterpret_cast<const int4*>(seg)[v];
+  q.id[0] = s4.x;
+  q.id[1] = s4.y;
+  q.id[2] = s4.z;
+  q.id[3] = s4.w;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (static_cast<unsigned>(q.id[j]) >= static_cast<unsigned>(I))
+      q.id[j] = -1;
+    q.x[j] = v < P4 ? x4[4 * v + j] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  return q;
+}
+
+// |x|^2 + |mp_i|^2 - 2 x.mp_i clamped at 0 (the plain version's
+// formulation), as bits.
+__device__ __forceinline__ unsigned radius_bits(float4 x, const float4* mp_s,
+                                                const float* mp_sq_s, int i) {
+  return __float_as_uint(
+      fmaxf(dot4(x, x) + mp_sq_s[i] - 2.0f * dot4(x, mp_s[i]), 0.0f));
+}
+
+// The quad into r_s: a run inside the thread reaches the warp once, from
+// its last slot; then one round a slot.
+__device__ __forceinline__ void radius_take(const Quad& q, const float4* mp_s,
+                                            const float* mp_sq_s,
+                                            unsigned* r_s, int lane) {
+  int id[4];
+  unsigned bits[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    id[j] = q.id[j];
+    bits[j] = id[j] >= 0 ? radius_bits(q.x[j], mp_s, mp_sq_s, id[j]) : 0u;
+  }
+#pragma unroll
+  for (int j = 1; j < 4; ++j)
+    if (id[j] == id[j - 1]) {
+      bits[j] = max(bits[j], bits[j - 1]);
+      id[j - 1] = -1;
+    }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) radius_round(r_s, id[j], bits[j], lane);
+}
+
+// The P / 4 vectors are dealt to warps grid-stride, 32 consecutive vectors
+// a warp, so every lane of a warp runs the same iterations; each thread's
+// next vector is loaded while it takes the current one, and its first
+// before the block stages mp and mp_sq in shared memory. The P % 4 last
+// points take one more round in warp 0 of block 0. The block's maxima
+// (r_s) then go into scratch [I] with global atomics, and the block counts
+// itself on `counter`; the last block moves scratch into the output,
+// zeroing it, and resets the counter. Both are 0 before a launch and
+// after it.
+__global__ void __launch_bounds__(kRadiusThreads)
 radius_kernel(const float4* __restrict__ x4, const int32_t* __restrict__ seg,
               int P, const float4* __restrict__ mp4,
-              const float* __restrict__ mp_sq, int I,
-              unsigned* __restrict__ r_bits) {
+              const float* __restrict__ mp_sq, int I, unsigned* scratch,
+              unsigned* counter, unsigned* __restrict__ r_bits) {
+  __shared__ float4 mp_s[kMaxI];
+  __shared__ float mp_sq_s[kMaxI];
   __shared__ unsigned r_s[kMaxI];
-  for (int i = threadIdx.x; i < I; i += kThreads) r_s[i] = 0u;
-  __syncthreads();
-  for (int p = blockIdx.x * kThreads + threadIdx.x; p < P;
-       p += gridDim.x * kThreads) {
-    const int i = seg[p];
-    if (i < 0 || i >= I) continue;
-    const float4 x = x4[p];
-    const float sq =
-        fmaxf(dot4(x, x) + mp_sq[i] - 2.0f * dot4(x, mp4[i]), 0.0f);
-    atomicMax(&r_s[i], __float_as_uint(sq));
+  __shared__ bool last;
+  const int t = threadIdx.x, lane = t % 32;
+  const int warps = kRadiusThreads / 32;
+  const int stride = gridDim.x * warps * 32;
+  const int P4 = P / 4;
+  int base = (blockIdx.x * warps + t / 32) * 32;
+  Quad q = radius_load(x4, seg, base + lane, P4, I);
+  for (int i = t; i < I; i += kRadiusThreads) {
+    mp_s[i] = mp4[i];
+    mp_sq_s[i] = mp_sq[i];
+    r_s[i] = 0u;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < I; i += kThreads)
-    if (r_s[i]) atomicMax(&r_bits[i], r_s[i]);
+  for (; base < P4; base += stride) {
+    const Quad next = radius_load(x4, seg, base + stride + lane, P4, I);
+    radius_take(q, mp_s, mp_sq_s, r_s, lane);
+    q = next;
+  }
+  if (blockIdx.x == 0 && t < 32) {  // the last P % 4 points
+    const int p = 4 * P4 + lane;
+    int id = p < P ? seg[p] : -1;
+    unsigned bits = 0u;
+    if (static_cast<unsigned>(id) >= static_cast<unsigned>(I))
+      id = -1;
+    else
+      bits = radius_bits(x4[p], mp_s, mp_sq_s, id);
+    radius_round(r_s, id, bits, lane);
+  }
+  __syncthreads();
+  for (int i = t; i < I; i += kRadiusThreads)
+    if (r_s[i]) atomicMax(scratch + i, r_s[i]);
+  __threadfence();  // this block's maxima land before its count
+  __syncthreads();
+  if (t == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = t; i < I; i += kRadiusThreads)
+    r_bits[i] = atomicExch(scratch + i, 0u);
+  if (t == 0) *counter = 0u;
 }
 
 // ---- the pair list, shared by the forward and the backward ----
@@ -721,16 +860,21 @@ int check_list(int E, int pt, int lcap, size_t smem) {
 
 extern "C" {
 
-// r_bits [I] (zeroed by the caller; read back as f32) = per-instance max
-// squared distance of its own points (seg == i) to mp_i. x4 [P, 4],
-// mp4 [I, 4], mp_sq [I] f32, seg [P] int32. Returns a cudaError_t.
+// r_bits [I] (read back as f32) = per-instance max squared distance of
+// its own points (seg == i) to mp_i, every word written. x4 [P, 4],
+// mp4 [I, 4], mp_sq [I] f32, seg [P] int32; n_blocks blocks; scratch
+// [>= I] and counter are zero before the launch and after it. Returns a
+// cudaError_t, or -3 when I exceeds 128.
 int occ_bce_radius(const void* x4, const void* seg, int P, const void* mp4,
-                   const void* mp_sq, int I, void* r_bits, int n_blocks,
-                   void* stream) {
+                   const void* mp_sq, int I, void* r_bits, void* scratch,
+                   void* counter, int n_blocks, void* stream) {
   if (I > kMaxI) return -3;
-  radius_kernel<<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (I < 1) return 0;
+  radius_kernel<<<n_blocks, kRadiusThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(x4), static_cast<const int32_t*>(seg), P,
       static_cast<const float4*>(mp4), static_cast<const float*>(mp_sq), I,
+      static_cast<unsigned*>(scratch), static_cast<unsigned*>(counter),
       static_cast<unsigned*>(r_bits));
   return static_cast<int>(cudaGetLastError());
 }

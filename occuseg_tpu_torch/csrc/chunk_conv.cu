@@ -67,8 +67,6 @@
 //    wrapper raises) -- there is no other path;
 //  * a chunk with no referenced row (all cap padding) writes zeros.
 
-#include <cuda.h>  // CUtensorMap (the encoder is looked up at run time)
-
 #include <type_traits>
 
 #include "chunk_conv.cuh"
@@ -80,7 +78,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 8;  // two warpgroups
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;                 // W ring depth
-constexpr int kBox = 128;                  // bytes per row of a W box
 
 struct FwdArgs {
   const void* feats;
@@ -117,11 +114,6 @@ struct FwdLayout {
     total = off + 1024;  // room to align the base
   }
 };
-
-// Byte offset of 16-byte chunk `c16` of row `r` in a 128-byte-swizzled box.
-__device__ __forceinline__ uint32_t swz(int r, int c16) {
-  return r * kBox + ((c16 ^ (r & 7)) << 4);
-}
 
 // bf16 consumer tile: warpgroup g holds rows g*64..+64 and all NT columns
 // of the block's [128, NT] output as one wgmma accumulator (NT/2 f32 per
@@ -402,28 +394,6 @@ sum_splits_kernel(const float4* __restrict__ part, int S, size_t n4,
       reinterpret_cast<float4*>(out)[i] = v;
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The tensor-map encoder cuTensorMapEncodeTiled, looked up once through
-// the runtime (no link against libcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 template <typename T, int CI_T, int NT>

@@ -1,6 +1,6 @@
-// Device helpers shared by the chunk-convolution kernels (chunk_conv.cu, the
-// forward; chunk_conv_bwd.cu, the backward). Everything is in an anonymous
-// namespace: each translation unit gets its own copy.
+// Device helpers shared by the convolution kernels (chunk_conv.cu, the
+// forward; chunk_conv_bwd.cu, the backward; gather_conv.cu). Everything is
+// in an anonymous namespace: each translation unit gets its own copy.
 //
 // A chunk is M <= 128 consecutive output rows. Its rulebook is in_idx[c, :U]
 // (the sorted distinct input rows it references, -1 pad at the end) and
@@ -12,6 +12,7 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap (the encoder is looked up at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -19,6 +20,7 @@
 namespace {
 
 constexpr int kMaxM = 128;  // output rows per chunk (planner M <= 128)
+constexpr int kBox = 128;   // bytes per row of a 128-byte-swizzled box
 
 __host__ __device__ constexpr size_t align128(size_t n) {
   return (n + 127) / 128 * 128;
@@ -35,8 +37,36 @@ __device__ __forceinline__ void cp_async16(void* smem_dst,
                "l"(gmem_src));
 }
 
+__device__ __forceinline__ void cp_async4(void* smem_dst,
+                                          const void* gmem_src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(smem_dst)),
+               "l"(gmem_src));
+}
+
+// A copy of 16 bytes, of which only the first src_bytes are read:
+// 0 fills the 16 bytes with zeros and reads nothing.
+__device__ __forceinline__ void cp_async16_zfill(void* smem_dst,
+                                                 const void* gmem_src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem_dst)),
+               "l"(gmem_src), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups of this thread's copies are
+// pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- mbarriers and bulk copies (the W ring of the forward kernel) ----
@@ -90,6 +120,24 @@ __device__ __forceinline__ void tma_load_2d(void* smem_dst, const void* tmap,
           smem_u32(smem_dst)),
       "l"(tmap), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
+}
+
+// The same for a 3D tensor map (coordinates c0 innermost).
+__device__ __forceinline__ void tma_load_3d(void* smem_dst, const void* tmap,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_u32(smem_dst)),
+      "l"(tmap), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Byte offset of 16-byte chunk `c16` of row `r` in a 128-byte-swizzled box
+// (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B).
+__device__ __forceinline__ uint32_t swz(int r, int c16) {
+  return r * kBox + ((c16 ^ (r & 7)) << 4);
 }
 
 // ---- 16x16 bf16 fragments from shared memory (the mma.sync A layout) ----
@@ -298,7 +346,29 @@ __device__ __forceinline__ int row_of(int l, int U) {
   return static_cast<unsigned>(l) < static_cast<unsigned>(U) ? l : U;
 }
 
-int max_dynamic_smem() {
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The tensor-map encoder cuTensorMapEncodeTiled, looked up once through
+// the runtime (no link against libcuda); null where the driver lacks it.
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+inline int max_dynamic_smem() {
   int dev = 0, bytes = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);

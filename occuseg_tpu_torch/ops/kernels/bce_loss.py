@@ -26,6 +26,7 @@ the padding is zero and changes no value.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Tuple
 
@@ -145,6 +146,7 @@ def _ranges(P: int, sms: int, tile: int) -> Tuple[int, int]:
     return max(1, -(-P // rng)), rng
 
 
+@functools.lru_cache(maxsize=None)
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -244,10 +246,32 @@ def _check_inputs(e, rx4, x4, seg, scene, mu, mp4, cons):
     return P, E, I
 
 
+RADIUS_THREADS = 256  # threads per block of the radius kernel's grid
+
+
+def radius_blocks(P: int, sms: int) -> int:
+    """Blocks of the radius kernel's grid: one 4-point vector a thread,
+    at most four blocks per SM (then more vectors a thread)."""
+    return max(1, min(-(-(P // 4) // RADIUS_THREADS), 4 * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _radius_scratch(device: torch.device):
+    """(block counter, per-instance maxima) of the radius kernel's grid on
+    `device`, allocated and zeroed once. The kernel's last block moves the
+    maxima into its output, zeroing them, and sets the counter back to 0,
+    so both are 0 between launches. One pair per device is safe because
+    the port launches on one stream per device: two radius launches never
+    run at once. Launches on two streams of one device would share it."""
+    return (torch.zeros(1, dtype=torch.int32, device=device),
+            torch.zeros(MAX_INSTANCES, dtype=torch.int32, device=device))
+
+
 def radius_sq(x4: torch.Tensor, seg: torch.Tensor, mp4: torch.Tensor,
               mp_sq: torch.Tensor) -> torch.Tensor:
     """[I] f32 per-instance max squared own-point distance (no gradient).
-    x4 [P, 4], seg [P] int32 (-1 = no instance), mp4 [I, 4], mp_sq [I]."""
+    x4 [P, 4], seg [P] int32 (-1 = no instance), mp4 [I, 4], mp_sq [I].
+    One launch writes every word of the output: no memset."""
     if not x4.is_cuda:
         return radius_sq_plain(x4, seg, mp4, mp_sq)
     P, I = x4.shape[0], mp4.shape[0]
@@ -260,13 +284,15 @@ def radius_sq(x4: torch.Tensor, seg: torch.Tensor, mp4: torch.Tensor,
                         ("mp4", mp4, torch.float32),
                         ("mp_sq", mp_sq, torch.float32)):
         kernels.require_cuda_input(t, name, dt, t.dim())
-    out = torch.zeros(I, dtype=torch.float32, device=x4.device)
-    sms = _sms(x4.device)
-    with torch.cuda.device(x4.device):
+    dev = x4.device
+    out = torch.empty(I, dtype=torch.float32, device=dev)
+    counter, scratch = _radius_scratch(dev)
+    with torch.cuda.device(dev):
         rc = kernels.load().occ_bce_radius(
             x4.data_ptr(), seg.data_ptr(), P, mp4.data_ptr(),
-            mp_sq.data_ptr(), I, out.data_ptr(),
-            max(1, min(-(-P // 256), 4 * sms)), kernels.stream_ptr(x4))
+            mp_sq.data_ptr(), I, out.data_ptr(), scratch.data_ptr(),
+            counter.data_ptr(), radius_blocks(P, _sms(dev)),
+            kernels.stream_ptr(x4))
     kernels.check(rc, "bce radius kernel launch")
     radius_sq.launches += 1
     return out
@@ -340,7 +366,8 @@ def bce_sums_bwd(e, rx4, x4, seg, scene, mu, mp4, cons, gvec):
 bce_sums_bwd.launches = 0  # kernel launches
 
 
-def exact_inputs(P: int, I: int, E: int, seed: int, device="cpu"):
+def exact_inputs(P: int, I: int, E: int, seed: int, device="cpu",
+                 seg=None):
     """Kernel inputs (e, rx4, x4, seg, scene, mu, mp4, cons without the
     radius row, gvec) on whose pairs every squared distance and s_raw is
     exact in f32 whatever the summation order: coordinates are multiples
@@ -348,10 +375,15 @@ def exact_inputs(P: int, I: int, E: int, seed: int, device="cpu"):
     So a kernel and its plain version agree on every sample, member and
     prediction decision, and the counts must match exactly; only the
     transcendental terms and the f32 sums differ in rounding. Call
-    `with_radius` to fill the R16 row."""
+    `with_radius` to fill the R16 row. seg: the points' instance ids [P]
+    (NumPy; -1 none), by default drawn at random for every point (20%
+    none); `cli_seg` gives the training CLI's layout."""
     rng = np.random.default_rng(seed)
-    seg = rng.integers(0, I, P)
-    seg[rng.random(P) < 0.2] = -1
+    if seg is None:
+        seg = rng.integers(0, I, P)
+        seg[rng.random(P) < 0.2] = -1
+    else:
+        seg = np.asarray(seg, np.int64)
     scene = (np.arange(P) * 2 // max(P, 1)).astype(np.int32)
     centers = rng.integers(-16, 17, (I, 3)) / 2.0
     x = centers[np.clip(seg, 0, I - 1)] + rng.integers(-8, 9, (P, 3)) / 8.0
@@ -377,6 +409,27 @@ def exact_inputs(P: int, I: int, E: int, seed: int, device="cpu"):
             t(seg, torch.int32), t(scene, torch.int32), t(mu),
             t(np.hstack([centers, np.zeros((I, 1))])), t(cons),
             t(rng.standard_normal(I)))
+
+
+def cli_seg(P: int, I: int, seed: int) -> np.ndarray:
+    """Instance ids [P] int32 in the training CLI's layout: one blocked
+    batch of 4 synthetic scenes of 20k points (`train.loop`'s stand-in
+    dataset), padded to P. Each object's points are one run of its id,
+    the floor's and walls' points runs of -1, and the pad past the scenes
+    -1."""
+    from occuseg_tpu_torch.data.synthetic import SceneConfig, make_batch
+    return make_batch(SceneConfig(num_points=20_000, extent=256), 4, P, I,
+                      seed=seed)["instance_id"]
+
+
+def run_lengths(seg: np.ndarray):
+    """(lengths of the runs of one instance id >= 0, number of -1
+    points) of a seg layout."""
+    seg = np.asarray(seg)
+    cut = np.flatnonzero(np.diff(seg)) + 1
+    starts = np.concatenate([[0], cut])
+    lens = np.diff(np.concatenate([starts, [seg.size]]))
+    return lens[seg[starts] >= 0], int((seg < 0).sum())
 
 
 def with_radius(x4, seg, mp4, cons):

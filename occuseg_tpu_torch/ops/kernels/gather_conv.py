@@ -7,7 +7,8 @@ in f32 with the output in the feature dtype. A standalone op, as in the JAX
 package: no model path calls it (every convolution of the port runs the
 chunk kernels). CUDA tensors launch `csrc/gather_conv.cu` (or raise); CPU
 tensors run `gather_conv_plain`. Unlike the TPU kernel it takes any Cin
-and Cout that are multiples of 8 and any number of rows.
+and Cout that are multiples of 8 and any number of rows. `geometry` is the
+bf16 kernel's launch plan: column tile and split count.
 """
 
 from __future__ import annotations
@@ -15,6 +16,23 @@ from __future__ import annotations
 import torch
 
 from occuseg_tpu_torch.ops import kernels
+from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+
+TILE = 128      # output rows per block of the bf16 kernel
+CIN_TILE = 64   # Cin columns per step
+MAX_SPLITS = 8  # blocks of one cluster
+
+
+def geometry(N: int, cin: int, cout: int, K: int, sms: int):
+    """(column tile, splits) of the bf16 kernel: the chunk-conv forward's
+    column tile, and where the row and column tiles leave SMs idle, the
+    most ranges of a tile's (offset, Cin tile) steps (one cluster, at most
+    MAX_SPLITS blocks, at most one a step) that keep the grid within one
+    wave of two blocks per SM: a grid just past a wave takes two."""
+    nt = cc.col_tile(cout, True)
+    blocks = -(-N // TILE) * -(-cout // nt)
+    splits = min(MAX_SPLITS, K * -(-cin // CIN_TILE), 2 * sms // blocks)
+    return nt, max(1, splits)
 
 
 def _check(feats: torch.Tensor, nbr_kn: torch.Tensor,
@@ -61,11 +79,13 @@ def gather_conv(feats: torch.Tensor, nbr_kn: torch.Tensor,
         raise ValueError("gather_conv: tensors on several devices")
     N, cin = feats.shape
     K, cout = nbr_kn.shape[0], w.shape[2]
+    nt, splits = geometry(N, cin, cout, K,
+                          cc._sm_count(feats.device.index or 0))
     out = torch.empty((N, cout), dtype=dt, device=feats.device)
     with torch.cuda.device(feats.device):
         rc = kernels.load().occ_gather_conv(
             feats.data_ptr(), N, cin, nbr_kn.data_ptr(), K, w.data_ptr(),
-            cout, out.data_ptr(), int(dt == torch.bfloat16),
+            cout, nt, splits, out.data_ptr(), int(dt == torch.bfloat16),
             kernels.stream_ptr(feats))
     kernels.check(rc, "gather_conv kernel launch")
     gather_conv.launches += 1

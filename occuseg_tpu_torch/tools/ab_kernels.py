@@ -9,13 +9,17 @@ Each run is `chip_smoke.py`'s build and `[kernels]` phase (every kernel at
 the bench plan's shapes, against its plain version) in a process of its
 own, from the checkout's root; with --smoke, the whole `chip_smoke.py`
 (every phase, end to end); with --focus, this module's `focus` on the
-checkout's package: the segment sum (#2) at the bench plan's two shapes
-and the BCE forward (#7) and backward (#8) at the CLI's shape and the
-bench's, each timed as `chip_smoke.cuda_ms` does (CUDA events around back
-to back calls, the host's launch cost included) and inside a CUDA graph
-(without it), with the segment sum's `index_add` beside it, digests of
-the outputs saved to OUT_DIR/focus_<i>.pt, and the first checkout's
-outputs compared bit for bit with each other's. The checkouts run in the order given and
+checkout's package: the segment sum (#2) at the bench plan's two shapes,
+the BCE radius (#6) at the CLI's shape (P=262144) at I=128 and 64 with
+random ids and with the CLI's runs of one instance, the BCE forward (#7)
+and backward (#8) at the CLI's shape and the bench's, and the gather
+conv (#9) at L3-L5 of the bench plan beside the chunk-conv forward (#1)
+of the same level, width and weights, each timed as `chip_smoke.cuda_ms`
+does (CUDA events around back to back calls, the host's launch cost
+included) and inside a CUDA graph (without it), with the segment sum's
+`index_add` beside it, digests of the outputs saved to
+OUT_DIR/focus_<i>.pt, and the first checkout's outputs compared bit for
+bit with each other's. The checkouts run in the order given and
 then in reverse (A, B, B, A for two), so that a drift of the card's clocks
 over the call falls on all of them alike. Prints the card's name and
 power limit and each run's summary lines; the full output of run i goes
@@ -94,7 +98,7 @@ def _both(fn, reps: int) -> str:
             f"{'not measured' if g is None else f'{g:.4f}'})")
 
 
-def _ptxas(path: str, names=("segsum", "bce")):
+def _ptxas(path: str, names=("segsum", "bce", "radius", "gather")):
     """The nvcc log's register and spill lines of the named kernels."""
     fn = ""
     for line in open(path + ".log"):
@@ -107,8 +111,36 @@ def _ptxas(path: str, names=("segsum", "bce")):
             print(f"[focus] ptxas {fn[:60]}: {line.split(':')[-1].strip()}")
 
 
+def _radius_inputs(P: int, I: int, seed: int, runs: bool, dev):
+    """(x4, seg, mp4, mp_sq) as `bce_loss.exact_inputs` makes them (every
+    coordinate a multiple of 1/8: each distance exact in f32), with the
+    ids drawn at random or in the training CLI's layout (a batch of 4
+    synthetic scenes of 20k points, each object's points one run). Built
+    here so that a checkout without that layout takes the same inputs."""
+    import numpy as np
+    import torch
+    from occuseg_tpu_torch.data.synthetic import SceneConfig, make_batch
+    rng = np.random.default_rng(seed)
+    if runs:
+        seg = make_batch(SceneConfig(num_points=20_000, extent=256), 4, P,
+                         I, seed=seed)["instance_id"]
+    else:
+        seg = rng.integers(0, I, P)
+        seg[rng.random(P) < 0.2] = -1
+    centers = rng.integers(-16, 17, (I, 3)) / 2.0
+    x = centers[np.clip(seg, 0, I - 1)] + rng.integers(-8, 9, (P, 3)) / 8.0
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=dev)
+    return (t(np.hstack([x, np.zeros((P, 1))])), t(seg, torch.int32),
+            t(np.hstack([centers, np.zeros((I, 1))])),
+            t((centers * centers).sum(1)))
+
+
 def focus(out_path: str) -> None:
-    """Time #2, #7 and #8 of the package under the working directory."""
+    """Time #2, #6-#9 (and #1 beside #9) of the package under the working
+    directory."""
     sys.path.insert(0, os.getcwd())
     import torch
     from occuseg_tpu_torch.core.topology import PlanSpec
@@ -116,6 +148,8 @@ def focus(out_path: str) -> None:
     from occuseg_tpu_torch.infer import prepare_scene
     from occuseg_tpu_torch.ops import kernels
     from occuseg_tpu_torch.ops.kernels import bce_loss as bl
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
     from occuseg_tpu_torch.ops.kernels import segsum
     _ptxas(kernels.library_path())
     dev = torch.device("cuda", 0)
@@ -156,15 +190,43 @@ def focus(out_path: str) -> None:
             bwd = lambda: bl.bce_sums_bwd(*args, g)  # noqa: E731
             print(f"[focus] bce I={I}: forward {_both(fwd, 10)}, backward "
                   f"{_both(bwd, 10)}", flush=True)
+            del e, rx4, x4, sg, sc, mu, mp4, cons, g, args
+            for layout in ("random", "runs"):
+                rx, rs, rm, rq = _radius_inputs(262_144, I, I,
+                                                layout == "runs", dev)
+                rad = lambda: bl.radius_sq(rx, rs, rm, rq)  # noqa: E731
+                saved[f"radius_{I}_{layout}"] = _digest(rad(), keep=True)
+                print(f"[focus] radius I={I} seg {layout}: "
+                      f"{_both(rad, 20)}", flush=True)
+        gen = torch.Generator().manual_seed(9)
+        for lv, C in ((3, 256), (4, 320), (5, 384)):
+            level = plan.levels[lv]
+            nbr_kn = torch.from_numpy(level.nbr.T.copy()).to(dev)
+            xg = torch.randn(level.nbr.shape[0], C, generator=gen)
+            xg[int(level.num_active):] = 0
+            xg = xg.to(dev, torch.bfloat16)
+            wg = (torch.randn(27, C, C, generator=gen)
+                  * (2 / (27 * C)) ** .5).to(dev, torch.bfloat16)
+            fi, fl = level.chunks.in_idx, level.chunks.lidx
+            gat = lambda: gc.gather_conv(xg, nbr_kn, wg)  # noqa: E731
+            chk = lambda: cc.chunk_conv(xg, fi, fl, wg)  # noqa: E731
+            saved[f"gather_L{lv}"] = _digest(gat(), keep=True)
+            print(f"[focus] gather_conv L{lv} C={C}: kernel "
+                  f"{_both(gat, 20)}, chunk_conv (#1) {_both(chk, 20)}",
+                  flush=True)
     torch.save(saved, out_path)
 
 
 def _digest(*tensors, keep: bool = False):
     """(sha256 of the tensors' bytes, the tensors on the CPU if `keep`)."""
     import hashlib
+
+    import torch
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        t = t.detach().contiguous().cpu()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+                 .numpy().tobytes())
     return h.hexdigest(), ([t.cpu() for t in tensors] if keep else None)
 
 

@@ -46,7 +46,21 @@ order and in reverse. Needs a CUDA card and nvcc.
 - `bce_no_test`: the BCE forward and backward stage each tile and list
   its candidates but test no pair (every list is empty);
 - `segsum_128`, `segsum_256`: the segment sum in CTAs of 128 (resp. 256)
-  threads at every C.
+  threads at every C;
+- `radius_match_any`: the BCE radius groups a warp's lanes by id with
+  `__match_any_sync` (one atomic per group) instead of a segmented max
+  over runs of consecutive lanes;
+- `radius_no_chain`: the BCE radius's blocks take their maxima straight
+  into the output, with no count and no last block (timing only);
+- `radius_release`: the BCE radius's blocks count themselves with one
+  acquire-release atomic after the block's barrier, in place of a fence
+  in every thread;
+- `gather_no_mma`: the gather conv issues no wgmma (gathers, W loads,
+  barriers and the split's reduction stay);
+- `gather_no_steps`: the gather conv's blocks take no step (ids,
+  liveness, the split's reduction and the store stay);
+- `gather_splits_4`: the gather conv splits a tile's steps into at most
+  4 ranges (a cluster of 4) instead of 8.
 """
 
 from __future__ import annotations
@@ -62,6 +76,8 @@ FWD = "occuseg_tpu_torch/csrc/chunk_conv.cu"
 BWD = "occuseg_tpu_torch/csrc/chunk_conv_bwd.cu"
 BCE = "occuseg_tpu_torch/csrc/bce_loss.cu"
 SEG = "occuseg_tpu_torch/ops/kernels/segsum.py"
+GATHER = "occuseg_tpu_torch/csrc/gather_conv.cu"
+GATHER_PY = "occuseg_tpu_torch/ops/kernels/gather_conv.py"
 VARIANTS = {
     "no_restage": [(FWD, "    if (cit != staged) {",
                     "    if (staged < 0) {")],
@@ -125,6 +141,33 @@ VARIANTS = {
                     "    threads = 128")],
     "segsum_256": [(SEG, "    threads = 128 if R * C <= SMALL_SLAB else 256",
                     "    threads = 256")],
+    "radius_match_any": [(BCE, "  if (!__any_sync(kFull, id >= 0)) return;"
+                          "  // uniform over the warp\n",
+                          "  if (!__any_sync(kFull, id >= 0)) return;\n"
+                          "  const unsigned peers = __match_any_sync(kFull, "
+                          "id);\n  const unsigned mm = __reduce_max_sync("
+                          "peers, bits);\n  if (id >= 0 && lane == __ffs("
+                          "peers) - 1) atomicMax(r_s + id, mm);\n"
+                          "  if (id > -2) return;\n")],
+    "radius_no_chain": [(BCE, "    if (r_s[i]) atomicMax(scratch + i, r_s[i]);\n"
+                         "  __threadfence();",
+                         "    if (r_s[i]) atomicMax(r_bits + i, r_s[i]);\n"
+                         "  if (I > 0) return;\n  __threadfence();")],
+    "radius_release": [(BCE, "#include <cooperative_groups.h>\n",
+                        "#include <cooperative_groups.h>\n"
+                        "#include <cuda/atomic>\n"),
+                       (BCE, "  __threadfence();  // this block's maxima land "
+                        "before its count\n  __syncthreads();\n  if (t == 0) "
+                        "last = atomicAdd(counter, 1u) == gridDim.x - 1;",
+                        "  __syncthreads();\n  if (t == 0) last = cuda::"
+                        "atomic_ref<unsigned, cuda::thread_scope_device>("
+                        "*counter).fetch_add(1u, cuda::memory_order_acq_rel)"
+                        " == gridDim.x - 1;")],
+    "gather_no_mma": [(GATHER, "        wgmma_bf16<NT>(acc, af[kk],",
+                       "        if (N < 0) wgmma_bf16<NT>(acc, af[kk],")],
+    "gather_no_steps": [(GATHER, "  const int n_steps = *n_live_s * n_cit;",
+                         "  const int n_steps = 0 * *n_live_s * n_cit;")],
+    "gather_splits_4": [(GATHER_PY, "MAX_SPLITS = 8  ", "MAX_SPLITS = 4  ")],
 }
 CHECK = ("    if not cond:\n        raise SmokeFailure(what)",
          "    if not cond:\n        print(\"variant, not checked: \" + what[:60])")

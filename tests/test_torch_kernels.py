@@ -494,14 +494,13 @@ def test_segment_sum_matches_plain(dev, plan):
     _check(out, ref, TOL[torch.float32])
 
 
-def _segsum_replay():
-    """`tests/segsum_replay.py`, loaded from its path (a card's machine may
-    have another package named `tests` on its path)."""
+def _replay(name):
+    """`tests/<name>.py` (a NumPy replay), loaded from its path (a card's
+    machine may have another package named `tests` on its path)."""
     import importlib.util
     import os
     spec = importlib.util.spec_from_file_location(
-        "segsum_replay", os.path.join(os.path.dirname(__file__),
-                                      "segsum_replay.py"))
+        name, os.path.join(os.path.dirname(__file__), name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -516,7 +515,7 @@ def test_segment_sum_replays_slot_order(dev, plan, C):
     not be read (R=248, and R=250, whose blocks are not 16-byte aligned),
     and on the scene's own layout (W=192, R=248); two launches give the
     same bits."""
-    replay_mod = _segsum_replay()
+    replay_mod = _replay("segsum_replay")
     layout, replay = replay_mod.layout, replay_mod.replay
     rng = np.random.default_rng(C)
     cases = [(layout(B, R, W, seed=C + R)[0], B * W)
@@ -740,3 +739,70 @@ def test_gather_conv_matches_plain(dev, plan, dt, level, cin, cout):
     _check(out, ref, TOL[dt])
     with pytest.raises(ValueError, match="multiples of 8"):
         gc.gather_conv(feats[:, :4].contiguous(), nk, w[:, :4].contiguous())
+
+
+@pytest.mark.parametrize("layout", ["random", "runs", "cli", "none",
+                                    "empty", "small"])
+@pytest.mark.parametrize("I", [1, 64, 128])
+def test_radius_matches_replay(dev, layout, I):
+    """TPU row #6 bit for bit against its NumPy replay (`tests/radius_replay.py`) and
+    the plain version, on `exact_inputs` values with ids at random, in
+    runs (synthetic and the CLI's), none, an instance with no point, and
+    P below one block's share; P % 4 != 0; launched twice."""
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    rep = _replay("radius_replay")
+    P = {"small": 103, "cli": 8193}.get(layout, 40_001)
+    seg = {"runs": lambda: rep.run_seg(P, I, seed=1),
+           "cli": lambda: bce_loss.cli_seg(P, I, seed=3),
+           "none": lambda: np.full(P, -1, np.int32),
+           "small": lambda: rep.run_seg(P, I, seed=2)}.get(layout)
+    seg = seg() if seg else None
+    if layout == "empty":
+        seg = np.random.default_rng(5).integers(0, I, P).astype(np.int32)
+        seg[seg == I // 2] = -1
+    _, _, x4, sg, _, _, mp4, cons, _ = bce_loss.exact_inputs(
+        P, I, 4, seed=P + I, device=dev, seg=seg)
+    mp_sq = cons[bce_loss.MP_SQ].clone()  # a row of cons: unaligned at I=1
+    before = bce_loss.radius_sq.launches
+    r = bce_loss.radius_sq(x4, sg, mp4, mp_sq)
+    again = bce_loss.radius_sq(x4, sg, mp4, mp_sq)
+    torch.cuda.synchronize()
+    assert bce_loss.radius_sq.launches == before + 2
+    want, _, _ = rep.replay(
+        x4.cpu().numpy(), sg.cpu().numpy(), mp4.cpu().numpy(),
+        mp_sq.cpu().numpy(), bce_loss.radius_blocks(
+            P, torch.cuda.get_device_properties(dev).multi_processor_count))
+    assert torch.equal(r.cpu(), torch.from_numpy(want))
+    assert torch.equal(r, again)
+    assert torch.equal(r, bce_loss.radius_sq_plain(x4, sg, mp4, mp_sq))
+
+
+@pytest.mark.parametrize("cin,cout,N", [(256, 256, 200), (320, 320, 1000),
+                                        (384, 384, 3000), (136, 72, 300),
+                                        (256, 256, 12000)])
+def test_gather_conv_matches_replay(dev, plan, cin, cout, N):
+    """TPU row #9's bf16 kernel against its f32 NumPy replay
+    (`tests/gather_replay.py`) on the same bf16 values: the L3-L5 widths,
+    a Cin tail and a Cout tile with a tail, split levels (the small N)
+    and an unsplit one; a bf16 tolerance (the kernel rounds its output to
+    bf16); launched twice, the same bits."""
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    rep = _replay("gather_replay")
+    nbr = plan.levels[0].nbr[:N]
+    nbr_kn = np.where(nbr < N, nbr, -1).T.copy()
+    rng = np.random.default_rng(N)
+    feats = torch.tensor(rng.standard_normal((N, cin)),
+                         dtype=torch.bfloat16)
+    w = torch.tensor(rng.standard_normal((27, cin, cout)) / cin ** 0.5,
+                     dtype=torch.bfloat16)
+    fd, wd = feats.to(dev), w.to(dev)
+    nk = torch.from_numpy(nbr_kn).to(dev)
+    out = gc.gather_conv(fd, nk, wd)
+    again = gc.gather_conv(fd, nk, wd)
+    torch.cuda.synchronize()
+    want, _, _ = rep.replay(feats.float().numpy(), nbr_kn,
+                            w.float().numpy(),
+                            torch.cuda.get_device_properties(dev)
+                            .multi_processor_count)
+    _check(out, torch.from_numpy(want).to(dev), TOL[torch.bfloat16])
+    assert torch.equal(out, again)
