@@ -51,6 +51,23 @@ and no network. Phases (any failure exits non-zero):
    then one epoch with its
    launch counts, checkpoint and semantic eval, the plan upload pageable
    against pinned, a profiled step, and a resume from the checkpoint.
+6. instance: the instance path (`occuseg_tpu_torch.cluster`,
+   `occuseg_tpu_torch.evaluate_instance`), in [loop]'s directory: (a) the
+   mean-shift parity cases of `tests/test_cluster_parity.py` on the card
+   against the CPU (the same label ids) and the NumPy oracle of the
+   reference cascade (`tests/cluster_oracle.py`: the same partitions), the
+   merge cases against the oracle, and `aggregate_regions` at 200k points
+   twice (the same bits) and against the CPU; (b) the evaluation CLI at
+   m=64 with --use_merge, restored from [loop]'s checkpoint, over the 4
+   synthetic val scenes: inline (33 + 1 launches a scene), --dump and
+   --from_dump on the card (--from_dump's proposals and statistics equal
+   the inline ones exactly), --from_dump on the CPU and its agreement with
+   the card, and AP (printed, not gated); (c) the user's request on the
+   bench scenes (seeds 0-2) with [slice]'s model at --region_cap 16384:
+   ms of the plan, the forward (33 + 1 launches), the outputs to the host,
+   `aggregate_regions`, the mean-shift (its instances and host reads,
+   counted by torch's sync debug mode), the merge, the filtering and the
+   statistics; then once more with --use_joint_refine.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON summary.
@@ -66,6 +83,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import torch
 
@@ -1065,8 +1083,9 @@ def profile_step(step, phase: str = "train") -> float:
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"[{phase}] profiled step: wall {wall:.1f} ms (under the "
-          f"profiler), device busy {busy:.2f} ms in {len(rows)} kinds of "
-          f"device activity")
+          f"profiler), device busy {busy:.2f} ms in "
+          f"{sum(e.count for e in rows)} device activities of {len(rows)} "
+          f"kinds")
     for e in rows[:25]:
         print(f"[{phase}] profile {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:5d} x  {e.key[:90]}")
@@ -1389,7 +1408,395 @@ def phase_loop(dev, tmp):
           f"saved ones; one more step ran (counter {r2['trainer'].steps}, "
           f"launches {after})")
     os.environ.pop("OCC_PALLAS_BCE")
-    return launches
+    return launches, result["ckpt_dir"]
+
+
+def parity_regions(seed, R=80, E=6, n_clusters=8):
+    """Region-level inputs of the mean-shift parity cases (a copy of
+    `tests/test_cluster_parity.py`'s `_make_regions`, which imports jax;
+    `tests/test_torch_cluster.py` holds the two equal)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    centers_e = rng.normal(0, 3.0, (n_clusters, E))
+    centers_p = rng.uniform(0, 5.0, (n_clusters, 3))
+    assign = rng.integers(0, n_clusters, R)
+    emb = (centers_e[assign] + rng.normal(0, 0.15, (R, E))).astype(
+        np.float32)
+    pose = (centers_p[assign] + rng.normal(0, 0.08, (R, 3))).astype(
+        np.float32)
+    bw = rng.uniform(0.8, 2.0, (R, 2)).astype(np.float32)
+    offset = rng.uniform(0.1, 1.0, R).astype(np.float32)
+    count = rng.integers(5, 200, R).astype(np.float32)
+    semantic = rng.integers(0, 20, R).astype(np.int32)
+    occupancy = np.log(count * rng.uniform(0.8, 3.0, R)).astype(np.float32)
+    return dict(emb=emb, pose=pose, bw=bw, offset=offset, count=count,
+                semantic=semantic, occupancy=occupancy)
+
+
+def parity_merge_case(seed, R=60, n_clusters=10, E=6):
+    """Inputs of the merge parity cases (a copy of
+    `tests/test_cluster_parity.py`'s `_make_merge_case`)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n_objects = n_clusters // 2
+    centers_e = rng.normal(0, 3.0, (n_objects, E))
+    centers_p = rng.uniform(0, 5.0, (n_objects, 3))
+    cluster_obj = rng.integers(0, n_objects, n_clusters)
+    cluster_of_region = rng.integers(0, n_clusters, R)
+    cluster_of_region[rng.uniform(size=R) < 0.15] = -1
+    obj = cluster_obj[np.clip(cluster_of_region, 0, None)]
+    emb = (centers_e[obj] + rng.normal(0, 0.2, (R, E)))
+    pose = (centers_p[obj] + rng.normal(0, 0.1, (R, 3)))
+    bw = rng.uniform(0.5, 1.5, (R, 2))
+    count = rng.integers(5, 80, R).astype(np.float64)
+    occupancy = np.log(rng.uniform(100, 800, R))
+    return (cluster_of_region, emb, pose, bw, count, occupancy)
+
+
+# One epoch from random weights leaves the occupancy head near 0 (a
+# log-size of ~1 point), and the default window (0.3, 3) of size over
+# predicted size would then filter out every instance, leaving the
+# proposals to compare empty: the window is opened.
+OPEN_OCCUPANCY = ("--occupancy_lo", "0", "--occupancy_hi", "1e9")
+INSTANCE_FLAGS = ("--m", "64", "--use_dense_model", "--residual_blocks",
+                  "--use_merge", *OPEN_OCCUPANCY)
+# the user's request on the bench scenes: regions arange // 16 over the
+# 262,144 point rows, ~12.5k of them at 200k points
+REQUEST_REGION_CAP = 16384
+
+
+def _load_helper(name):
+    """A NumPy helper module of `tests/`, loaded from its path (the card's
+    machine may have another package named `tests`)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def canonical(labels):
+    """Instance ids renumbered by first occurrence (-1 kept), so two
+    numberings of one partition compare equal."""
+    import numpy as np
+    labels = np.asarray(labels)
+    out = np.full(labels.shape, -1, np.int64)
+    ids = labels[labels >= 0]
+    uniq, first = np.unique(ids, return_index=True)
+    rank = np.empty(len(uniq), np.int64)
+    rank[np.argsort(first)] = np.arange(len(uniq))
+    out[labels >= 0] = rank[np.searchsorted(uniq, ids)]
+    return out
+
+
+def same_result(a, b) -> bool:
+    """Nested dicts and lists of arrays, exactly (NaN equal to NaN)."""
+    import numpy as np
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_result(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_result(x, y)
+                                        for x, y in zip(a, b))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and np.array_equal(
+        a, b, equal_nan=a.dtype.kind == "f")
+
+
+def host_reads(fn):
+    """(fn(), the synchronising CUDA calls it made), counted by torch's
+    sync debug mode."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def instance_cases(dev):
+    """(a) The cases of tests/test_cluster_parity.py on the card, against
+    the same functions on the CPU (the same label ids) and the NumPy oracle
+    of the reference cascade (the same partitions); `aggregate_regions` on
+    a bench-size input twice (the same bits) and against the CPU."""
+    import numpy as np
+    from occuseg_tpu_torch.cluster import aggregate_regions, occupancy_merge
+    from occuseg_tpu_torch.cluster.meanshift import meanshift_cluster
+    from occuseg_tpu_torch.cluster.supervoxel import RegionFeatures
+    oracle = _load_helper("cluster_oracle")
+
+    def features(d, device):
+        R = d["offset"].shape[0]
+        return RegionFeatures(*(torch.as_tensor(x).to(device) for x in (
+            d["emb"], d["pose"], d["bw"], d["offset"], d["count"],
+            d["semantic"], d["occupancy"], d["pose"], np.ones(R, bool))))
+
+    cases = [(f"seed {s}", parity_regions(s)) for s in range(10)]
+    tie = parity_regions(99, R=40, n_clusters=4)
+    tie["offset"][:] = 0.25
+    tie["offset"][7] = 0.5
+    tie["offset"][23] = 0.5
+    background = parity_regions(3)
+    background["semantic"][:10] = 0
+    cases += [("tie", tie), ("background", background)]
+    n_inst = []
+    for name, d in cases:
+        card, n_card = meanshift_cluster(features(d, dev), max_instances=50)
+        cpu, n_cpu = meanshift_cluster(features(d, "cpu"), max_instances=50)
+        ref, _ = oracle.meanshift_oracle(d["offset"], d["emb"], d["pose"],
+                                         d["bw"], d["count"], d["semantic"],
+                                         max_instances=50)
+        check(n_card == n_cpu and torch.equal(card.cpu(), cpu),
+              f"mean-shift {name}: card and CPU label ids differ")
+        check(np.array_equal(canonical(card.cpu().numpy()), canonical(ref)),
+              f"mean-shift {name}: partition differs from the oracle")
+        n_inst.append(n_card)
+    check(bool((card.cpu().numpy()[:10] == -1).all()),
+          "background classes were clustered")
+    for s in range(10):
+        args = parity_merge_case(s)
+        check(np.array_equal(occupancy_merge(*args),
+                             oracle.merge_oracle(*args)),
+              f"merge seed {s}: differs from the oracle")
+    print(f"[instance] (a) mean-shift on the card: the 12 parity cases "
+          f"({n_inst} instances) give the CPU's label ids and the oracle's "
+          f"partitions; the 10 merge cases the oracle's")
+
+    g = torch.Generator().manual_seed(7)
+    P = 200_000
+    region = torch.arange(P, dtype=torch.int32) // 16
+    region[torch.rand(P, generator=g) < 0.02] = -1
+    region[:64] = REQUEST_REGION_CAP + 5  # past the cap: dropped
+    inputs = (torch.randn(P, 64, generator=g), torch.randn(P, 3, generator=g),
+              torch.rand(P, 3, generator=g) * 5,
+              torch.rand(P, 2, generator=g) + 0.5, torch.rand(P, generator=g),
+              torch.randint(0, 20, (P,), generator=g, dtype=torch.int32),
+              torch.randn(P, generator=g), region)
+    on_card = [t.to(dev) for t in inputs]
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(aggregate_regions(*on_card, REQUEST_REGION_CAP))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "aggregate_regions: two runs on the card gave other bits")
+    cpu = aggregate_regions(*inputs, REQUEST_REGION_CAP)
+    errs = {}
+    for name, a, b in zip(cpu._fields, runs[0], cpu):
+        a = a.cpu()
+        if a.dtype.is_floating_point:
+            err = (a - b).abs().max().item()
+            errs[name] = err
+            check(err <= 1e-6 + 1e-5 * b.abs().max().item(),
+                  f"aggregate_regions {name}: card vs CPU {err:.3e}")
+        else:
+            check(torch.equal(a, b), f"aggregate_regions {name}: card vs CPU")
+    print(f"[instance] (a) aggregate_regions at P={P}, r_cap="
+          f"{REQUEST_REGION_CAP}: two runs on the card the same bits "
+          f"({ms:.2f} ms); card vs CPU max abs err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+
+def instance_cli(dev, tmp, ckpt_dir):
+    """(b) The evaluation CLI at m=64 restored from [loop]'s checkpoint
+    over the 4 synthetic val scenes, with --use_merge: inline, --dump and
+    --from_dump on the card (--from_dump's proposals and statistics equal
+    the inline ones exactly), --from_dump on the CPU beside it; the
+    forward's launches; AP, printed and not gated."""
+    import numpy as np
+    from occuseg_tpu_torch import evaluate_instance as ei
+    from occuseg_tpu_torch.infer import plan_scene
+    from occuseg_tpu_torch.train import loop
+    from occuseg_tpu_torch.train.config import args_to_config
+
+    argv = [*INSTANCE_FLAGS, "--data_dir", os.path.join(tmp, "no_scenes"),
+            "--checkpoint_file", ckpt_dir]
+    config = args_to_config(ei.get_parser().parse_args(argv))
+    spec = loop.build_spec(config)
+    ds = loop._synthetic_dataset(config)
+    expected = collections.Counter()
+    for raw in ds.val_batches(config["point_cap"], config["instance_cap"],
+                              1):
+        vplan = plan_scene(raw["coords"], spec)
+        expected.update({"chunk_conv": 33, "blocked_segment_sum":
+                         int(vplan.vox_seg is not None)})
+    work = os.path.join(tmp, "instance")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)  # main writes instance_stat.mat to the working directory
+    try:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        inline = ei.main(argv, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = read_launches()
+        check(os.path.isfile("instance_stat.mat"), "no instance_stat.mat")
+        check(ei.main([*argv, "--dump", "dumps"], device=dev) is None,
+              "--dump returned statistics")
+        t2 = time.perf_counter()
+        files = sorted(os.listdir("dumps"))
+        from_dump = ei.main([*argv, "--from_dump", "dumps"], device=dev)
+        t3 = time.perf_counter()
+        on_cpu = ei.main([*argv, "--from_dump", "dumps"], device="cpu")
+        t4 = time.perf_counter()
+        scenes = [dict(np.load(os.path.join("dumps", f))) for f in files]
+    finally:
+        os.chdir(cwd)
+    print(f"[instance] (b) m=64 CLI model from [loop]'s "
+          f"{os.path.basename(loop.checkpoint_path(ckpt_dir))}, {len(files)}"
+          f" val scenes: inline {t1 - t0:.1f} s, --dump "
+          f"{t2 - t1:.1f} s, --from_dump {t3 - t2:.1f} s on the card, "
+          f"{t4 - t3:.1f} s on the CPU")
+    print(f"[instance] (b) launches inline {launches}, expected "
+          f"{dict(expected)}")
+    check({k: launches[k] for k in expected} == dict(expected)
+          and sum(launches.values()) == sum(expected.values()),
+          f"inline launches {launches}, expected {dict(expected)}")
+    check(len(files) == 4, f"{len(files)} dumped scenes")
+    check(same_result(from_dump, inline), "--from_dump's proposals or "
+          "statistics differ from the inline ones")
+    n_props = [sum(map(len, p)) for p in inline["proposals"]]
+    print(f"[instance] (b) --from_dump on the card reproduces the inline "
+          f"proposals {n_props} and statistics exactly")
+
+    args = ei.get_parser().parse_args(argv)
+    for i, scene in enumerate(scenes):
+        tr_card, tr_cpu = {}, {}
+        p_card, _, _ = ei.cluster_and_score(scene, args, dev, tr_card)
+        p_cpu, _, _ = ei.cluster_and_score(scene, args, "cpu", tr_cpu)
+        check(same_result(p_card, inline["proposals"][i]),
+              f"scene {i}: proposals differ from the inline run's")
+        same = float(np.mean(canonical(tr_card["labels"])
+                             == canonical(tr_cpu["labels"])))
+        print(f"[instance] (b) scene {i}: card vs CPU: instances "
+              f"{tr_card['instances']} / {tr_cpu['instances']}, proposals "
+              f"{sum(map(len, p_card))} / {sum(map(len, p_cpu))} (equal: "
+              f"{same_result(p_card, p_cpu)}), points with the same "
+              f"canonical label {100 * same:.2f}%")
+    print(f"[instance] (b) card vs CPU --from_dump statistics equal: "
+          f"{same_result(on_cpu, from_dump)}")
+    for thr in (25, 50):
+        ap = inline[f"ap_{thr}"]
+        ok = np.isfinite(ap)
+        print(f"[instance] (b) AP@0.{thr}: "
+              f"{float(ap[ok].mean()) if ok.any() else 0.0:.4f} over "
+              f"{int(ok.sum())} classes with ground truth (random weights, "
+              f"one epoch; not gated)")
+
+
+def instance_requests(dev):
+    """(c) The user's request on the bench scenes (seeds 0-2) with
+    [slice]'s model: host plan, forward (33 + 1 launches), the outputs to
+    the host, then `cluster_and_score` part by part at --region_cap 16384
+    with --use_merge, and the per-proposal statistics; the mean-shift's
+    host reads counted by torch's sync debug mode. Then once more with
+    --use_joint_refine."""
+    import numpy as np
+    from occuseg_tpu_torch import evaluate_instance as ei
+    from occuseg_tpu_torch.cluster.evaluator import per_proposal_statistics
+    from occuseg_tpu_torch.cluster.meanshift import meanshift_cluster
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.infer import Predictor, prepare_scene
+    from occuseg_tpu_torch.models import LearningBWDenseUNet
+
+    model = LearningBWDenseUNet(N_PLANES, compute_dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(4))
+    randomize_bn_stats(model, torch.Generator().manual_seed(5))
+    predictor = Predictor(model, dev)
+    spec = PlanSpec(caps=BENCH_CAPS)
+    requests = [bench_scene(seed) for seed in (0, 1, 2)]
+
+    def request(batch, args):
+        times = {}
+        t0 = time.perf_counter()
+        scene = prepare_scene(batch["coords"], batch["features"], spec)
+        t1 = time.perf_counter()
+        out = predictor(scene)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dump = ei.dump_scene(batch, out, float(args.scale))
+        t3 = time.perf_counter()
+        trace = {}
+        props, gts, sem = ei.cluster_and_score(dump, args, dev, trace)
+        t4 = time.perf_counter()
+        per_proposal_statistics(props, gts, sem)
+        t5 = time.perf_counter()
+        times.update(plan_ms=1e3 * (t1 - t0), forward_ms=1e3 * (t2 - t1),
+                     outputs_ms=1e3 * (t3 - t2), stats_ms=1e3 * (t5 - t4),
+                     total_ms=1e3 * (t5 - t0))
+        times.update({k: v for k, v in trace.items() if k.endswith("_ms")})
+        return times, trace, props, dump
+
+    flags = ["--region_cap", str(REQUEST_REGION_CAP), "--use_merge",
+             *OPEN_OCCUPANCY]
+    merge = ei.get_parser().parse_args(flags)
+    refine = ei.get_parser().parse_args([*flags, "--use_joint_refine"])
+    request(requests[0], merge)  # warm-up (allocator, first launches)
+    torch.cuda.synchronize()
+    zero_launches()
+    for args in (merge, refine):
+        mode = "joint refine" if args.use_joint_refine else "mean-shift"
+        for seed, batch in zip((0, 1, 2), requests):
+            before = read_launches()
+            times, trace, props, dump = request(batch, args)
+            after = read_launches()
+            fwd = {k: after[k] - before[k] for k in after
+                   if after[k] != before[k]}
+            check(fwd == {"chunk_conv": 33, "blocked_segment_sum": 1},
+                  f"seed {seed}: forward launches {fwd}, expected 33 + 1")
+            regions = trace["regions"]
+            n_reg = int(regions.valid.sum())
+            check(n_reg == int(np.unique(dump["regions"]).size),
+                  f"seed {seed}: {n_reg} regions")
+            check(all(bool(torch.isfinite(t).all()) for t in regions
+                      if t.dtype.is_floating_point),
+                  f"seed {seed}: region features not finite")
+            labels = trace["labels"]
+            check(labels.shape == (dump["regions"].shape[0],)
+                  and labels.max() <= 300 and trace["instances"] > 0,
+                  f"seed {seed}: labels")
+            reads = ""
+            if not args.use_joint_refine:
+                # the mean-shift again, alone, with its host reads counted
+                (_, n), syncs = host_reads(
+                    lambda: meanshift_cluster(regions))
+                check(n == trace["instances"], "mean-shift repeated: "
+                      f"{n} instances, then {trace['instances']}")
+                check(syncs == n + (n < 300), f"mean-shift: {syncs} host "
+                      f"reads for {n} instances")
+                reads = f", {syncs} host reads"
+                if seed == 0:  # the device's share of the mean-shift
+                    busy = profile_step(lambda: meanshift_cluster(regions),
+                                        "instance")
+                    print(f"[instance] (c) mean-shift: device busy "
+                          f"{busy:.2f} ms of {times['cluster_ms']:.1f} ms "
+                          f"({100 * busy / times['cluster_ms']:.1f}%)")
+            print(f"[instance] (c) {mode} seed {seed}: forward launches "
+                  f"{fwd.get('chunk_conv', 0)} + "
+                  f"{fwd.get('blocked_segment_sum', 0)} "
+                  f"(predicted 33 + 1), {n_reg} regions, "
+                  f"{trace['instances']} instances{reads}, "
+                  f"{sum(map(len, props))} proposals; ms: "
+                  + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in times.items()))
+    launches = read_launches()
+    print(f"[instance] (c) launches over the 6 requests {launches}")
+    check(launches["chunk_conv"] == 6 * 33
+          and launches["blocked_segment_sum"] == 6,
+          f"request launches {launches}")
+
+
+def phase_instance(dev, tmp, ckpt_dir):
+    instance_cases(dev)
+    instance_cli(dev, tmp, ckpt_dir)
+    instance_requests(dev)
 
 
 def main() -> int:
@@ -1417,7 +1824,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=os.path.dirname(
                                          os.path.abspath(__file__))) as tmp:
-        loop_launches = phase_loop(dev, tmp)
+        loop_launches, ckpt_dir = phase_loop(dev, tmp)
+        phase_instance(dev, tmp, ckpt_dir)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     src = "occuseg_tpu_torch/csrc/"

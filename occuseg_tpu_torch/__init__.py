@@ -9,8 +9,10 @@ hand-written CUDA kernels under `ops/kernels/`), `nn/` (sparse modules and
 the UNet), `models/` (the OccuSeg model family), `losses/` (the 6-term
 training loss), `train/` (optimizer, host batch preparation, the training
 step, the loop, checkpoints and the CLI), `utils/` (metrics, counters),
-`convert.py` (flax weights to a state_dict) and `infer.py` (host
-preparation and the predictor).
+`cluster/` (supervoxel aggregation, mean-shift, occupancy merge, joint
+refinement, proposals and the instance metrics), `convert.py` (flax
+weights to a state_dict), `infer.py` (host preparation and the predictor)
+and `evaluate_instance.py` (the instance-evaluation entry point).
 
 This package imports torch and numpy only — never jax, flax or
 `occuseg_tpu`, whose import turns on jax's x64 mode.

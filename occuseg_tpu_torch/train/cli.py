@@ -24,7 +24,8 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> Dict:
                         format="%(asctime)s %(levelname)s %(message)s")
     config = args_to_config(get_parser().parse_args(argv))
     if config["evaluate"]:
-        raise SystemExit("instance evaluation is not ported")
+        raise SystemExit("use python -m occuseg_tpu_torch.evaluate_instance "
+                         "for instance evaluation")
     result = train(config, device=device)
     result["metrics"] = evaluate_semantic(config, result["trainer"],
                                           result["spec"])

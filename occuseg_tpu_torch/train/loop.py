@@ -138,13 +138,21 @@ def plan_prefetcher(batches: Iterable[Dict], spec: PlanSpec,
         yield from pool.imap(batches)
 
 
-def _restore(trainer: Trainer, path: str) -> str:
+def checkpoint_path(path: str) -> str:
+    """The port's checkpoint at `path`: the file itself, or the newest in
+    the directory. Raises on anything else (the reference's weights are
+    not importable yet)."""
     if os.path.isdir(path) and ckpt.latest_checkpoint(path):
         path = ckpt.latest_checkpoint(path)
     if not ckpt.is_checkpoint(path):
         raise NotImplementedError(
             f"{path}: importing the reference's weights is "
             + _NOT_PORTED.format("A8"))
+    return path
+
+
+def _restore(trainer: Trainer, path: str) -> str:
+    path = checkpoint_path(path)
     trainer.load_state_dict(ckpt.restore_checkpoint(path,
                                                     map_location="cpu"))
     return path
