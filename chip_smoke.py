@@ -68,6 +68,26 @@ and no network. Phases (any failure exits non-zero):
    `aggregate_regions`, the mean-shift (its instances and host reads,
    counted by torch's sync debug mode), the merge, the filtering and the
    statistics; then once more with --use_joint_refine.
+7. data: the real-data training path, in its own temporary directory:
+   (a) 5 synthetic scans with the bench scene's geometry (200k points,
+   2 cm) in ScanNet's raw layout through `data.prepare.prepare_split`, 4
+   to train/ and 1 to val/, with the ms of normals, supervoxels and whole
+   scenes; (b) the gather conv (#9) over the orientation-permuted map at
+   level 0 of the val scene's plan (guide_levels 1), at the normal-guided
+   convolutions' widths, f32 and bf16, against its plain version and
+   beside the chunk conv (#1) on the unpermuted map, and the PyTorch
+   backward on the card against the CPU, repeated bit for bit; (c) the
+   full-width --use_normal --use_feature cn model in f32 on the card and
+   the CPU (eval outputs, one training step) with [parity]'s tolerances;
+   (d) the training CLI with --use_normal --use_feature cn --use_elastic
+   and OCC_PALLAS_BCE=1 for one epoch on the prepared directory: launches
+   against the prediction (#9 at the guided level), finite losses, every
+   parameter moved, checkpoint and semantic eval; the step timed on the
+   epoch's batch with and without --use_normal, and profiled; (e) the
+   import of a reference-layout .pth through --checkpoint_file for one
+   step, the restored state equal to the tensors as mapped; (f)
+   `evaluate_instance.main` on the prepared val scene from (d)'s
+   checkpoint with --use_merge (AP printed, not gated).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON summary.
@@ -219,20 +239,35 @@ def route_of(conv, esize: int) -> str:
     return "#3" if g == K else ("#4" if g else "#5")
 
 
-def predicted_launches(plan, esize: int = 2, bce: bool = False) -> dict:
+def guided(conv, plan) -> bool:
+    """A submanifold convolution of a normal-guided model at a level whose
+    plan carries orientation classes: it runs the gather conv (#9) over
+    the permuted map, not the chunk kernels."""
+    level = int(conv.label.rsplit("L", 1)[1])
+    return conv.label.startswith(("sub", "enc", "dec")) \
+        and plan.levels[level].guided
+
+
+def predicted_launches(plan, esize: int = 2, bce: bool = False,
+                       in_features: int = 3, normal_guided: bool = False
+                       ) -> dict:
     """Kernel launches of one training step on `plan` with activations of
     `esize` bytes, from the backward route of each convolution; the
     segment sum runs twice where the plan has the sorted point layout, the
-    BCE kernels once each with `bce`."""
+    BCE kernels once each with `bce`. With `normal_guided`, the
+    convolutions at the plan's guided levels launch the gather conv once
+    each (their backward is PyTorch) and no chunk kernel."""
+    calls = conv_calls(plan, N_PLANES, in_features)
+    ng = [normal_guided and guided(c, plan) for c in calls]
     routes = collections.Counter(route_of(c, esize)
-                                 for c in conv_calls(plan, N_PLANES))
+                                 for c, g in zip(calls, ng) if not g)
     seg = 2 if plan.vox_seg is not None else 0
-    return {"chunk_conv": 33 + routes["#5"],
+    return {"chunk_conv": 33 - sum(ng) + routes["#5"],
             "chunk_conv_bwd_fused": routes["#3"] + routes["#4"],
             "chunk_conv_bwd_fused_kgrouped": routes["#4"],
             "chunk_conv_dw": routes["#5"], "blocked_segment_sum": seg,
             "bce_radius": int(bce), "bce_fwd": int(bce),
-            "bce_bwd": int(bce), "gather_conv": 0}
+            "bce_bwd": int(bce), "gather_conv": sum(ng)}
 
 
 def _counters():
@@ -790,9 +825,28 @@ def _mid_scene():
                       p_cap=MID_P_CAP, num_instances=16, seed=0)
 
 
+def forward_parity(dev, scene, model, phase="parity"):
+    """The 7 eval outputs of `model` on a prepared scene, on the card
+    (kernels) against the CPU (plain versions), within PARITY_TOL."""
+    from occuseg_tpu_torch.infer import Predictor
+    cpu_out = Predictor(model, "cpu")(scene)
+    gpu_out = Predictor(model, dev)(scene)  # moves the model to the card
+    torch.cuda.synchronize()
+    for name in gpu_out._fields:
+        g, c = getattr(gpu_out, name).cpu(), getattr(cpu_out, name)
+        check(g.shape == c.shape, f"{phase} {name}: shapes differ")
+        err = (g - c).abs().max().item()
+        scale = c.abs().max().item()
+        print(f"[{phase}] {name:<12} {tuple(c.shape)} max_abs_err={err:.3e} "
+              f"max|cpu|={scale:.3e}")
+        check(bool(torch.isfinite(g).all()), f"{phase} {name}: not finite")
+        check(err <= PARITY_TOL * max(scale, 1.0),
+              f"{phase} {name}: error {err} > {PARITY_TOL} x {scale}")
+
+
 def phase_parity(dev):
     from occuseg_tpu_torch.core.topology import PlanSpec
-    from occuseg_tpu_torch.infer import Predictor, prepare_scene
+    from occuseg_tpu_torch.infer import prepare_scene
     from occuseg_tpu_torch.models import LearningBWDenseUNet
 
     batch = _mid_scene()
@@ -801,19 +855,7 @@ def phase_parity(dev):
     model = LearningBWDenseUNet(N_PLANES,
                                 generator=torch.Generator().manual_seed(2))
     randomize_bn_stats(model, torch.Generator().manual_seed(3))
-    cpu_out = Predictor(model, "cpu")(scene)
-    gpu_out = Predictor(model, dev)(scene)  # moves the model to the card
-    torch.cuda.synchronize()
-    for name in gpu_out._fields:
-        g, c = getattr(gpu_out, name).cpu(), getattr(cpu_out, name)
-        check(g.shape == c.shape, f"parity {name}: shapes differ")
-        err = (g - c).abs().max().item()
-        scale = c.abs().max().item()
-        print(f"[parity] {name:<12} {tuple(c.shape)} max_abs_err={err:.3e} "
-              f"max|cpu|={scale:.3e}")
-        check(bool(torch.isfinite(g).all()), f"parity {name}: not finite")
-        check(err <= PARITY_TOL * max(scale, 1.0),
-              f"parity {name}: error {err} > {PARITY_TOL} x {scale}")
+    forward_parity(dev, scene, model)
 
 
 def phase_parity_train(dev):
@@ -821,16 +863,30 @@ def phase_parity_train(dev):
     from the same weights."""
     from occuseg_tpu_torch.core.topology import PlanSpec
     from occuseg_tpu_torch.models import LearningBWDenseUNet
-    from occuseg_tpu_torch.train.state import Trainer, prepare_batch
+    from occuseg_tpu_torch.train.state import prepare_batch
 
     laid, plan = prepare_batch(_mid_scene(), PlanSpec(caps=MID_CAPS))
     model = LearningBWDenseUNet(N_PLANES,
                                 generator=torch.Generator().manual_seed(7))
     randomize_bn_stats(model, torch.Generator().manual_seed(8))
-    cpu = Trainer(copy.deepcopy(model), "cpu", num_instances=16)
-    cpu_p = Trainer(copy.deepcopy(model), "cpu", num_instances=16)
-    gpu2 = Trainer(copy.deepcopy(model), dev, num_instances=16)
-    gpu = Trainer(model, dev, num_instances=16)
+    train_step_parity(dev, laid, plan, model, 16)
+
+
+def train_step_parity(dev, laid, plan, model, num_instances,
+                      phase="parity", own_sensitivity=False):
+    """One f32 training step of `model` on a prepared batch, on the card
+    (twice) and on the CPU (once more with 1e-6 input noise, the step's own
+    sensitivity): loss parts within PARITY_TOL, gradients within GRAD_TOL
+    of each tensor's max and GRAD_GLOBAL_TOL of the norm, the new BN
+    statistics within PARITY_TOL. With `own_sensitivity`, a tensor whose
+    gradient moves by more than GRAD_TOL / 5 of its max under the input
+    noise on the CPU alone is held to five times that movement instead
+    (the rule GRAD_TOL was set by, measured on this batch)."""
+    from occuseg_tpu_torch.train.state import Trainer
+
+    def trainer(d):
+        return Trainer(copy.deepcopy(model), d, num_instances=num_instances)
+    cpu, cpu_p, gpu2, gpu = (trainer(d) for d in ("cpu", "cpu", dev, dev))
     t0 = time.perf_counter()
     cpu_parts = cpu.step(laid, plan)
     t1 = time.perf_counter()
@@ -842,14 +898,14 @@ def phase_parity_train(dev):
                         .manual_seed(9))
     cpu_p.step(dict(laid, features=(feats * (1 + 1e-6 * noise)).numpy()),
                plan)
-    print(f"[parity] f32 train step: CPU {t1 - t0:.1f} s")
+    print(f"[{phase}] f32 train step: CPU {t1 - t0:.1f} s")
     for k, c in cpu_parts.items():
         g = float(gpu_parts[k])
         c = float(c)
-        print(f"[parity] step {k:<20} card={g:.6f} cpu={c:.6f}")
-        check(g == g and abs(g) != float("inf"), f"parity step {k}: {g}")
+        print(f"[{phase}] step {k:<20} card={g:.6f} cpu={c:.6f}")
+        check(g == g and abs(g) != float("inf"), f"{phase} step {k}: {g}")
         tol = 1e-2 if k == "instance_iou" else PARITY_TOL * abs(c) + 1e-6
-        check(abs(g - c) <= tol, f"parity step {k}: {g} vs {c}")
+        check(abs(g - c) <= tol, f"{phase} step {k}: {g} vs {c}")
 
     def grads(trainer):
         return [p.grad.detach().cpu() for p in trainer.model.parameters()]
@@ -869,26 +925,27 @@ def phase_parity_train(dev):
                    for c, c2, q, r, n in zip(card, card2, pert, ref, names)),
                   reverse=True)
     for e_c, e_g, e_p, n in rows[:5]:
-        print(f"[parity] step grad {n}: card vs CPU {e_c:.3e}; card vs card "
+        print(f"[{phase}] step grad {n}: card vs CPU {e_c:.3e}; card vs card "
               f"{e_g:.3e}; CPU vs CPU with 1e-6 input noise {e_p:.3e}")
     g_c, g_g, g_p = glob(card, ref), glob(card2, card), glob(pert, ref)
-    print(f"[parity] step gradients, relative to each tensor's max: card vs "
-          f"CPU max {rows[0][0]:.3e} median {rows[len(rows) // 2][0]:.3e} "
+    print(f"[{phase}] step gradients, relative to each tensor's max: card "
+          f"vs CPU max {rows[0][0]:.3e} median {rows[len(rows) // 2][0]:.3e} "
           f"over {len(rows)} tensors (CPU vs CPU with 1e-6 input noise: "
           f"max {max(r[2] for r in rows):.3e}); of the whole gradient's "
           f"norm: card vs CPU {g_c:.3e}, card vs card {g_g:.3e}, CPU "
           f"with noise {g_p:.3e}")
-    check(g_c <= GRAD_GLOBAL_TOL, f"parity gradients: {g_c} of the norm")
-    for c, r, n in zip(card, ref, names):
+    check(g_c <= GRAD_GLOBAL_TOL, f"{phase} gradients: {g_c} of the norm")
+    for c, r, q, n in zip(card, ref, pert, names):
         err = (c - r).abs().max().item()
-        check(err <= GRAD_TOL * r.abs().max().item() + GRAD_FLOOR,
-              f"parity grad {n}: error {err} > {GRAD_TOL} x max")
+        tol = max(GRAD_TOL, 5 * rel(q, r)) if own_sensitivity else GRAD_TOL
+        check(err <= tol * r.abs().max().item() + GRAD_FLOOR,
+              f"{phase} grad {n}: error {err} > {tol} x max")
     for (n, bc), (_, bg) in zip(cpu.model.named_buffers(),
                                 gpu.model.named_buffers()):
         err = (bg.cpu() - bc).abs().max().item()
         check(err <= PARITY_TOL * bc.abs().max().item() + 1e-6,
-              f"parity BN statistic {n}: error {err}")
-    print("[parity] step: new BN statistics agree")
+              f"{phase} BN statistic {n}: error {err}")
+    print(f"[{phase}] step: new BN statistics agree")
 
 
 # the classification loss with the BCE kernels against the port's chain at
@@ -1799,6 +1856,428 @@ def phase_instance(dev, tmp, ckpt_dir):
     instance_requests(dev)
 
 
+# [data]: the real-data training path. The slice's command line (2 cm
+# voxels, as the scans are prepared at), on synthetic scans in ScanNet's
+# raw layout with the bench scene's geometry
+DATA_FLAGS = ("--m", "64", "--use_dense_model", "--residual_blocks",
+              "--use_normal", "--use_feature", "cn", "--use_elastic",
+              "--scale", "50")
+DATA_SEEDS = {"train": (0, 1, 2, 3), "val": (4,)}
+DATA_SCENE = dict(num_points=200_000, extent=512, num_objects=24)
+# the normal-guided convolutions at level 0 per forward, by Cin: sub (cn,
+# 6 padded to 8), enc0.conv1/2 and dec0.conv2 (64), dec0.conv1 (128)
+DATA_L0_CONVS = {8: 1, 64: 3, 128: 1}
+
+
+def data_config(root, *extra):
+    from occuseg_tpu_torch.train.config import args_to_config, get_parser
+    return args_to_config(get_parser().parse_args(
+        [*DATA_FLAGS, "--data_dir", root, *extra]))
+
+
+def data_prepare(tmp):
+    """(a) 5 synthetic scans (the bench scene's geometry: 200k points,
+    extent 512 voxels, in metres at 2 cm) in ScanNet's raw layout through
+    `prepare_split`, 4 to train/ and 1 to val/; the ms of one scene's
+    normals and supervoxels, and of each whole scene."""
+    import numpy as np
+    from occuseg_tpu_torch.data import prepare, supervoxel_gen
+    from occuseg_tpu_torch.data.synthetic import (
+        SceneConfig, write_scannet_scan,
+    )
+    cfg = SceneConfig(**DATA_SCENE)
+    root = os.path.join(tmp, "scannet")
+    for split, seeds in DATA_SEEDS.items():
+        for s in seeds:
+            write_scannet_scan(os.path.join(tmp, "scans_" + split),
+                               f"scene{s:04d}_00", cfg, s)
+    v = prepare.read_ply(os.path.join(
+        tmp, "scans_train", "scene0000_00", "scene0000_00_vh_clean_2.ply"))
+    xyz = np.stack([v["x"], v["y"], v["z"]], 1).astype(np.float32)
+    rgb = (np.stack([v["red"], v["green"], v["blue"]], 1).astype(
+        np.float32) / 255.0 - 0.5) * 2
+    t0 = time.perf_counter()
+    supervoxel_gen.estimate_normals(xyz)
+    t1 = time.perf_counter()
+    region = supervoxel_gen.segment_supervoxels(xyz, rgb)
+    t2 = time.perf_counter()
+    per_scene = []
+    for split in DATA_SEEDS:
+        t = time.perf_counter()
+        out = prepare.prepare_split(os.path.join(tmp, "scans_" + split),
+                                    os.path.join(root, split))
+        per_scene.append(1e3 * (time.perf_counter() - t) / len(out))
+        check(len(out) == len(DATA_SEEDS[split]), f"{split}: {len(out)}")
+    z = np.load(os.path.join(root, "train", "scene0000_00_instance.npz"))
+    check(np.array_equal(z["region"], region), "prepared regions differ "
+          "from the segmenter's")
+    check(bool(np.isfinite(z["normals"]).all()), "normals not finite")
+    n_lab = len(np.unique(z["labels"][z["labels"] >= 0]))
+    print(f"[data] (a) prepared {sum(map(len, DATA_SEEDS.values()))} scans "
+          f"of {xyz.shape[0]} points: normals {1e3 * (t1 - t0):.0f} ms, "
+          f"supervoxels {1e3 * (t2 - t1):.0f} ms ({int(region.max()) + 1} "
+          f"regions), whole scene (prepare_split, one process) "
+          f"{', '.join(f'{t:.0f}' for t in per_scene)} ms (train, val); "
+          f"{n_lab} classes, "
+          f"{len(np.unique(z['instance_id'][z['instance_id'] >= 0]))} "
+          f"instances in scene 0")
+    return root
+
+
+def data_conv(dev, root, tot):
+    """(b) #9 over the permuted map at level 0 of one prepared scene's
+    plan (guide_levels 1), at the widths the normal-guided convolutions
+    take there, f32 and bf16, against its plain version, timed beside #1
+    over the unpermuted map; the PyTorch backward on the card against the
+    CPU, timed, and repeated bit for bit. These launches compare and are
+    not counted."""
+    import numpy as np
+    import torch.nn.functional as F
+    from occuseg_tpu_torch.infer import plan_scene
+    from occuseg_tpu_torch.ops import normal_guide as ng
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    from occuseg_tpu_torch.train import loop
+
+    config = data_config(root)
+    ds = loop.get_dataset(config)
+    raw = next(ds.val_batches(config["point_cap"], config["instance_cap"], 1))
+    plan = plan_scene(raw["coords"], loop.build_spec(config),
+                      normals=raw["normals"])
+    lvl = plan.levels[0]
+    check(lvl.guided and not plan.levels[1].guided, "guided levels")
+    N, na = lvl.cap, lvl.num_active
+    nbr = torch.from_numpy(lvl.nbr).to(dev)
+    orient = torch.from_numpy(lvl.orient).to(dev)
+    nbr_kn = ng.permute_neighbor_map(nbr, orient).t().contiguous()
+    fi, fl = (torch.from_numpy(a).to(dev) for a in (lvl.chunks.in_idx,
+                                                     lvl.chunks.lidx))
+    classes = np.bincount(lvl.orient[:na], minlength=5)[[0, 2, 4]].tolist()
+    nnz = int((nbr_kn >= 0).sum())
+    print(f"[data] (b) level 0 of the val scene: {N} rows, {na} active, "
+          f"orientation classes 0/2/4: {classes}, {nnz} neighbour "
+          f"pairs ({nnz / max(na, 1):.1f} a site)")
+    gen = torch.Generator().manual_seed(13)
+    fwd = {}
+    for cin, uses in DATA_L0_CONVS.items():
+        x = torch.randn(N, cin, generator=gen)
+        x[na:] = 0
+        w = torch.randn(27, cin, 64, generator=gen) * (2 / (27 * cin)) ** .5
+        for dt, tol, peak in ((torch.float32, F32_TOL, PEAK_F32),
+                              (torch.bfloat16, BF16_TOL, PEAK_BF16)):
+            xd, wd = x.to(dev, dt), w.to(dev, dt)
+            pad = (-cin) % 16       # the chunk kernels' MMA depth
+            xc, wc = F.pad(xd, (0, pad)), F.pad(wd, (0, 0, 0, pad))
+            with torch.inference_mode():
+                out = gc.gather_conv(xd, nbr_kn, wd)
+                err, scale = check_close(f"[data] gather_conv L0 Cin={cin} "
+                                         f"{dt}", out,
+                                         gc.gather_conv_plain(xd, nbr_kn, wd),
+                                         tol)
+                check(torch.equal(out, gc.gather_conv(xd, nbr_kn, wd)),
+                      f"gather_conv L0 Cin={cin}: other bits")
+                ms = cuda_ms(lambda: gc.gather_conv(xd, nbr_kn, wd), 10)
+                pms = cuda_ms(lambda: gc.gather_conv_plain(xd, nbr_kn, wd),
+                              2)
+                cms = cuda_ms(lambda: cc.chunk_conv(xc, fi, fl, wc), 10)
+            flops = 2.0 * nnz * cin * 64
+            nb = nbytes(xd, nbr_kn, wd, out)
+            bnd, by = bound_ms(flops, nb, peak)
+            print(f"[data] (b) gather_conv (#9) L0 Cin={cin}->64 {dt}: "
+                  f"max_abs_err {err:.3e} (max|out| {scale:.3e}), two "
+                  f"launches the same bits; kernel {ms:.4f} ms, chunk_conv "
+                  f"(#1, unpermuted map) {cms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {bnd:.4f} ms ({by}); {uses} a forward")
+            if dt == torch.float32:
+                tot.add("gather_conv_cli", uses * ms, uses * pms, err,
+                        uses * flops, uses * nb, PEAK_F32)
+                fwd[cin] = dict(Cin=cin, uses=uses, ms=ms, plain_ms=pms,
+                                chunk_conv_ms=cms, bound_ms=bnd)
+            else:
+                fwd[cin].update(bf16_ms=ms, bf16_chunk_conv_ms=cms)
+    tot.gather_cli = list(fwd.values())
+
+    # the backward (PyTorch, no atomics), f32
+    def fwd_bwd(x, w, g, nbr_, orient_):
+        x, w = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = ng.normal_guided_conv(x, nbr_, orient_, w)
+        return torch.autograd.grad(out, (x, w), g)
+
+    bwd_ms = 0.0
+    for cin, uses in DATA_L0_CONVS.items():
+        cin_in = 6 if cin == 8 else cin     # the first conv's cn
+        x = torch.randn(N, cin_in, generator=gen)
+        x[na:] = 0
+        w = torch.randn(27, cin_in, 64, generator=gen)
+        g = torch.randn(N, 64, generator=gen)
+        g[na:] = 0
+        xd, wd, gd = x.to(dev), w.to(dev), g.to(dev)
+        card = fwd_bwd(xd, wd, gd, nbr, orient)
+        card2 = fwd_bwd(xd, wd, gd, nbr, orient)
+        check(all(torch.equal(a, b) for a, b in zip(card, card2)),
+              f"normal-guided backward Cin={cin_in}: other bits")
+        both = cuda_ms(lambda: fwd_bwd(xd, wd, gd, nbr, orient), 3)
+        with torch.no_grad():
+            f_ms = cuda_ms(lambda: ng.normal_guided_conv(xd, nbr, orient, wd),
+                           3)
+        bwd_ms += uses * (both - f_ms)
+        msg = ""
+        if cin == 64:
+            t0 = time.perf_counter()
+            cpu = fwd_bwd(x, w, g, nbr.cpu(), orient.cpu())
+            t_cpu = time.perf_counter() - t0
+            errs = [check_close(f"[data] normal-guided backward {name}",
+                                a.cpu(), b, tol)
+                    for name, a, b, tol in zip(("d_feats", "dW"), card, cpu,
+                                               (F32_TOL, DW_TOL))]
+            msg = (f"; card vs CPU ({t_cpu:.1f} s): d_feats "
+                   f"{errs[0][0]:.3e} (max {errs[0][1]:.3e}), dW "
+                   f"{errs[1][0]:.3e} (max {errs[1][1]:.3e})")
+        print(f"[data] (b) normal-guided conv L0 Cin={cin_in}->64 f32: "
+              f"forward {f_ms:.3f} ms, forward + backward {both:.3f} ms, "
+              f"two backwards the same bits{msg}")
+    print(f"[data] (b) per step at level 0: #9 forwards "
+          f"{tot.rows['gather_conv_cli']['ms']:.3f} ms (f32), the "
+          f"normal-guided backwards {bwd_ms:.3f} ms")
+    tot.ng_bwd_ms = bwd_ms
+    torch.cuda.empty_cache()
+
+
+def data_parity(dev, root):
+    """(c) The full-width normal-guided model (m=64, cn) on the prepared
+    val scene (32,768 of its points: the CPU's share of the phase) in f32
+    on the card and on the CPU from the same weights: the 7 eval outputs,
+    then one training step, with [parity]'s tolerances."""
+    from occuseg_tpu_torch.infer import prepare_scene
+    from occuseg_tpu_torch.train import loop
+    from occuseg_tpu_torch.train.state import prepare_batch
+
+    config = data_config(root, "--point_cap", "32768", "--voxel_cap",
+                         "32768")
+    spec = loop.build_spec(config)
+    ds = loop.get_dataset(config)
+    raw = next(ds.val_batches(config["point_cap"], config["instance_cap"], 1))
+    scene = prepare_scene(raw["coords"], raw["features"], spec,
+                          raw["normals"])
+    check(scene.plan.levels[0].guided, "no orientation at level 0")
+    model = loop.build_model(config, torch.Generator().manual_seed(12))
+    randomize_bn_stats(model, torch.Generator().manual_seed(14))
+    print(f"[data] (c) val scene, {scene.num_points} points, active "
+          f"voxels per level {[l.num_active for l in scene.plan.levels]}, "
+          f"caps {spec.caps}")
+    forward_parity(dev, scene, model, "data")
+    laid, plan = prepare_batch(raw, spec)
+    # 32,768 of 200k points leave the coarse levels a few hundred sparse
+    # voxels: BN over them makes single gradients there as sensitive to
+    # rounding as to 1e-6 input noise (8.5e-2 of a tensor's max on the
+    # CPU alone, H100 80GB HBM3 at 700 W), so each tensor is held to five
+    # times its own measured sensitivity, and the whole to GRAD_GLOBAL_TOL
+    train_step_parity(dev, laid, plan, model, config["instance_cap"], "data",
+                      own_sensitivity=True)
+
+
+def data_cli(dev, root, tmp):
+    """(d) The training CLI on the prepared directory: one epoch, f32,
+    OCC_PALLAS_BCE=1, 4 plan threads. The launches against those the
+    model and the plans predict, finite losses, every parameter moved,
+    the checkpoint and the semantic eval; then the step timed on the
+    epoch's batch with and without --use_normal, in turns, and profiled."""
+    import numpy as np
+    from occuseg_tpu_torch.infer import plan_scene
+    from occuseg_tpu_torch.train import cli, loop
+    from occuseg_tpu_torch.train.state import Trainer, pinned, prepare_batch
+
+    os.environ["OCC_PALLAS_BCE"] = "1"
+    argv = [*DATA_FLAGS, "--plan_workers", "4", "--max_epoch", "1",
+            "--data_dir", root, "--checkpoints_dir",
+            os.path.join(tmp, "ckpts_data")]
+    config = data_config(root, *argv[len(DATA_FLAGS):])
+    spec = loop.build_spec(config)
+    ds = loop.get_dataset(config)
+    ns, fin = config["batch_size"], config["input_feature_number"]
+    rng = np.random.default_rng(100)   # the loop's seed: the same batches
+    expected = collections.Counter()
+    batches = []
+    for batch in ds.train_batches(rng, config["point_cap"],
+                                  config["instance_cap"], ns):
+        t0 = time.perf_counter()
+        laid, plan = prepare_batch(batch, spec, ns)
+        t_plan = 1e3 * (time.perf_counter() - t0)
+        pred = predicted_launches(plan, esize=4, bce=True, in_features=fin,
+                                  normal_guided=True)
+        expected.update(pred)
+        batches.append((batch, laid, plan))
+        print(f"[data] (d) batch of {ns} scenes: level-0 voxels "
+              f"{plan.levels[0].num_active.tolist()} (sub-cap "
+              f"{plan.levels[0].cap // ns}), host plan {t_plan:.0f} ms; "
+              f"predicted launches per step {pred}")
+    for raw in ds.val_batches(config["point_cap"], config["instance_cap"],
+                              1):
+        vplan = plan_scene(raw["coords"], spec, normals=raw["normals"])
+        n_ng = sum(guided(c, vplan) for c in conv_calls(vplan, N_PLANES,
+                                                         fin))
+        expected.update({k: 2 * v for k, v in {   # snapshot + CLI evals
+            "chunk_conv": 33 - n_ng, "gather_conv": n_ng,
+            "blocked_segment_sum": int(vplan.vox_seg is not None)}.items()})
+    init = loop.build_model(config, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    result = cli.main(argv, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    trainer = result["trainer"]
+    moved = sum(not torch.equal(p.detach().cpu(), q)
+                for p, q in zip(trainer.model.parameters(),
+                                init.parameters()))
+    n_params = len(list(init.parameters()))
+    print(f"[data] (d) cli.main: {result['steps']} step(s) + 2 evals in "
+          f"{wall:.1f} s; step ms {result['timings']['step_ms']}, waits "
+          f"{result['timings']['wait_ms']} ms; losses {result['losses']}; "
+          f"val mean IoU {result['metrics']['mean_iou']:.4f}; {moved} of "
+          f"{n_params} parameter tensors moved")
+    print(f"[data] (d) launches {launches}, expected {dict(expected)}")
+    check(result["steps"] == len(batches), f"{result['steps']} steps")
+    check(all(v == v and abs(v) != float("inf")
+              for v in result["losses"].values()), "losses not finite")
+    check(moved == n_params, f"only {moved} of {n_params} moved")
+    check(launches == dict(expected), f"data launches {launches}, expected "
+          f"{dict(expected)}")
+    check(launches["gather_conv"] > 0, "#9 was not launched")
+    check(os.path.isfile(os.path.join(result["ckpt_dir"], "step_1.pth")),
+          "no checkpoint")
+    check(0.0 <= result["metrics"]["mean_iou"] <= 1.0, "eval mean IoU")
+
+    # the step on the epoch's batch, with and without --use_normal
+    batch = batches[0][0]
+    runs = {}
+    for use_normal in (False, True):
+        cfg = dict(config, use_normal=use_normal)
+        laid, plan = prepare_batch(batch, loop.build_spec(cfg), ns)
+        t = Trainer(loop.build_model(cfg, torch.Generator().manual_seed(0)),
+                    dev, num_instances=config["instance_cap"],
+                    num_scenes=ns)
+        runs[use_normal] = (t, pinned(laid, plan), [])
+        t.step(*runs[use_normal][1])   # warm-up
+    for use_normal in (False, True, True, False):
+        t, args, times = runs[use_normal]
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts = t.step(*args)
+            float(parts["total"])
+            times.append(1e3 * (time.perf_counter() - t0))
+    med = {k: sorted(v[2])[len(v[2]) // 2] for k, v in runs.items()}
+    print(f"[data] (d) step on the epoch's batch (f32, 6 steps each, in "
+          f"turns): --use_normal {med[True]:.1f} ms "
+          f"({', '.join(f'{x:.1f}' for x in runs[True][2])}), without "
+          f"{med[False]:.1f} ms "
+          f"({', '.join(f'{x:.1f}' for x in runs[False][2])})")
+    busy = {k: profile_step(lambda: runs[k][0].step(*runs[k][1]),
+                            "data") for k in (True, False)}
+    for k in (True, False):
+        print(f"[data] (d) {'with' if k else 'without'} --use_normal: "
+              f"device busy {busy[k]:.2f} ms of the median step "
+              f"{med[k]:.2f} ms ({100 * busy[k] / med[k]:.1f}%)")
+    os.environ.pop("OCC_PALLAS_BCE")
+    return launches, result["ckpt_dir"]
+
+
+def data_import(dev, root, tmp):
+    """(e) A synthetic state dict in the reference's layout (random
+    tensors under the name map's keys, shaped like the port's tensors: a
+    Linear weight [out, in] is the reference's layout too), saved with
+    torch.save, loaded by the training CLI's --checkpoint_file for one
+    step: the restored weights and BN statistics equal the tensors as
+    mapped."""
+    from occuseg_tpu_torch.train import loop
+    from occuseg_tpu_torch.train.checkpoint import import_torch_state_dict
+    from occuseg_tpu_torch.train.torch_import import learning_bw_name_map
+
+    config = data_config(root, "--checkpoints_dir",
+                         os.path.join(tmp, "ckpts_import"))
+    model = loop.build_model(config)
+    ref = model.state_dict()
+    name_map = learning_bw_name_map(config["unet_structure"],
+                                    config["block_reps"],
+                                    config["residual_blocks"])
+    gen = torch.Generator().manual_seed(15)
+    sd = {}
+    for tkey, fpath in name_map.items():
+        p = fpath.split("/")
+        key = ".".join(p[:-1] + ["weight" if p[-1] == "kernel" else p[-1]])
+        t = torch.randn(ref[key].shape, generator=gen) * 0.1
+        sd[tkey] = t.abs() + 0.5 if tkey.endswith("running_var") else t
+    path = os.path.join(tmp, "baseline_m64.pth")
+    torch.save(sd, path)
+    restored = {}
+    r = loop.train(dict(config, load=path), max_steps=1, device=dev,
+                   on_start=lambda t: restored.update(
+                       copy.deepcopy(t.state_dict())))
+    torch.cuda.synchronize()
+    mapped = import_torch_state_dict(sd, model, name_map)
+    check(set(restored["model"]) == set(mapped), "imported keys")
+    check(all(torch.equal(restored["model"][k].cpu(), v)
+              for k, v in mapped.items()),
+          "restored parameters differ from the tensors as mapped")
+    check(restored["steps"] == 0 and not restored["optimizer"]["state"],
+          "the import carried optimizer state")
+    check(r["steps"] == 1 and all(v == v for v in r["losses"].values()),
+          f"import step {r['steps']} {r['losses']}")
+    print(f"[data] (e) imported {len(sd)} reference tensors from "
+          f"{os.path.basename(path)}: the restored state equals them as "
+          f"mapped; one step ran, losses {r['losses']}")
+
+
+def data_evaluate(dev, root, tmp, ckpt_dir):
+    """(f) `evaluate_instance.main` inline on the prepared val scene with
+    (d)'s checkpoint and --use_merge; no normals, as the JAX script (see
+    evaluate_instance.infer_scenes). AP printed, not gated."""
+    import numpy as np
+    from occuseg_tpu_torch import evaluate_instance as ei
+
+    argv = [*DATA_FLAGS, "--data_dir", root, "--checkpoint_file", ckpt_dir,
+            "--use_merge", *OPEN_OCCUPANCY]
+    work = os.path.join(tmp, "data_eval")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)  # main writes instance_stat.mat to the working directory
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        res = ei.main(argv, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    launches = read_launches()
+    check(launches["gather_conv"] == 0 and launches["chunk_conv"] == 33,
+          f"evaluation launches {launches}")
+    aps = {}
+    for thr in (25, 50):
+        ap = res[f"ap_{thr}"]
+        ok = np.isfinite(ap)
+        aps[thr] = float(ap[ok].mean()) if ok.any() else 0.0
+    props = [sum(map(len, p)) for p in res["proposals"]]
+    print(f"[data] (f) evaluate_instance on the prepared val scene: "
+          f"{wall:.1f} s, proposals {props}, launches {launches}; AP@0.25 "
+          f"{aps[25]:.4f}, AP@0.5 {aps[50]:.4f} (random weights, one step; "
+          f"not gated)")
+
+
+def phase_data(dev, tmp, tot):
+    """[data]: the real-data path, (a)-(f) above. Returns the launches of
+    (d)'s CLI run."""
+    root = data_prepare(tmp)
+    data_conv(dev, root, tot)
+    data_parity(dev, root)
+    launches, ckpt_dir = data_cli(dev, root, tmp)
+    data_import(dev, root, tmp)
+    data_evaluate(dev, root, tmp, ckpt_dir)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1826,6 +2305,7 @@ def main() -> int:
                                          os.path.abspath(__file__))) as tmp:
         loop_launches, ckpt_dir = phase_loop(dev, tmp)
         phase_instance(dev, tmp, ckpt_dir)
+        data_launches = phase_data(dev, tmp, tot)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     src = "occuseg_tpu_torch/csrc/"
@@ -1863,9 +2343,11 @@ def main() -> int:
         entry("bce_bwd", "bce_bwd", "bce_loss.cu", "bce_loss.py:289",
               loop_launches["bce_bwd"], max_abs_err_of=tot.bce_bwd_err_of,
               chain_ms=tot.chain_ms[1] - tot.chain_ms[0]),
-        # no caller in either package: L3-L5 of the bench plan, summed
-        entry("gather_conv", "gather_conv", "gather_conv.cu",
-              "gather_conv.py:112", loop_launches["gather_conv"],
+        # the normal-guided convolutions of the CLI at level 0, per step
+        # (f32); beside them L3-L5 of the bench plan in bf16
+        entry("gather_conv", "gather_conv_cli", "gather_conv.cu",
+              "gather_conv.py:112", data_launches["gather_conv"],
+              cli_level0=tot.gather_cli, ng_backward_ms=tot.ng_bwd_ms,
               levels=tot.gather_levels),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@ blocked multi-scene layout of `native/blocked.py`), so masks need no
 device round trip.
 
 Maps (all padded, -1 = missing):
-  * per level: Morton-sorted voxel keys/coords and the submanifold
-    neighbor map `nbr[cap, K]`;
+  * per level: Morton-sorted voxel keys/coords, the submanifold
+    neighbor map `nbr[cap, K]` and the orientation class `orient[cap]`
+    of each site (zeros unless the plan was built with point normals);
   * per level transition: `child[cap_coarse, 8]` (fine rows feeding each
     coarse site, the strided-conv rulebook) and `up[cap_fine, 8]` (the
     coarse row feeding each fine site, the deconvolution rulebook);
@@ -78,7 +79,9 @@ class _DeviceArrays:
     """`to(device)` and `pinned()` over the arrays a device reads, which
     each plan class names once, in `_map(fn)`. The neighbour, child and up
     maps, keys and coords stay on the host: the model reads only their
-    shapes, and the chunk rulebooks and the point arrays on the device."""
+    shapes, and the chunk rulebooks and the point arrays on the device
+    (and, at a level with normals, `LevelTopology.guided`, the neighbour
+    map and the orientation classes)."""
 
     def _map(self, fn):
         raise NotImplementedError
@@ -113,12 +116,22 @@ class ChunkPlan(_DeviceArrays):
 
 @dataclasses.dataclass(frozen=True)
 class LevelTopology(_DeviceArrays):
-    """Active-site set of one scale and its submanifold neighbor map."""
+    """Active-site set of one scale and its submanifold neighbor map.
+
+    `orient` holds each site's orientation class {0, 2, 4} for the
+    normal-guided convolutions (`ops/normal_guide.py`); `guided` says the
+    plan carried normals down to this level (`PlanSpec.guide_levels`).
+    Its normal-guided convolutions then read `nbr` and `orient` on the
+    device, so both are uploaded; elsewhere `orient` is all zeros (the
+    identity filter), the chunk rulebook serves them, and both stay on
+    the host."""
 
     keys: object        # int64 [cap], sorted, KEY_PAD padding
     coords: object      # int32 [cap, 4] (b,z,y,x), -1 padding
     num_active: object  # int, or int32 [ns] per-scene counts (blocked)
     nbr: object         # int32 [cap, K] neighbor rows, -1 missing
+    orient: object = None  # int32 [cap] orientation class, zeros = identity
+    guided: bool = False
     chunks: Optional[ChunkPlan] = None
 
     @property
@@ -126,8 +139,10 @@ class LevelTopology(_DeviceArrays):
         return self.nbr.shape[0]
 
     def _map(self, fn) -> "LevelTopology":
-        return dataclasses.replace(self, num_active=_counts(self.num_active),
-                                   chunks=_map_each(self.chunks, fn))
+        guided = fn if self.guided else (lambda a: a)
+        return dataclasses.replace(
+            self, num_active=_counts(self.num_active), nbr=guided(self.nbr),
+            orient=guided(self.orient), chunks=_map_each(self.chunks, fn))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,13 +188,17 @@ class Topology(_DeviceArrays):
 @dataclasses.dataclass(frozen=True)
 class PlanSpec:
     """Static description of the multiscale topology a network needs:
-    caps[l] is the padded active-site budget at level l."""
+    caps[l] is the padded active-site budget at level l. `guide_levels`
+    only matters for plans built with point normals."""
 
     caps: Tuple[int, ...]
     kernel: int = 3
     dilation: int = 1
     down_size: int = 2
     down_stride: int = 2
+    # levels 0..guide_levels-1 carry normals and orientation classes (the
+    # reference's normal_guide_scale cutoff); None = every level
+    guide_levels: Optional[int] = None
 
     @property
     def num_levels(self) -> int:

@@ -57,7 +57,8 @@
 // L5 (gather_no_steps), and every block reloads the W tiles it needs,
 // where the chunk convolution stages each chunk's distinct rows once per
 // Cin tile and reuses them over the 27 offsets.
-// f32 (no caller; wgmma takes no f32) keeps the first version: one block
+// f32 (the training CLI's normal-guided convolutions; wgmma takes no f32)
+// keeps the first version: one block
 // (8 warps) per (64 output rows, 64 output columns); per offset and Cin
 // tile of 32 columns the block gathers the [64, 32] A tile and the
 // [32, 64] tile of W[k] with synchronous 16-byte loads, and each thread

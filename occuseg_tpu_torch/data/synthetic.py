@@ -225,3 +225,86 @@ def make_batch(cfg: SceneConfig, num_scenes: int, p_cap: int,
         "displacements": pad(displacements, 0),
         "occupancy": pad(occupancy, 0),
     }
+
+
+# NYU40 ids of the 20 ScanNet classes (`data/prepare.VALID_CLASS_IDS`)
+_NYU40_IDS = np.array([1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28,
+                       33, 34, 36, 39])
+
+
+def _ply_bytes(rec: np.ndarray, props, faces: np.ndarray, ascii: bool
+               ) -> bytes:
+    """A PLY file of the vertex records `rec` (fields `props`, (name, PLY
+    type)) and the triangles `faces` [F, 3]."""
+    head = [f"ply\nformat {'ascii' if ascii else 'binary_little_endian'} "
+            f"1.0\nelement vertex {rec.shape[0]}\n"]
+    head += [f"property {t} {n}\n" for n, t in props]
+    head += [f"element face {faces.shape[0]}\n",
+             "property list uchar int vertex_indices\nend_header\n"]
+    if ascii:
+        rows = [" ".join(str(v) for v in r) for r in rec.tolist()]
+        rows += ["3 " + " ".join(map(str, f)) for f in faces.tolist()]
+        return ("".join(head) + "\n".join(rows) + "\n").encode()
+    tri = np.zeros(faces.shape[0], [("n", "u1"), ("v", "<i4", (3,))])
+    tri["n"], tri["v"] = 3, faces
+    return "".join(head).encode() + rec.tobytes() + tri.tobytes()
+
+
+def write_scannet_scan(scan_dir: str, name: str, cfg: SceneConfig,
+                       seed: int, annotations: bool = True,
+                       regions: bool = False, ascii: bool = False) -> str:
+    """One `generate_scene` room written in ScanNet's raw layout under
+    `scan_dir/name/`, in metres (voxel coordinates / cfg.scale, x y z):
+    `<name>_vh_clean_2.ply` (x, y, z, red, green, blue, and triangles) and,
+    with `annotations`, `<name>_vh_clean_2.labels.ply` (NYU40 `label`; one
+    segment in 7 carries id 40, which no class takes),
+    `<name>_vh_clean_2.0.010000.segs.json` (segments of up to 8 per
+    object: the room's objects, its wall and its floor) and
+    `<name>.aggregation.json`; with `regions`, a
+    `<name>_vh_clean_2.regions.json` of the segments. Returns the mesh
+    path, the input of `data/prepare.prepare_scene`."""
+    import json
+    import os
+
+    sc = generate_scene(cfg, seed)
+    xyz = (sc["xyz"][:, ::-1] / cfg.scale).astype(np.float32)
+    n = xyz.shape[0]
+    rgb = np.clip(np.round((sc["colors"] + 1) * 127.5), 0, 255).astype(
+        np.uint8)
+    n_obj = int(sc["instance_id"].max()) + 1
+    obj = np.where(sc["instance_id"] >= 0, sc["instance_id"],
+                   n_obj + sc["labels"])          # wall, floor: objects too
+    cell = np.floor(xyz[:, :2] / 0.5).astype(np.int64)
+    seg = obj * 8 + (cell[:, 0] + 3 * cell[:, 1]) % 8
+    faces = np.stack([np.arange(0, n - 2, 3), np.arange(1, n - 1, 3),
+                      np.arange(2, n, 3)], axis=1)[:64]
+    out = os.path.join(scan_dir, name)
+    os.makedirs(out, exist_ok=True)
+    base = os.path.join(out, name)
+    props = [("x", "float"), ("y", "float"), ("z", "float"),
+             ("red", "uchar"), ("green", "uchar"), ("blue", "uchar")]
+    rec = np.zeros(n, [("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                       ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+    rec["x"], rec["y"], rec["z"] = xyz.T
+    rec["red"], rec["green"], rec["blue"] = rgb.T
+    with open(base + "_vh_clean_2.ply", "wb") as f:
+        f.write(_ply_bytes(rec, props, faces, ascii))
+    if annotations:
+        lab = np.zeros(n, rec.dtype.descr + [("label", "<u2")])
+        for k in rec.dtype.names:
+            lab[k] = rec[k]
+        lab["label"] = np.where(seg % 7 == 0, 40, _NYU40_IDS[sc["labels"]])
+        with open(base + "_vh_clean_2.labels.ply", "wb") as f:
+            f.write(_ply_bytes(lab, props + [("label", "ushort")], faces,
+                               ascii))
+        with open(base + "_vh_clean_2.0.010000.segs.json", "w") as f:
+            json.dump({"segIndices": seg.tolist()}, f)
+        groups = [{"id": int(o), "objectId": int(o),
+                   "segments": np.unique(seg[obj == o]).tolist()}
+                  for o in np.unique(obj)]
+        with open(base + ".aggregation.json", "w") as f:
+            json.dump({"sceneId": name, "segGroups": groups}, f)
+    if regions:
+        with open(base + "_vh_clean_2.regions.json", "w") as f:
+            json.dump({"segIndices": seg.tolist()}, f)
+    return base + "_vh_clean_2.ply"

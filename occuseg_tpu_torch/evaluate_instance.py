@@ -231,6 +231,9 @@ def infer_scenes(config: Dict, args, model: Optional[torch.nn.Module] = None,
     scale = float(config.get("scale", 20))
     for i, raw in enumerate(dataset.val_batches(config["point_cap"],
                                                 config["instance_cap"], 1)):
+        # no normals, as the JAX script's eval step is built without
+        # use_normals (scripts/evaluate_instance.py:125): under --use_normal
+        # every orientation class is 0, the identity filter
         scene = prepare_scene(raw["coords"], raw["features"], spec)
         yield f"scene{i:04d}", dump_scene(raw, predictor(scene), scale)
 

@@ -14,6 +14,7 @@ in the request's original point order.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,11 +40,13 @@ class PreparedScene:
         return self.features.shape[0]
 
 
-def plan_scene(coords: np.ndarray, spec: PlanSpec, ns: int = 1) -> Topology:
+def plan_scene(coords: np.ndarray, spec: PlanSpec, ns: int = 1,
+               normals: Optional[np.ndarray] = None) -> Topology:
     """Host plan from coords [P, 4] int32 (b,z,y,x; -1 rows are padding),
     as the benchmark builds it: C++ planner (the blocked multi-scene layout
-    for ns > 1 scenes), chunk rulebooks, sorted point layout."""
-    return augment_plan(build_plan_host_blocked(coords, spec, ns))
+    for ns > 1 scenes; orientation classes from the points' `normals`
+    [P, 3] when given), chunk rulebooks, sorted point layout."""
+    return augment_plan(build_plan_host_blocked(coords, spec, ns, normals))
 
 
 def augment_plan(plan: Topology) -> Topology:
@@ -60,10 +63,12 @@ def augment_plan(plan: Topology) -> Topology:
 
 
 def prepare_scene(coords: np.ndarray, features: np.ndarray,
-                  spec: PlanSpec) -> PreparedScene:
-    """Host preparation of one scene: its plan (`plan_scene`) and the
-    features [P, C] permuted into the plan's point layout."""
-    plan = plan_scene(coords, spec)
+                  spec: PlanSpec, normals: Optional[np.ndarray] = None
+                  ) -> PreparedScene:
+    """Host preparation of one scene: its plan (`plan_scene`, with the
+    points' `normals` for a normal-guided model) and the features [P, C]
+    permuted into the plan's point layout."""
+    plan = plan_scene(coords, spec, normals=normals)
     laid = apply_point_layout({"features": np.asarray(features, np.float32)},
                               plan)
     return PreparedScene(plan=plan, features=laid["features"],

@@ -3,9 +3,13 @@
 nothing else depends on the mode.
 
 * `_Backbone`: InputLayer -> SubmanifoldConv(in, m) -> UNet -> BN-ReLU ->
-  OutputLayer. `compute_dtype` (bf16 on the card) is the dtype of every
-  activation; parameters stay f32 and are cast at each use; BN statistics
-  and conv accumulation are f32; the per-point output is cast to f32.
+  OutputLayer. `in_features` is the point feature width (the config's
+  `input_feature_number`: 3 for colours, 6 for colours and normals);
+  `normal_guided` (--use_normal) rotates every submanifold convolution's
+  filter by the plan's orientation classes. `compute_dtype` (bf16 on the
+  card) is the dtype of every activation; parameters stay f32 and are
+  cast at each use; BN statistics and conv accumulation are f32; the
+  per-point output is cast to f32.
 * `InstanceDenseUNet`: backbone + semantic, embedding, offset (sigmoid)
   and displacement heads, each fc -> linear in f32 with no activation in
   between.
@@ -29,8 +33,6 @@ from occuseg_tpu_torch.nn.modules import (
     SubmanifoldConvolution,
 )
 from occuseg_tpu_torch.nn.unet import UNet
-
-IN_FEATURES = 3  # point colors
 
 
 class OccuSegOutputs(NamedTuple):
@@ -62,15 +64,17 @@ class _Backbone(nn.Module):
     def __init__(self, n_planes: Sequence[int], block_reps: int = 1,
                  residual_blocks: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
+                 in_features: int = 3, normal_guided: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.input = InputLayer()
-        self.sub = SubmanifoldConvolution(IN_FEATURES, n_planes[0],
+        self.sub = SubmanifoldConvolution(in_features, n_planes[0],
+                                          normal_guided=normal_guided,
                                           generator=generator)
         self.unet = UNet(block_reps, tuple(n_planes),
                          residual_blocks=residual_blocks,
-                         generator=generator)
+                         normal_guided=normal_guided, generator=generator)
         self.bn = BatchNormReLU(n_planes[0])
         self.output = OutputLayer()
 
@@ -89,11 +93,13 @@ class InstanceDenseUNet(nn.Module):
     def __init__(self, n_planes: Sequence[int], num_classes: int = 20,
                  block_reps: int = 1, residual_blocks: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
+                 in_features: int = 3, normal_guided: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         m = n_planes[0]
         self.backbone = _Backbone(n_planes, block_reps, residual_blocks,
-                                  compute_dtype, generator)
+                                  compute_dtype, in_features, normal_guided,
+                                  generator)
         self.linear = _linear(m, num_classes, generator)
         self.fc_embedding = _linear(m, m, generator)
         self.linear_embedding = _linear(m, m, generator)
@@ -119,11 +125,13 @@ class LearningBWDenseUNet(nn.Module):
     def __init__(self, n_planes: Sequence[int], num_classes: int = 20,
                  block_reps: int = 1, residual_blocks: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
+                 in_features: int = 3, normal_guided: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         m = n_planes[0]
         self.backbone = InstanceDenseUNet(n_planes, num_classes, block_reps,
                                           residual_blocks, compute_dtype,
+                                          in_features, normal_guided,
                                           generator)
         self.fc_bw = _linear(m, m, generator)
         self.linear_bw = _linear(m, 2, generator)

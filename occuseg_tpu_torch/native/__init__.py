@@ -5,7 +5,8 @@ gitignored `occuseg_tpu_torch/build/` directory (nothing is written into
 `csrc/`). There is no NumPy fallback: if the library cannot be built or
 loaded, the first call raises.
 
-Only the planner entry points the port's paths need are bound. ctypes
+Only the entry points the port's paths need are bound: the planner's and
+the supervoxel segmentation of data preparation. ctypes
 releases the GIL for the duration of each call, so plans build in threads
 (`native/pool.py`). Two of them get input checks in front of the C code, which trusts its callers:
 `plan_neighbor_map_derived` indexes a 3x3x3 table by the offsets and leaves
@@ -60,6 +61,11 @@ def load() -> ctypes.CDLL:
     lib.plan_chunks.argtypes = [_i32p, ctypes.c_int32, ctypes.c_int32,
                                 ctypes.c_int32, ctypes.c_int32,
                                 _i32p, _i32p, _i32p, ctypes.c_int32]
+    lib.segment_supervoxels.restype = ctypes.c_int32
+    lib.segment_supervoxels.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int32, _i32p]
     lib.gather_rows.restype = None
     lib.gather_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p, _i64p,
                                 ctypes.c_int64, ctypes.c_int64,
@@ -180,6 +186,29 @@ def plan_chunks(nbr: np.ndarray, M: int, U: int):
     if max_uniq > U:
         return None, int(max_uniq)
     return in_idx, lidx
+
+
+def segment_supervoxels(points: np.ndarray, feat: np.ndarray, cell: float,
+                        k_thresh: float, min_size: int) -> np.ndarray:
+    """Felzenszwalb-Huttenlocher segmentation of points [N, 3] with edge
+    features feat [N, F] over the `cell`-sized voxel adjacency: [N] int32
+    segment ids, dense from 0 in first-seen order."""
+    pts = np.ascontiguousarray(points, np.float32)
+    ft = np.ascontiguousarray(feat, np.float32)
+    if pts.ndim != 2 or pts.shape[1] != 3:
+        raise ValueError(f"points must be [N,3], got {pts.shape}")
+    if ft.ndim != 2 or ft.shape[0] != pts.shape[0]:
+        raise ValueError(f"feat must be [N,F] with N={pts.shape[0]}, got "
+                         f"{ft.shape}")
+    if not cell > 0:
+        raise ValueError(f"cell must be positive, got {cell}")
+    n = pts.shape[0]
+    out = np.empty(n, np.int32)
+    load().segment_supervoxels(_ptr(pts, ctypes.c_float),
+                               _ptr(ft, ctypes.c_float), n, ft.shape[1],
+                               cell, k_thresh, min_size,
+                               _ptr(out, ctypes.c_int32))
+    return out
 
 
 def gather_rows(src: np.ndarray, perm: np.ndarray, fill) -> np.ndarray:

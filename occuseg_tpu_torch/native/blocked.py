@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -67,7 +67,9 @@ def merge_scene_plans(plans: Sequence[Topology],
             num_active=np.asarray([int(l.num_active) for l in lvls],
                                   np.int32),
             nbr=np.concatenate([_off(l.nbr, s * cap)
-                                for s, l in enumerate(lvls)])))
+                                for s, l in enumerate(lvls)]),
+            orient=np.concatenate([np.asarray(l.orient) for l in lvls]),
+            guided=lvls[0].guided))
     transitions = []
     for ti in range(len(scaps) - 1):
         fine_cap, coarse_cap = scaps[ti], scaps[ti + 1]
@@ -83,22 +85,30 @@ def merge_scene_plans(plans: Sequence[Topology],
 
 
 def build_plan_host_blocked(point_coords: np.ndarray, spec: PlanSpec,
-                            ns: int) -> Topology:
+                            ns: int, point_normals: Optional[np.ndarray] = None
+                            ) -> Topology:
     """Blocked plan of an ns-scene batch: point_coords [P, 4] (b, z, y, x)
-    with b in [0, ns) and -1 pad rows. ns <= 1 is the one-scene plan. The
-    returned p2v maps the ORIGINAL point order into blocked voxel rows; the
-    sorted point layout (`core/point_layout.py`) then groups each scene's
-    points, since its slots follow voxel blocks."""
+    with b in [0, ns) and -1 pad rows, and optionally the points' normals
+    [P, 3] (each scene's plan takes its own points' normals). ns <= 1 is
+    the one-scene plan. The returned p2v maps the ORIGINAL point order into
+    blocked voxel rows; the sorted point layout (`core/point_layout.py`)
+    then groups each scene's points, since its slots follow voxel
+    blocks."""
     if ns <= 1:
-        return build_plan_host(point_coords, spec)
+        return build_plan_host(point_coords, spec, point_normals)
     scaps = blocked_scene_caps(spec.caps, ns)
     sspec = dataclasses.replace(spec, caps=scaps)
     coords = np.asarray(point_coords)
+    normals = None if point_normals is None else np.asarray(point_normals)
     plans, idxs = [], []
     for s in range(ns):
         idx = np.nonzero(coords[:, 0] == s)[0]
         pts = coords[idx] if idx.size else np.full((1, 4), -1, np.int32)
-        sub = build_plan_host(np.ascontiguousarray(pts, np.int32), sspec)
+        nrm = None
+        if normals is not None:
+            nrm = normals[idx] if idx.size else np.zeros((1, 3), np.float32)
+        sub = build_plan_host(np.ascontiguousarray(pts, np.int32), sspec,
+                              nrm)
         if int(sub.levels[0].num_active) >= scaps[0]:
             log.warning("blocked batch: scene %d hit its per-scene cap (%d "
                         "level-0 voxels); voxels past it are dropped", s,

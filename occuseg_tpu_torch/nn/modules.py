@@ -9,9 +9,14 @@ from an explicit `torch.Generator`.
 Every convolution runs the chunked kernels over the plan's chunk rulebook,
 through the autograd entry points of `ops/kernels/chunk_conv.py` (the
 strided convolution and the deconvolution hand them the transition's
-other map as the transpose plan). A level or transition without a chunk
-plan (U overflow or a misaligned cap) makes the forward raise and name
-it; there is no gather fallback yet.
+other map as the transpose plan), except a normal-guided submanifold
+convolution at a level whose plan carries normals (`LevelTopology.guided`):
+that one runs `ops/normal_guide.normal_guided_conv`, the gather-conv
+kernel over the neighbour map permuted by each site's orientation class.
+At the levels past `PlanSpec.guide_levels` every class is 0, the
+identity, and the chunk kernels compute the same function. A level or
+transition without a chunk plan (U overflow or a misaligned cap) makes
+the forward raise and name it; there is no gather fallback yet.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from occuseg_tpu_torch.core.sparse_tensor import SparseTensor
 from occuseg_tpu_torch.core.topology import ChunkPlan, Topology
 from occuseg_tpu_torch.ops import conv as conv_ops
 from occuseg_tpu_torch.ops import norm as norm_ops
+from occuseg_tpu_torch.ops import normal_guide
 from occuseg_tpu_torch.ops import pool as pool_ops
 from occuseg_tpu_torch.ops.kernels.chunk_conv import (
     chunk_gather_conv,
@@ -63,12 +69,16 @@ def _run_chunked(feats: torch.Tensor, w: torch.Tensor,
 
 
 class SubmanifoldConvolution(nn.Module):
-    """Same-topology K^3 convolution over the level's neighbor map."""
+    """Same-topology K^3 convolution over the level's neighbor map;
+    `normal_guided` rotates each site's filter by its orientation class
+    (the plan's `orient`, from point normals)."""
 
     def __init__(self, in_features: int, out_features: int, kernel: int = 3,
+                 normal_guided: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         K = kernel ** 3
+        self.normal_guided = normal_guided
         self.weight = _he_weight((K, in_features, out_features), K,
                                  generator)
 
@@ -77,8 +87,12 @@ class SubmanifoldConvolution(nn.Module):
         if lvl.nbr.shape[1] != self.weight.shape[0]:
             raise ValueError(f"plan kernel volume {lvl.nbr.shape[1]} != "
                              f"module's {self.weight.shape[0]}")
-        out = _run_chunked(x.features, self.weight, lvl.chunks,
-                           f"level {x.level}")
+        if self.normal_guided and lvl.guided:
+            out = normal_guide.normal_guided_conv(x.features, lvl.nbr,
+                                                  lvl.orient, self.weight)
+        else:
+            out = _run_chunked(x.features, self.weight, lvl.chunks,
+                               f"level {x.level}")
         return x.with_features(out)
 
 

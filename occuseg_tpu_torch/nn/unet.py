@@ -35,17 +35,21 @@ class _Block(nn.Module):
     convolution)."""
 
     def __init__(self, in_features: int, out_features: int, residual: bool,
+                 normal_guided: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         a, b = in_features, out_features
+        ng = normal_guided
         self.residual = residual
         if residual and a != b:
             self.shortcut = NetworkInNetwork(a, b, generator=generator)
         self.bn1 = BatchNormReLU(a)
-        self.conv1 = SubmanifoldConvolution(a, b, generator=generator)
+        self.conv1 = SubmanifoldConvolution(a, b, normal_guided=ng,
+                                            generator=generator)
         if residual:
             self.bn2 = BatchNormReLU(b)
-            self.conv2 = SubmanifoldConvolution(b, b, generator=generator)
+            self.conv2 = SubmanifoldConvolution(b, b, normal_guided=ng,
+                                                generator=generator)
 
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
         y = self.conv1(self.bn1(x, plan), plan)
@@ -57,29 +61,31 @@ class _Block(nn.Module):
 
 
 class UNet(nn.Module):
-    """Recursive sparse UNet over widths n_planes (one per level)."""
+    """Recursive sparse UNet over widths n_planes (one per level);
+    `normal_guided` applies to every submanifold convolution."""
 
     def __init__(self, reps: int, n_planes: Sequence[int],
-                 residual_blocks: bool = False,
+                 residual_blocks: bool = False, normal_guided: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         p = tuple(n_planes)
+        ng = normal_guided
         self.reps = reps
         self.deep = len(p) > 1
         for i in range(reps):
             self.add_module(f"enc{i}", _Block(p[0], p[0], residual_blocks,
-                                              generator))
+                                              ng, generator))
         if not self.deep:
             return
         self.down_bn = BatchNormReLU(p[0])
         self.down_conv = Convolution(p[0], p[1], generator=generator)
-        self.inner = UNet(reps, p[1:], residual_blocks, generator)
+        self.inner = UNet(reps, p[1:], residual_blocks, ng, generator)
         self.up_bn = BatchNormReLU(p[1])
         self.up_conv = Deconvolution(p[1], p[0], generator=generator)
         for i in range(reps):
             cin = p[0] * (2 if i == 0 else 1)
             self.add_module(f"dec{i}", _Block(cin, p[0], residual_blocks,
-                                              generator))
+                                              ng, generator))
 
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
         for i in range(self.reps):

@@ -3,12 +3,14 @@
 
     out[n] = sum_k (nbr_kn[k, n] >= 0 ? feats[nbr_kn[k, n]] : 0) @ W[k]
 
-in f32 with the output in the feature dtype. A standalone op, as in the JAX
-package: no model path calls it (every convolution of the port runs the
-chunk kernels). CUDA tensors launch `csrc/gather_conv.cu` (or raise); CPU
-tensors run `gather_conv_plain`. Unlike the TPU kernel it takes any Cin
-and Cout that are multiples of 8 and any number of rows. `geometry` is the
-bf16 kernel's launch plan: column tile and split count.
+in f32 with the output in the feature dtype. The forward of the
+normal-guided submanifold convolutions (`ops/normal_guide.py`) calls it
+over the orientation-permuted map; every other convolution of the port
+runs the chunk kernels. CUDA tensors launch `csrc/gather_conv.cu` (or
+raise); CPU tensors run `gather_conv_plain`. Unlike the TPU kernel it
+takes any Cin and Cout that are multiples of 8 and any number of rows.
+`geometry` is the bf16 kernel's launch plan: column tile and split
+count.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ names also names the shapes of the step that runs it.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 import warnings
 
 import numpy as np
@@ -24,7 +24,8 @@ from occuseg_tpu_torch.train.config import CAP_RATIOS
 
 
 def bucket_specs(max_voxel_cap: int, num_levels: int,
-                 num_buckets: int = 3, kernel: int = 3) -> List[PlanSpec]:
+                 num_buckets: int = 3, kernel: int = 3,
+                 guide_levels: Optional[int] = None) -> List[PlanSpec]:
     """Cap sets at max_voxel_cap / 2^k, smallest first, each level rounded
     up to a multiple of 1024 with the measured per-level ratios."""
     specs = []
@@ -34,7 +35,8 @@ def bucket_specs(max_voxel_cap: int, num_levels: int,
             max((int(n0 * CAP_RATIOS[min(l, len(CAP_RATIOS) - 1)]) + 1023)
                 // 1024 * 1024, 1024)
             for l in range(num_levels))
-        specs.append(PlanSpec(caps=caps, kernel=kernel))
+        specs.append(PlanSpec(caps=caps, kernel=kernel,
+                              guide_levels=guide_levels))
     return specs
 
 
@@ -56,13 +58,15 @@ def pick_bucket(specs: Sequence[PlanSpec], coords: np.ndarray,
 
 
 def plan_for_batch(specs: Sequence[PlanSpec], coords: np.ndarray,
-                   ns: int = 1) -> Tuple[int, Topology]:
-    """(bucket index, host plan) with overflow retry into bigger buckets.
-    ns > 1 builds the blocked layout, whose overflow is per scene against
-    its sub-cap (the batch's largest scene binds)."""
+                   normals: Optional[np.ndarray] = None, ns: int = 1
+                   ) -> Tuple[int, Topology]:
+    """(bucket index, host plan) with overflow retry into bigger buckets,
+    with orientation classes from the points' `normals` when given. ns > 1
+    builds the blocked layout, whose overflow is per scene against its
+    sub-cap (the batch's largest scene binds)."""
     i = pick_bucket(specs, coords)
     while True:
-        plan = build_plan_host_blocked(coords, specs[i], ns)
+        plan = build_plan_host_blocked(coords, specs[i], ns, normals)
         hot = [li for li, l in enumerate(plan.levels)
                if (np.asarray(l.num_active)
                    >= np.shape(l.keys)[0] // max(ns, 1)).any()]
@@ -80,6 +84,7 @@ def plan_for_batch(specs: Sequence[PlanSpec], coords: np.ndarray,
 def prepare_bucketed(batch, specs: Sequence[PlanSpec], ns: int = 1):
     """`train.state.prepare_batch` at the bucket `plan_for_batch` picks:
     (laid-out batch, host plan, bucket index)."""
-    bi, plan = plan_for_batch(specs, batch["coords"], ns)
+    normals = batch["normals"] if specs[0].guide_levels is not None else None
+    bi, plan = plan_for_batch(specs, batch["coords"], normals, ns)
     plan = augment_plan(plan)
     return apply_point_layout(batch, plan, num_scenes=ns), plan, bi

@@ -1,30 +1,36 @@
 """Training and evaluation loop on one card (counterpart of
 `occuseg_tpu/train/loop.py`).
 
-    python -m occuseg_tpu_torch.train.cli --m 64 --use_dense_model \
-        --residual_blocks --batch_size 4 --plan_workers 4
+    python -m occuseg_tpu_torch.train.cli --data_dir DIR --m 64 \
+        --use_dense_model --residual_blocks --use_normal --use_feature cn \
+        --use_elastic --plan_workers 4 [--checkpoint_file ref.pth]
 
-Epoch loop over the dataset: every batch is prepared on the host (the
-blocked multi-scene plan for batches of several scenes, chunk rulebooks,
-sorted point layout; optionally at the smallest cap bucket that fits) in a
-`PlanPool` of `--plan_workers` threads (one for 0 or 1), as NumPy arrays
-(on a card, what the step uploads is pinned there); only this thread pulls
-the batches from the dataset and uploads them, inside `Trainer.step`. Per
-epoch: the mean loss parts, MulAdd counters and wall time in one log line
-(and TensorBoard when it is installed), a checkpoint every `snapshot`
-epochs with power-of-two retention, and the semantic eval.
+Epoch loop over the dataset: the ScanNet scenes under `--data_dir`
+(`data/scannet.py`: `train/` and `val/` hold `.npz` files from
+`python -m occuseg_tpu_torch.data.prepare`, or the reference's `.pth`
+files), or, when it holds none, the synthetic generator, as in the JAX
+package. Every batch is prepared on the host (the blocked multi-scene plan
+for batches of several scenes, with orientation classes under
+--use_normal, chunk rulebooks, sorted point layout; optionally at the
+smallest cap bucket that fits) in a `PlanPool` of `--plan_workers` threads
+(one for 0 or 1), as NumPy arrays (on a card, what the step uploads is
+pinned there); only this thread pulls the batches from the dataset and
+uploads them, inside `Trainer.step`. Per epoch: the mean loss parts,
+MulAdd counters and wall time in one log line (and TensorBoard when it is
+installed), a checkpoint every `snapshot` epochs with power-of-two
+retention, and the semantic eval. `--checkpoint_file` (config "load")
+resumes from a checkpoint of the port, or imports the weights and BN
+statistics of the reference's `.pth`/`.pt` file (`train/torch_import.py`).
 
 One card only: `--num_devices` > 1 and `--spatial_shards` > 1 raise
-(ROADMAP A9). A `--data_dir` that holds scenes raises until the ScanNet
-loader is ported (ROADMAP A8); without scenes the synthetic generator
-stands in, as in the JAX package. The entry points run on "cuda" and raise
-where there is no card, unless the caller passes device="cpu". Unlike the
-JAX loop, a failing snapshot eval is not caught: it stops the run.
+(ROADMAP A9). The entry points run on "cuda" and raise where there is no
+card, unless the caller passes device="cpu". Unlike the JAX loop, a scene
+file that cannot be read and a failing snapshot eval are not caught: they
+stop the run.
 """
 
 from __future__ import annotations
 
-import glob
 import logging
 import os
 import time
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from occuseg_tpu_torch.core.topology import PlanSpec
+from occuseg_tpu_torch.data.scannet import ScanNetData
 from occuseg_tpu_torch.data.synthetic import SceneConfig, make_batch
 from occuseg_tpu_torch.infer import Predictor, prepare_scene
 from occuseg_tpu_torch.native.pool import PlanPool
@@ -46,6 +53,7 @@ from occuseg_tpu_torch.models import InstanceDenseUNet, LearningBWDenseUNet
 from occuseg_tpu_torch.train import checkpoint as ckpt
 from occuseg_tpu_torch.train.config import plan_caps
 from occuseg_tpu_torch.train.state import TrainConfig, Trainer
+from occuseg_tpu_torch.train.torch_import import load_baseline_checkpoint
 from occuseg_tpu_torch.utils.metrics import (
     confusion_matrix,
     iou_from_confusion,
@@ -71,25 +79,28 @@ def _device(device) -> torch.device:
 
 def build_model(config: Dict, generator: Optional[torch.Generator] = None):
     """The config's model with f32 parameters and activations (the JAX
-    package's default), initialised from `generator`."""
-    if config.get("use_normal"):
-        raise NotImplementedError("--use_normal: normal-guided plans are "
-                                  "not ported")
-    if config.get("input_feature_number", 3) != 3:
-        raise NotImplementedError("--use_feature other than 'c': the port's "
-                                  "models take 3 input channels")
+    package's default), initialised from `generator`: the
+    `input_feature_number` input channels of the `use_feature` string, and
+    normal-guided convolutions under `use_normal`."""
     planes = tuple(int(x) for x in config["unet_structure"])
     cls = (LearningBWDenseUNet if config.get("use_dense_model")
            else InstanceDenseUNet)
     return cls(planes, num_classes=config.get("class_num", 20),
                block_reps=config.get("block_reps", 1),
                residual_blocks=config.get("residual_blocks", True),
+               in_features=int(config.get("input_feature_number", 3)),
+               normal_guided=bool(config.get("use_normal", False)),
                generator=generator)
 
 
 def build_spec(config: Dict) -> PlanSpec:
+    """The plan spec; under --use_normal, orientation classes at levels
+    0..rotation_guide_level (the reference's normal_guide_scale =
+    (full_scale >> rotation_guide_level) + 1)."""
+    guide = (int(config.get("rotation_guide_level", 0)) + 1
+             if config.get("use_normal") else None)
     return PlanSpec(caps=tuple(plan_caps(config)),
-                    kernel=config.get("kernel_size", 3))
+                    kernel=config.get("kernel_size", 3), guide_levels=guide)
 
 
 def _synthetic_dataset(config: Dict):
@@ -116,16 +127,16 @@ def _synthetic_dataset(config: Dict):
 
 
 def get_dataset(config: Dict):
-    root = config.get("data_dir") or ""
-    sub = "simple" if config.get("simple_train") else ""
-    scenes = [f for f in glob.glob(os.path.join(root, sub, "train", "*"))
-              if f.endswith((".pth", ".npz"))]
-    if scenes:
-        raise NotImplementedError(
-            f"{root} holds scenes: the ScanNet loader is "
-            + _NOT_PORTED.format("A8"))
-    log.warning("no scenes under %s: using the synthetic generator", root)
-    return _synthetic_dataset(config)
+    """`ScanNetData` over the scenes under `--data_dir` (every scene loaded
+    up front; one that cannot be read raises), or the synthetic generator
+    when it holds no training scenes."""
+    ds = ScanNetData(config)
+    ds.load_data()
+    if not ds.train:
+        log.warning("no scenes under %s: using the synthetic generator",
+                    config.get("data_dir"))
+        return _synthetic_dataset(config)
+    return ds
 
 
 def plan_prefetcher(batches: Iterable[Dict], spec: PlanSpec,
@@ -140,18 +151,27 @@ def plan_prefetcher(batches: Iterable[Dict], spec: PlanSpec,
 
 def checkpoint_path(path: str) -> str:
     """The port's checkpoint at `path`: the file itself, or the newest in
-    the directory. Raises on anything else (the reference's weights are
-    not importable yet)."""
+    the directory. Raises on anything else."""
     if os.path.isdir(path) and ckpt.latest_checkpoint(path):
         path = ckpt.latest_checkpoint(path)
     if not ckpt.is_checkpoint(path):
-        raise NotImplementedError(
-            f"{path}: importing the reference's weights is "
-            + _NOT_PORTED.format("A8"))
+        raise ValueError(f"{path}: not a checkpoint of the port "
+                         f"(step_<N>.pth, or a directory of them)")
     return path
 
 
-def _restore(trainer: Trainer, path: str) -> str:
+def _restore(trainer: Trainer, path: str, config: Dict) -> str:
+    """--checkpoint_file: a checkpoint of the port restores the whole
+    training state; another `.pth`/`.pt` file is the reference's, whose
+    weights and BN statistics are imported (the optimizer starts
+    afresh)."""
+    if not (os.path.isdir(path) or ckpt.is_checkpoint(path)) \
+            and path.endswith((".pth", ".pt")):
+        load_baseline_checkpoint(
+            path, trainer.model,
+            tuple(int(x) for x in config["unet_structure"]),
+            config.get("block_reps", 1), config.get("residual_blocks", True))
+        return path
     path = checkpoint_path(path)
     trainer.load_state_dict(ckpt.restore_checkpoint(path,
                                                     map_location="cpu"))
@@ -206,7 +226,7 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
 
     start_epoch = int(config.get("checkpoint", 0) or 0)
     if config.get("load"):
-        path = _restore(trainer, str(config["load"]))
+        path = _restore(trainer, str(config["load"]), config)
         log.info("resumed from %s (start epoch %d)", path, start_epoch)
 
     buckets = None
@@ -215,7 +235,8 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
         buckets = bucket_specs(config["voxel_cap"],
                                len(config["unet_structure"]),
                                int(config["num_buckets"]),
-                               kernel=config.get("kernel_size", 3))
+                               kernel=config.get("kernel_size", 3),
+                               guide_levels=spec.guide_levels)
 
     ckpt_dir = os.path.join(config["checkpoints_dir"],
                             config.get("taskname", "default"))
@@ -309,13 +330,16 @@ def evaluate_semantic(config: Dict, trainer: Trainer, spec: PlanSpec,
                       dataset=None) -> Dict:
     """Semantic eval: mean IoU over the validation split, summing the
     logits of `val_reps` views per scene, each scene through
-    `infer.prepare_scene` and the `Predictor` (eval-mode BN)."""
+    `infer.prepare_scene` (with the scene's normals under --use_normal, as
+    the JAX loop's eval step takes them) and the `Predictor` (eval-mode
+    BN)."""
     if dataset is None:
         dataset = get_dataset(config)
     p_cap = config["point_cap"]
     i_cap = config["instance_cap"]
     reps = max(int(config.get("val_reps", 1)), 1)
     ncls = int(config.get("class_num", 20))
+    use_normals = bool(config.get("use_normal"))
     predictor = Predictor(trainer.model, trainer.device)
     conf = torch.zeros((ncls, ncls), dtype=torch.int64)
     try:
@@ -324,7 +348,8 @@ def evaluate_semantic(config: Dict, trainer: Trainer, spec: PlanSpec,
         for raws in zip(*per_rep):
             store = None
             for raw in raws:
-                scene = prepare_scene(raw["coords"], raw["features"], spec)
+                scene = prepare_scene(raw["coords"], raw["features"], spec,
+                                      raw["normals"] if use_normals else None)
                 logits = predictor(scene).semantics.float()
                 store = logits if store is None else store + logits
             gt = torch.as_tensor(raws[-1]["labels"], device=store.device)

@@ -85,8 +85,10 @@ def prepare_batch(batch: Dict[str, np.ndarray], spec: PlanSpec,
     """Host preparation of a training batch of `ns` scenes (`make_batch`
     schema): (the batch with every per-point array in the plan's point
     layout, pad slots of point_scene set to ns; the host plan, blocked for
-    ns > 1)."""
-    plan = plan_scene(batch["coords"], spec, ns)
+    ns > 1, with orientation classes from batch["normals"] when the spec
+    has `guide_levels`)."""
+    normals = batch["normals"] if spec.guide_levels is not None else None
+    plan = plan_scene(batch["coords"], spec, ns, normals)
     return apply_point_layout(batch, plan, num_scenes=ns), plan
 
 

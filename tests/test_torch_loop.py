@@ -312,11 +312,14 @@ def test_loop_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="A9"):
         loop.train(_small_config(tmp_path, "--spatial_shards", "4"),
                    device="cpu")
+    # scenes are loaded now (tests/test_torch_data.py), and one that
+    # cannot be read stops the run instead of falling back to synthetic
     scenes = tmp_path / "data" / "train"
     scenes.mkdir(parents=True)
     (scenes / "scene0000_00.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A8"):
-        loop.get_dataset({"data_dir": str(tmp_path / "data")})
+    with pytest.raises(RuntimeError, match="scene0000_00.pth"):
+        loop.get_dataset(_small_config(tmp_path, "--data_dir",
+                                       str(tmp_path / "data")))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             loop.train(_small_config(tmp_path))
