@@ -88,6 +88,37 @@ and no network. Phases (any failure exits non-zero):
    step, the restored state equal to the tensors as mapped; (f)
    `evaluate_instance.main` on the prepared val scene from (d)'s
    checkpoint with --use_merge (AP printed, not gated).
+8. gather: the gather-convolution path (`ops/conv.gather_conv`, the
+   modules' route where a map has no chunk rulebook or the chunk kernels
+   do not take its widths): (a) the gather conv (#9) with M output rows
+   over N source rows at every transition of the benchmark plan, in the
+   four roles of a strided convolution and a deconvolution (forward over
+   the child / up map, d_feats over the other map reversed), bf16 and
+   f32, against its plain version, launched twice (the same bits), with
+   times and bounds; (b) the 33 f32 convolutions of one [loop] blocked
+   plan through the gather path against the chunk path on the card
+   (forward, d_feats, dW, all within the f32 tolerance); (c) the
+   full-width model with the rulebooks of levels 1 and 3 and transition 2
+   dropped, card against CPU with [parity]'s tolerances (outputs and the
+   forward's launches, then a training step); (e) size-3 stride-2
+   transitions (27 offsets): the plan's 33 f32 convolutions through the
+   gather path against the chunk path on the card, then the full-width
+   model with every chunk rulebook and with none, card against CPU in
+   the same way (the step's gradients with the sensitivity rule of
+   [data], over six input perturbations), the launches of the forward
+   and of the training steps as the plan predicts; (d) the training CLI with --chunk_conv 0 at [loop]'s flags
+   for one epoch: no chunk kernel, #9's launches as predicted (printed
+   first), every parameter moved, the step beside [loop]'s, one step
+   profiled.
+9. ap_gate: the instance-AP gate (`occuseg_tpu_torch/tools/ap_gate.py`,
+   the port of tests/test_accuracy_ap_gate.py) on the card: seeds 7, 8
+   and 9, 450 steps each of the (8, 16, 24) model from the port's seeded
+   weights, scored through the clustering cascade; per seed AP, final
+   loss parts, median step ms and one step's launches (#9 at the 8- and
+   24-wide convolutions, #1 at the 16-wide ones) against the prediction;
+   the contraction; fails unless mean AP@0.5 > 0.6, each seed > 0.35 and
+   the contraction < 1.5; then one step of a short soak, profiled (device
+   busy against the median step).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON summary.
@@ -153,8 +184,10 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
+# `maps`: ("level", l) for a submanifold convolution at level l, ("child",
+# t) / ("up", t) for the strided convolution / deconvolution of transition t
 Conv = collections.namedtuple(
-    "Conv", "label chunks t_chunks n_in n_act cin cout n_out n_out_act")
+    "Conv", "label chunks t_chunks n_in n_act cin cout n_out n_out_act maps")
 
 
 class SmokeFailure(RuntimeError):
@@ -201,11 +234,11 @@ def conv_calls(plan, n_planes, in_features=3):
     lv = plan.levels
     calls = [Conv("sub L0", lv[0].chunks, lv[0].chunks, caps[0], act[0],
                   in_features + (-in_features) % 16, n_planes[0], caps[0],
-                  act[0])]
+                  act[0], ("level", 0))]
 
     def sub(label, l, cin, cout):
         calls.append(Conv(label, lv[l].chunks, lv[l].chunks, caps[l], act[l],
-                          cin, cout, caps[l], act[l]))
+                          cin, cout, caps[l], act[l], ("level", l)))
 
     def level(l):
         p = n_planes[l]
@@ -216,11 +249,11 @@ def conv_calls(plan, n_planes, in_features=3):
         tr = plan.transitions[l]
         calls.append(Conv(f"down_conv L{l}->L{l + 1}", tr.child_chunks,
                           tr.up_chunks, caps[l], act[l], p, n_planes[l + 1],
-                          caps[l + 1], act[l + 1]))
+                          caps[l + 1], act[l + 1], ("child", l)))
         level(l + 1)
         calls.append(Conv(f"up_conv L{l + 1}->L{l}", tr.up_chunks,
                           tr.child_chunks, caps[l + 1], act[l + 1],
-                          n_planes[l + 1], p, caps[l], act[l]))
+                          n_planes[l + 1], p, caps[l], act[l], ("up", l)))
         sub(f"dec0.conv1 L{l}", l, 2 * p, p)
         sub(f"dec0.conv2 L{l}", l, p, p)
 
@@ -248,26 +281,59 @@ def guided(conv, plan) -> bool:
         and plan.levels[level].guided
 
 
+def chunked(conv) -> bool:
+    """The convolution runs the chunk kernels (`nn/modules.chunk_route`);
+    else the gather convolution (#9)."""
+    from occuseg_tpu_torch.nn.modules import chunk_route
+    return chunk_route(conv.chunks, conv.cout)
+
+
+def gather_maps(plan, conv, dev):
+    """(map, transpose map) of a convolution on the gather path, as
+    `nn/modules.py` pairs them, as int32 tensors on `dev`."""
+    kind, i = conv.maps
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    if kind == "level":
+        nbr = t(plan.levels[i].nbr)
+        return nbr, nbr
+    tr = plan.transitions[i]
+    if kind == "child":
+        return t(tr.child), t(tr.up).flip(1)
+    return t(tr.up), t(tr.child).flip(1)
+
+
 def predicted_launches(plan, esize: int = 2, bce: bool = False,
-                       in_features: int = 3, normal_guided: bool = False
-                       ) -> dict:
+                       in_features: int = 3, normal_guided: bool = False,
+                       n_planes=N_PLANES) -> dict:
     """Kernel launches of one training step on `plan` with activations of
-    `esize` bytes, from the backward route of each convolution; the
-    segment sum runs twice where the plan has the sorted point layout, the
-    BCE kernels once each with `bce`. With `normal_guided`, the
-    convolutions at the plan's guided levels launch the gather conv once
-    each (their backward is PyTorch) and no chunk kernel."""
-    calls = conv_calls(plan, N_PLANES, in_features)
+    `esize` bytes: a chunked convolution's from its backward route, a
+    convolution on the gather path one #9 forward and one #9 d_feats (none
+    for the first convolution, whose input is data); the segment sum runs
+    twice where the plan has the sorted point layout, the BCE kernels once
+    each with `bce`. With `normal_guided`, the convolutions at the plan's
+    guided levels launch #9 once each (their backward is PyTorch)."""
+    calls = conv_calls(plan, n_planes, in_features)
     ng = [normal_guided and guided(c, plan) for c in calls]
+    ch = [not g and chunked(c) for c, g in zip(calls, ng)]
     routes = collections.Counter(route_of(c, esize)
-                                 for c, g in zip(calls, ng) if not g)
+                                 for c, k in zip(calls, ch) if k)
+    gather = sum(1 + (i > 0) for i, (g, k) in enumerate(zip(ng, ch))
+                 if not g and not k)
     seg = 2 if plan.vox_seg is not None else 0
-    return {"chunk_conv": 33 - sum(ng) + routes["#5"],
+    return {"chunk_conv": sum(ch) + routes["#5"],
             "chunk_conv_bwd_fused": routes["#3"] + routes["#4"],
             "chunk_conv_bwd_fused_kgrouped": routes["#4"],
             "chunk_conv_dw": routes["#5"], "blocked_segment_sum": seg,
             "bce_radius": int(bce), "bce_fwd": int(bce),
-            "bce_bwd": int(bce), "gather_conv": sum(ng)}
+            "bce_bwd": int(bce), "gather_conv": sum(ng) + gather}
+
+
+def forward_launches(plan, n_planes=N_PLANES) -> dict:
+    """Kernel launches of one eval forward on `plan`."""
+    calls = conv_calls(plan, n_planes)
+    n = sum(chunked(c) for c in calls)
+    return {"chunk_conv": n, "gather_conv": len(calls) - n,
+            "blocked_segment_sum": int(plan.vox_seg is not None)}
 
 
 def _counters():
@@ -562,6 +628,7 @@ def phase_kernels(dev):
                 C=C, ms=ms, graph_ms=gms, plain_ms=pms, library_ms=lms,
                 library_graph_ms=glms, bound_ms=bnd, max_abs_err=err))
     phase_kernels_gather(dev, tot, plan)
+    tot.bench_plan = scene.plan
     phase_kernels_radius(dev, tot)
     tot.chain_ms = phase_kernels_bce(dev, tot)
     r = tot.rows
@@ -873,10 +940,11 @@ def phase_parity_train(dev):
 
 
 def train_step_parity(dev, laid, plan, model, num_instances,
-                      phase="parity", own_sensitivity=False):
+                      phase="parity", own_sensitivity=False, noise_runs=1):
     """One f32 training step of `model` on a prepared batch, on the card
-    (twice) and on the CPU (once more with 1e-6 input noise, the step's own
-    sensitivity): loss parts within PARITY_TOL, gradients within GRAD_TOL
+    (twice) and on the CPU (`noise_runs` more times, each with its own
+    1e-6 input noise: the step's own sensitivity is the largest movement
+    among them): loss parts within PARITY_TOL, gradients within GRAD_TOL
     of each tensor's max and GRAD_GLOBAL_TOL of the norm, the new BN
     statistics within PARITY_TOL. With `own_sensitivity`, a tensor whose
     gradient moves by more than GRAD_TOL / 5 of its max under the input
@@ -886,7 +954,7 @@ def train_step_parity(dev, laid, plan, model, num_instances,
 
     def trainer(d):
         return Trainer(copy.deepcopy(model), d, num_instances=num_instances)
-    cpu, cpu_p, gpu2, gpu = (trainer(d) for d in ("cpu", "cpu", dev, dev))
+    cpu, gpu2, gpu = (trainer(d) for d in ("cpu", dev, dev))
     t0 = time.perf_counter()
     cpu_parts = cpu.step(laid, plan)
     t1 = time.perf_counter()
@@ -894,10 +962,13 @@ def train_step_parity(dev, laid, plan, model, num_instances,
     gpu2.step(laid, plan)
     torch.cuda.synchronize()
     feats = torch.from_numpy(laid["features"])
-    noise = torch.randn(feats.shape, generator=torch.Generator()
-                        .manual_seed(9))
-    cpu_p.step(dict(laid, features=(feats * (1 + 1e-6 * noise)).numpy()),
-               plan)
+    perturbed = []
+    for i in range(noise_runs):
+        noise = torch.randn(feats.shape, generator=torch.Generator()
+                            .manual_seed(9 + i))
+        perturbed.append(trainer("cpu"))
+        perturbed[-1].step(dict(laid, features=(
+            feats * (1 + 1e-6 * noise)).numpy()), plan)
     print(f"[{phase}] f32 train step: CPU {t1 - t0:.1f} s")
     for k, c in cpu_parts.items():
         g = float(gpu_parts[k])
@@ -911,7 +982,8 @@ def train_step_parity(dev, laid, plan, model, num_instances,
         return [p.grad.detach().cpu() for p in trainer.model.parameters()]
 
     names = [n for n, _ in cpu.model.named_parameters()]
-    ref, card, card2, pert = (grads(t) for t in (cpu, gpu, gpu2, cpu_p))
+    ref, card, card2 = (grads(t) for t in (cpu, gpu, gpu2))
+    perts = [grads(t) for t in perturbed]
 
     def rel(a, b):
         return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
@@ -921,23 +993,26 @@ def train_step_parity(dev, laid, plan, model, num_instances,
         den = sum(float((b ** 2).sum()) for b in b_list)
         return (num / den) ** 0.5
 
-    rows = sorted(((rel(c, r), rel(c, c2), rel(q, r), n)
-                   for c, c2, q, r, n in zip(card, card2, pert, ref, names)),
+    # per tensor: the largest movement under the input noise
+    sens = [max(rel(p[i], r) for p in perts) for i, r in enumerate(ref)]
+    rows = sorted(((rel(c, r), rel(c, c2), q, n)
+                   for c, c2, q, r, n in zip(card, card2, sens, ref, names)),
                   reverse=True)
     for e_c, e_g, e_p, n in rows[:5]:
         print(f"[{phase}] step grad {n}: card vs CPU {e_c:.3e}; card vs card "
               f"{e_g:.3e}; CPU vs CPU with 1e-6 input noise {e_p:.3e}")
-    g_c, g_g, g_p = glob(card, ref), glob(card2, card), glob(pert, ref)
+    g_c, g_g = glob(card, ref), glob(card2, card)
+    g_p = max(glob(p, ref) for p in perts)
     print(f"[{phase}] step gradients, relative to each tensor's max: card "
           f"vs CPU max {rows[0][0]:.3e} median {rows[len(rows) // 2][0]:.3e} "
           f"over {len(rows)} tensors (CPU vs CPU with 1e-6 input noise: "
           f"max {max(r[2] for r in rows):.3e}); of the whole gradient's "
           f"norm: card vs CPU {g_c:.3e}, card vs card {g_g:.3e}, CPU "
-          f"with noise {g_p:.3e}")
+          f"with noise {g_p:.3e} (the most of {noise_runs} runs)")
     check(g_c <= GRAD_GLOBAL_TOL, f"{phase} gradients: {g_c} of the norm")
-    for c, r, q, n in zip(card, ref, pert, names):
+    for c, r, q, n in zip(card, ref, sens, names):
         err = (c - r).abs().max().item()
-        tol = max(GRAD_TOL, 5 * rel(q, r)) if own_sensitivity else GRAD_TOL
+        tol = max(GRAD_TOL, 5 * q) if own_sensitivity else GRAD_TOL
         check(err <= tol * r.abs().max().item() + GRAD_FLOOR,
               f"{phase} grad {n}: error {err} > {tol} x max")
     for (n, bc), (_, bg) in zip(cpu.model.named_buffers(),
@@ -1465,7 +1540,7 @@ def phase_loop(dev, tmp):
           f"saved ones; one more step ran (counter {r2['trainer'].steps}, "
           f"launches {after})")
     os.environ.pop("OCC_PALLAS_BCE")
-    return launches, result["ckpt_dir"]
+    return launches, result["ckpt_dir"], med, plans[0][1]
 
 
 def parity_regions(seed, R=80, E=6, n_clusters=8):
@@ -2278,6 +2353,400 @@ def phase_data(dev, tmp, tot):
     return launches
 
 
+def gather_roles(dev, tot):
+    """(a) #9 in the gather path's roles at every transition of the bench
+    plan (its caps and widths): the strided convolution's forward over the
+    child map (coarse rows over the fine level) and its d_feats over the
+    up map reversed (fine rows over the coarse cotangent); the
+    deconvolution's forward over the up map and its d_feats over the child
+    map reversed. bf16 and f32, each against its plain version, launched
+    twice (the same bits), CUDA-event times and bounds. These launches
+    compare and are not counted."""
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    plan = tot.bench_plan
+    gen = torch.Generator().manual_seed(21)
+    rows, sums = [], collections.defaultdict(float)
+    with torch.inference_mode():
+        for t, tr in enumerate(plan.transitions):
+            p_f, p_c = N_PLANES[t], N_PLANES[t + 1]
+            n_f, n_c = plan.levels[t].cap, plan.levels[t + 1].cap
+            a_f = plan.levels[t].num_active
+            a_c = plan.levels[t + 1].num_active
+            for role, nbr, n_src, a_src, cin, cout in (
+                    ("down fwd (child)", tr.child, n_f, a_f, p_f, p_c),
+                    ("down d_feats (up reversed)", tr.up[:, ::-1], n_c, a_c,
+                     p_c, p_f),
+                    ("up fwd (up)", tr.up, n_c, a_c, p_c, p_f),
+                    ("up d_feats (child reversed)", tr.child[:, ::-1], n_f,
+                     a_f, p_f, p_c)):
+                nbr_kn = torch.from_numpy(nbr.T.copy()).to(dev)
+                M = nbr_kn.shape[1]
+                nnz = int((nbr_kn >= 0).sum())
+                x = torch.randn(n_src, cin, generator=gen)
+                x[a_src:] = 0
+                w = torch.randn(8, cin, cout, generator=gen) \
+                    * (2 / (8 * cin)) ** .5
+                row = dict(transition=t, role=role, M=M, N=n_src, Cin=cin,
+                           Cout=cout, pairs=nnz)
+                for dt, tol, peak, reps in (
+                        (torch.bfloat16, BF16_TOL, PEAK_BF16, (10, 2)),
+                        (torch.float32, F32_TOL, PEAK_F32, (5, 1))):
+                    xd, wd = x.to(dev, dt), w.to(dev, dt)
+                    name = f"L{t}->L{t + 1} {role} {str(dt)[6:]}"
+                    out = gc.gather_conv(xd, nbr_kn, wd)
+                    check(out.shape == (M, cout), f"[gather] {name} shape")
+                    err, scale = check_close(
+                        f"[gather] {name}", out,
+                        gc.gather_conv_plain(xd, nbr_kn, wd), tol)
+                    check(torch.equal(out, gc.gather_conv(xd, nbr_kn, wd)),
+                          f"[gather] {name}: a second launch gave other bits")
+                    ms = cuda_ms(lambda: gc.gather_conv(xd, nbr_kn, wd),
+                                 reps[0])
+                    pms = cuda_ms(lambda: gc.gather_conv_plain(
+                        xd, nbr_kn, wd), reps[1])
+                    flops = 2.0 * nnz * cin * cout
+                    bnd, by = bound_ms(flops, nbytes(xd, nbr_kn, wd, out),
+                                       peak)
+                    key = str(dt)[6:]
+                    row.update({f"{key}_ms": ms, f"{key}_plain_ms": pms,
+                                f"{key}_bound_ms": bnd,
+                                f"{key}_max_abs_err": err})
+                    sums[f"{key}_ms"] += ms
+                    sums[f"{key}_plain_ms"] += pms
+                    sums[f"{key}_bound_ms"] += bnd
+                    print(f"[gather] (a) #9 {name:<40} M={M:<6} N={n_src:<6}"
+                          f" Cin={cin:<3} Cout={cout:<3} pairs={nnz:<7} "
+                          f"max_abs_err={err:.3e} max|out|={scale:.3e} "
+                          f"kernel={ms:.4f} ms plain={pms:.4f} ms bound="
+                          f"{bnd:.4f} ms ({by}); two launches the same bits")
+                rows.append(row)
+    print(f"[gather] (a) the 20 maps of the 5 transitions, sums: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sums.items()))
+    tot.gather_roles = dict(maps=rows, **sums)
+    torch.cuda.empty_cache()
+
+
+def gather_vs_chunk(dev, host_plan, tag="(b)"):
+    """The 33 f32 convolutions of a plan (in (b) one [loop] blocked plan)
+    through `ops/conv.gather_conv` (#9 forward and d_feats, PyTorch dW)
+    against the chunk path on the card (#1, #3-#5), which computes the
+    same function: outputs, d_feats and dW within F32_TOL. Not
+    counted."""
+    from occuseg_tpu_torch.core.sparse_tensor import active_mask
+    from occuseg_tpu_torch.ops import conv as conv_ops
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    plan = host_plan.to(dev)
+    calls = conv_calls(plan, N_PLANES)
+    gen = torch.Generator().manual_seed(22)
+    worst = collections.defaultdict(float)
+    for cv in calls:
+        check(cv.chunks is not None, f"[gather] {tag} {cv.label}: no chunk "
+              f"plan")
+        K = cv.chunks.lidx.shape[1]
+        x = torch.randn(cv.n_in, cv.cin, generator=gen)
+        x[~active_mask(cv.n_act, cv.n_in)] = 0
+        w = torch.randn(K, cv.cin, cv.cout, generator=gen) \
+            * (2 / (cv.cin * K)) ** .5
+        ct = torch.randn(cv.n_out, cv.cout, generator=gen)
+        ct[~active_mask(cv.n_out_act, cv.n_out)] = 0
+        nbr, nbr_t = gather_maps(plan, cv, dev)
+        res = []
+        for path in ("chunk", "gather"):
+            xd = x.to(dev).requires_grad_()
+            wd = w.to(dev).requires_grad_()
+            if path == "gather":
+                out = conv_ops.gather_conv(xd, nbr, wd, nbr_t=nbr_t)
+            elif cv.maps[0] == "level":
+                out = cc.chunk_gather_conv(xd, cv.chunks.in_idx,
+                                           cv.chunks.lidx, wd)
+            else:
+                out = cc.chunk_gather_conv_t(
+                    xd, cv.chunks.in_idx, cv.chunks.lidx,
+                    cv.t_chunks.in_idx, cv.t_chunks.lidx, wd)
+            out.backward(ct.to(dev))
+            res.append((out.detach(), xd.grad, wd.grad))
+        errs = {}
+        for key, a, b, tol in zip(("forward", "d_feats", "dW"), res[1],
+                                  res[0], (F32_TOL,) * 3):
+            err, scale = check_close(f"[gather] {tag} {key} {cv.label}", a,
+                                     b, tol)
+            errs[key] = err / max(scale, 1e-30)
+            worst[key] = max(worst[key], errs[key])
+        print(f"[gather] {tag} {cv.label:<22} rows {cv.n_in}->{cv.n_out} "
+              f"gather path vs chunk path, error/max: "
+              + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+        del res
+    print(f"[gather] {tag} 33 convolutions: the gather path equals the chunk "
+          f"path (f32; worst error/max "
+          + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()) + ")")
+    torch.cuda.empty_cache()
+
+
+def drop_chunks(plan, levels=(1, 3), transitions=(2,)):
+    """The plan without the chunk rulebooks of `levels` and
+    `transitions`: their convolutions take the gather path."""
+    import dataclasses
+    return dataclasses.replace(
+        plan,
+        levels=tuple(dataclasses.replace(l, chunks=None) if i in levels
+                     else l for i, l in enumerate(plan.levels)),
+        transitions=tuple(dataclasses.replace(t, child_chunks=None,
+                                              up_chunks=None)
+                          if i in transitions else t
+                          for i, t in enumerate(plan.transitions)))
+
+
+def gather_parity(dev):
+    """(c) The full-width model on the mid scene with the chunk rulebooks
+    of levels 1 and 3 and transition 2 dropped (the fallback, both routes
+    in one forward): card vs CPU with [parity]'s tolerances, on the eval
+    outputs (with the forward's launches), then one training step."""
+    import dataclasses
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.infer import prepare_scene
+    from occuseg_tpu_torch.models import LearningBWDenseUNet
+    from occuseg_tpu_torch.train.state import prepare_batch
+
+    batch = _mid_scene()
+    scene = prepare_scene(batch["coords"], batch["features"],
+                          PlanSpec(caps=MID_CAPS))
+    scene = dataclasses.replace(scene, plan=drop_chunks(scene.plan))
+    want = forward_launches(scene.plan)
+    print(f"[gather] (c) the mid scene with the rulebooks of L1, L3 and "
+          f"transition 2 dropped; predicted launches of a forward {want}")
+    model = LearningBWDenseUNet(N_PLANES,
+                                generator=torch.Generator().manual_seed(23))
+    randomize_bn_stats(model, torch.Generator().manual_seed(24))
+    zero_launches()
+    forward_parity(dev, scene, model, phase="gather")
+    got = {k: v for k, v in read_launches().items() if v}
+    print(f"[gather] (c) forward launches {got}")
+    check(got == {k: v for k, v in want.items() if v},
+          f"[gather] (c) forward launches {got}, expected {want}")
+    laid, plan = prepare_batch(_mid_scene(), PlanSpec(caps=MID_CAPS))
+    model = LearningBWDenseUNet(N_PLANES,
+                                generator=torch.Generator().manual_seed(25))
+    randomize_bn_stats(model, torch.Generator().manual_seed(26))
+    train_step_parity(dev, laid, drop_chunks(plan), model, 16,
+                      phase="gather")
+    torch.cuda.empty_cache()
+
+
+# size-3 transitions on the mid scene: the caps hold every level's sites
+# (a size-3 window reaches more coarse sites than a size-2 one)
+SIZE3_CAPS = (16_128, 12_288, 4_096, 1_024, 256, 128)
+
+
+def gather_size3(dev):
+    """(e) Size-3 stride-2 transitions (27 offsets each,
+    `PlanSpec(down_size=3, down_stride=2)`) on the mid scene: the plan's
+    33 f32 convolutions through the gather path against the chunk path on
+    the card, as (b); then the full-width model's eval forward and one
+    training step, card against CPU with [parity]'s tolerances, once with
+    every chunk rulebook (the 27-offset transitions on #1 and #3-#5 as
+    transpose plans) and once with all of them dropped (every convolution
+    on #9, M != N at K = 27 for the transitions). The forward's launches
+    and the two card steps' are checked against the plan's prediction.
+
+    The step's gradients are held as [data] holds its batch's
+    (`own_sensitivity`), over six perturbations of the input: with every
+    rulebook dropped the card's gradients of L3's and L4's dec0.conv1
+    differ from the CPU's by 0.082 and 0.056 of their max (H100 80GB
+    HBM3, 700 W), and one 1e-6 perturbation moves the CPU's own L4 tensor
+    by 0.0098 but six move it by up to 0.057 (L3's by up to 0.083). The
+    convolutions themselves are held to F32_TOL above."""
+    import dataclasses
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.infer import prepare_scene
+    from occuseg_tpu_torch.models import LearningBWDenseUNet
+    from occuseg_tpu_torch.train.state import prepare_batch
+
+    spec = PlanSpec(caps=SIZE3_CAPS, down_size=3, down_stride=2)
+    batch = _mid_scene()
+    scene = prepare_scene(batch["coords"], batch["features"], spec)
+    laid, plan = prepare_batch(_mid_scene(), spec)
+    L = len(SIZE3_CAPS)
+    check(all(l.num_active < l.cap for l in plan.levels),
+          f"[gather] (e) a level fills its cap "
+          f"{[l.num_active for l in plan.levels]}")
+    check(all(t.child.shape[1] == 27 and t.child_chunks is not None
+              for t in plan.transitions), "[gather] (e) transitions")
+    gather_vs_chunk(dev, plan, "(e)")
+    out = {}
+    for case, drop in (("chunked", False), ("dropped", True)):
+        def cut(p):
+            return drop_chunks(p, range(L), range(L - 1)) if drop else p
+        sc = dataclasses.replace(scene, plan=cut(scene.plan))
+        want_fwd = {k: v for k, v in forward_launches(sc.plan).items() if v}
+        want_step = {k: 2 * v for k, v in predicted_launches(
+            cut(plan), esize=4, bce=os.environ.get("OCC_PALLAS_BCE") == "1"
+        ).items()}
+        print(f"[gather] (e) size 3, stride 2, {case}: voxels per level "
+              f"{[l.num_active for l in plan.levels]}; predicted launches "
+              f"of a forward {want_fwd}, of two training steps {want_step}")
+        model = LearningBWDenseUNet(
+            N_PLANES, down_size=3, down_stride=2,
+            generator=torch.Generator().manual_seed(27))
+        randomize_bn_stats(model, torch.Generator().manual_seed(28))
+        zero_launches()
+        forward_parity(dev, sc, model, phase="gather")
+        got = {k: v for k, v in read_launches().items() if v}
+        check(got == want_fwd, f"[gather] (e) {case} forward launches "
+              f"{got}, expected {want_fwd}")
+        model = LearningBWDenseUNet(
+            N_PLANES, down_size=3, down_stride=2,
+            generator=torch.Generator().manual_seed(29))
+        randomize_bn_stats(model, torch.Generator().manual_seed(30))
+        zero_launches()
+        train_step_parity(dev, laid, cut(plan), model, 16, phase="gather",
+                          own_sensitivity=True, noise_runs=6)
+        step = read_launches()
+        print(f"[gather] (e) {case}: forward launches {got}; two card steps "
+              f"launched {step}")
+        check(step == want_step, f"[gather] (e) {case} step launches "
+              f"{step}, expected {want_step}")
+        out[case] = dict(forward=got, two_steps=step)
+    torch.cuda.empty_cache()
+    return out
+
+
+def gather_cli(dev, tmp, loop_med):
+    """(d) The training CLI with --chunk_conv 0 at [loop]'s flags (m=64,
+    f32, blocked 4-scene batches, OCC_PALLAS_BCE=1) for one epoch: no
+    chunk kernel, #9's launches as the plans predict (printed before the
+    run), every parameter moved, finite losses; the step's median beside
+    [loop]'s chunked one; one step profiled."""
+    import numpy as np
+    from occuseg_tpu_torch.infer import plan_scene
+    from occuseg_tpu_torch.train import cli, loop
+    from occuseg_tpu_torch.train.config import args_to_config, get_parser
+    from occuseg_tpu_torch.train.state import pinned, prepare_batch
+
+    os.environ["OCC_PALLAS_BCE"] = "1"
+    argv = [*LOOP_FLAGS, "--chunk_conv", "0", "--data_dir",
+            os.path.join(tmp, "no_scenes"), "--checkpoints_dir",
+            os.path.join(tmp, "ckpts_gather")]
+    config = args_to_config(get_parser().parse_args(argv))
+    spec = loop.build_spec(config)
+    ds = loop._synthetic_dataset(config)
+    ns = config["batch_size"]
+    rng = np.random.default_rng(100)
+    expected = collections.Counter()
+    plans = []
+    for batch in ds.train_batches(rng, config["point_cap"],
+                                  config["instance_cap"], ns):
+        laid, plan = prepare_batch(batch, spec, ns, chunks=False)
+        check(all(l.chunks is None for l in plan.levels), "chunk rulebooks")
+        plans.append((laid, plan))
+        expected.update(predicted_launches(plan, esize=4, bce=True))
+    for raw in ds.val_batches(config["point_cap"], config["instance_cap"],
+                              1):
+        vplan = plan_scene(raw["coords"], spec, chunks=False)
+        expected.update({k: 2 * v for k, v in
+                         forward_launches(vplan).items()})
+    per_step = predicted_launches(plans[0][1], esize=4, bce=True)
+    print(f"[gather] (d) --chunk_conv 0: predicted launches per step "
+          f"{per_step}, for the epoch and its evals {dict(expected)}")
+    init = loop.build_model(config, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    result = cli.main(argv, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    trainer = result["trainer"]
+    moved = sum(not torch.equal(p.detach().cpu(), q)
+                for p, q in zip(trainer.model.parameters(),
+                                init.parameters()))
+    n_params = len(list(init.parameters()))
+    tm = result["timings"]
+    med = sorted(tm["step_ms"])[len(tm["step_ms"]) // 2]
+    print(f"[gather] (d) cli.main --chunk_conv 0: {result['steps']} steps "
+          f"+ evals in {wall:.1f} s; step ms "
+          f"{', '.join(f'{t:.1f}' for t in tm['step_ms'])} (median "
+          f"{med:.1f}; [loop]'s chunked median {loop_med:.1f}); losses "
+          f"{result['losses']}; val mean IoU "
+          f"{result['metrics']['mean_iou']:.4f}; {moved} of {n_params} "
+          f"parameter tensors moved")
+    print(f"[gather] (d) launches {launches}, expected {dict(expected)}")
+    check(result["steps"] == len(plans), f"{result['steps']} steps")
+    check(all(v == v and abs(v) != float("inf")
+              for v in result["losses"].values()), "losses not finite")
+    check(moved == n_params, f"only {moved} of {n_params} moved")
+    check(launches == dict(expected), f"--chunk_conv 0 launches {launches}"
+          f", expected {dict(expected)}")
+    check(all(launches[k] == 0 for k in ("chunk_conv", "chunk_conv_dw",
+                                         "chunk_conv_bwd_fused")),
+          "a chunk kernel ran under --chunk_conv 0")
+    busy = profile_step(lambda: trainer.step(*pinned(*plans[0])), "gather")
+    print(f"[gather] (d) device busy {busy:.2f} ms of the median step "
+          f"{med:.2f} ms ({100 * busy / med:.1f}%)")
+    os.environ.pop("OCC_PALLAS_BCE")
+    return dict(launches=launches["gather_conv"], per_step=per_step,
+                step_ms=med, chunked_step_ms=loop_med, busy_ms=busy)
+
+
+def phase_gather(dev, tmp, tot, loop_med, loop_plan):
+    """[gather]: the gather-convolution path, (a)-(e) above."""
+    gather_roles(dev, tot)
+    gather_vs_chunk(dev, loop_plan)
+    gather_parity(dev)
+    tot.gather_size3 = gather_size3(dev)
+    tot.gather_cli_run = gather_cli(dev, tmp, loop_med)
+
+
+def phase_ap_gate(dev):
+    """[ap_gate]: `tools/ap_gate.run` on the card (seeds 7, 8, 9, 450
+    steps each, the port's seeded initialisation): per seed its AP, final
+    loss parts, median step and one step's launches (the mixed route: #9
+    at the 8- and 24-wide convolutions, #1 at the 16-wide ones) against
+    the plan's prediction; the contraction; fails on any threshold. Then
+    one step of a short soak, profiled."""
+    import numpy as np
+    from occuseg_tpu_torch.tools import ap_gate
+    from occuseg_tpu_torch.train.state import prepare_batch
+    pred = predicted_launches(
+        prepare_batch(ap_gate.soak_batch(ap_gate.SEEDS[0]), ap_gate.SPEC)[1],
+        esize=4, n_planes=ap_gate.N_PLANES)
+    print(f"[ap_gate] predicted launches per step {pred}")
+    seen = {}
+
+    def on_step(seed, i, parts):
+        if i in (0, 1):
+            seen[seed, i] = read_launches()
+
+    zero_launches()
+    t0 = time.perf_counter()
+    rep = ap_gate.run(dev, on_step=on_step)
+    wall = time.perf_counter() - t0
+    per_step = {}
+    for seed, r in rep["seeds"].items():
+        step = {k: seen[seed, 1][k] - seen[seed, 0][k]
+                for k in seen[seed, 1]}
+        per_step[seed] = step
+        print(f"[ap_gate] seed {seed}: AP@0.5 {r['ap']:.4f}; final loss "
+              f"parts " + ", ".join(f"{k} {v:.4f}"
+                                    for k, v in r["parts"].items())
+              + f"; median step {r['step_ms']:.2f} ms; one step launched "
+              f"#9 {step['gather_conv']} and #1 {step['chunk_conv']} times "
+              f"({step})")
+        check(step == pred, f"[ap_gate] seed {seed} launches {step}, "
+              f"expected {pred}")
+    aps = [r["ap"] for r in rep["seeds"].values()]
+    print(f"[ap_gate] mean AP@0.5 {rep['mean_ap']:.4f} (> "
+          f"{ap_gate.MEAN_AP_FLOOR}), min {min(aps):.4f} (> "
+          f"{ap_gate.SEED_AP_FLOOR}), contraction {rep['contraction']:.4f}"
+          f" (< {ap_gate.CONTRACTION_CEIL}); {wall:.1f} s")
+    check(rep["passed"], f"[ap_gate] a threshold failed: {rep}")
+    s = ap_gate.soak(ap_gate.SEEDS[0], dev, steps=3)
+    busy = profile_step(lambda: s.trainer.step(s.laid, s.plan), "ap_gate")
+    med = float(np.median([r["step_ms"] for r in rep["seeds"].values()]))
+    print(f"[ap_gate] device busy {busy:.2f} ms of the median step "
+          f"{med:.2f} ms ({100 * busy / med:.1f}%)")
+    return dict(report=rep, launches_per_step=pred, busy_ms=busy)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2303,9 +2772,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=os.path.dirname(
                                          os.path.abspath(__file__))) as tmp:
-        loop_launches, ckpt_dir = phase_loop(dev, tmp)
+        loop_launches, ckpt_dir, loop_med, loop_plan = phase_loop(dev, tmp)
         phase_instance(dev, tmp, ckpt_dir)
         data_launches = phase_data(dev, tmp, tot)
+        phase_gather(dev, tmp, tot, loop_med, loop_plan)
+    gate = phase_ap_gate(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     src = "occuseg_tpu_torch/csrc/"
@@ -2348,7 +2819,13 @@ def main() -> int:
         entry("gather_conv", "gather_conv_cli", "gather_conv.cu",
               "gather_conv.py:112", data_launches["gather_conv"],
               cli_level0=tot.gather_cli, ng_backward_ms=tot.ng_bwd_ms,
-              levels=tot.gather_levels),
+              levels=tot.gather_levels,
+              # the gather path: its roles at the bench plan's transitions,
+              # the --chunk_conv 0 CLI's launches and step, the AP gate's
+              gather_path=dict(tot.gather_roles, cli=tot.gather_cli_run,
+                               size3=tot.gather_size3,
+                               ap_gate_launches_per_step=gate[
+                                   "launches_per_step"])),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

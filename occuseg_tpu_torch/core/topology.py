@@ -13,9 +13,10 @@ Maps (all padded, -1 = missing):
   * per level: Morton-sorted voxel keys/coords, the submanifold
     neighbor map `nbr[cap, K]` and the orientation class `orient[cap]`
     of each site (zeros unless the plan was built with point normals);
-  * per level transition: `child[cap_coarse, 8]` (fine rows feeding each
-    coarse site, the strided-conv rulebook) and `up[cap_fine, 8]` (the
-    coarse row feeding each fine site, the deconvolution rulebook);
+  * per level transition of size s and stride t: `child[cap_coarse, s^3]`
+    (fine rows feeding each coarse site, the strided-conv rulebook) and
+    `up[cap_fine, s^3]` (the coarse row feeding each fine site at each
+    offset, the deconvolution rulebook);
   * `p2v[P]`: point -> level-0 voxel row.
 """
 
@@ -64,7 +65,9 @@ def pin(a):
     the block out again before the copy has run."""
     if a is None:
         return None
-    return torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.pin_memory()
 
 
 def _counts(num_active):
@@ -77,11 +80,12 @@ def _counts(num_active):
 
 class _DeviceArrays:
     """`to(device)` and `pinned()` over the arrays a device reads, which
-    each plan class names once, in `_map(fn)`. The neighbour, child and up
-    maps, keys and coords stay on the host: the model reads only their
-    shapes, and the chunk rulebooks and the point arrays on the device
-    (and, at a level with normals, `LevelTopology.guided`, the neighbour
-    map and the orientation classes)."""
+    each plan class names once, in `_map(fn)`. Keys and coords stay on the
+    host, and so do the neighbour, child and up maps themselves: the chunk
+    kernels read the rulebooks, and the gather convolution reads each map
+    in its kernel's orientation (`_GatherMaps`). The point arrays always
+    go, and at a level with normals (`LevelTopology.guided`) the
+    neighbour map and the orientation classes."""
 
     def _map(self, fn):
         raise NotImplementedError
@@ -93,6 +97,52 @@ class _DeviceArrays:
     def pinned(self):
         """The arrays `to` uploads, in page-locked host memory (`pin`)."""
         return self._map(pin)
+
+
+def _keep(a):
+    return a
+
+
+def _kn(a):
+    """A [rows, K] map in the gather-conv kernel's orientation: [K, rows]
+    int32, contiguous (a tensor stays on its device)."""
+    if isinstance(a, torch.Tensor):
+        return a.t().to(torch.int32).contiguous()
+    return np.ascontiguousarray(np.asarray(a).T, dtype=np.int32)
+
+
+class _GatherMaps:
+    """The maps the gather convolution reads (`ops/conv.gather_conv_kn`),
+    in its kernel's orientation (`_kn`), one copy per plan object in
+    `self.kn` (name -> tensor). The maps that have no chunk rulebook are
+    the gather path's for every width, so `to` and `pinned` carry them
+    along with the other device arrays (page-locked, queued without a
+    wait); a map that keeps a rulebook is read here only by a module whose
+    widths the chunk kernels do not take, and is uploaded on its first
+    read. Either way a plan copies each map to a device once."""
+
+    def gather_map(self, name: str, device) -> torch.Tensor:
+        """Map `name` ("nbr", "child" or "up") as [K, rows] int32 on
+        `device`."""
+        m = self.kn.get(name)
+        if m is None:
+            m = self.kn[name] = _to(_kn(getattr(self, name)), device)
+        return m
+
+    def _map_kn(self, new, fn, names):
+        """Carry `self.kn` through `fn` into `new`, and add the maps of
+        `names` (those without a chunk rulebook)."""
+        for name in names:
+            if name not in self.kn:
+                new.kn[name] = fn(_kn(getattr(self, name)))
+        for name, m in self.kn.items():
+            new.kn[name] = fn(m)
+        return new
+
+
+def _kn_cache():
+    return dataclasses.field(default_factory=dict, init=False, repr=False,
+                             compare=False)
 
 
 def _map_each(obj, fn):
@@ -115,7 +165,7 @@ class ChunkPlan(_DeviceArrays):
 
 
 @dataclasses.dataclass(frozen=True)
-class LevelTopology(_DeviceArrays):
+class LevelTopology(_DeviceArrays, _GatherMaps):
     """Active-site set of one scale and its submanifold neighbor map.
 
     `orient` holds each site's orientation class {0, 2, 4} for the
@@ -123,8 +173,8 @@ class LevelTopology(_DeviceArrays):
     plan carried normals down to this level (`PlanSpec.guide_levels`).
     Its normal-guided convolutions then read `nbr` and `orient` on the
     device, so both are uploaded; elsewhere `orient` is all zeros (the
-    identity filter), the chunk rulebook serves them, and both stay on
-    the host."""
+    identity filter) and stays on the host. The gather convolution reads
+    `nbr` through `gather_map("nbr", device)`."""
 
     keys: object        # int64 [cap], sorted, KEY_PAD padding
     coords: object      # int32 [cap, 4] (b,z,y,x), -1 padding
@@ -133,32 +183,39 @@ class LevelTopology(_DeviceArrays):
     orient: object = None  # int32 [cap] orientation class, zeros = identity
     guided: bool = False
     chunks: Optional[ChunkPlan] = None
+    kn: dict = _kn_cache()
 
     @property
     def cap(self) -> int:
         return self.nbr.shape[0]
 
     def _map(self, fn) -> "LevelTopology":
-        guided = fn if self.guided else (lambda a: a)
-        return dataclasses.replace(
+        guided = fn if self.guided else _keep
+        return self._map_kn(dataclasses.replace(
             self, num_active=_counts(self.num_active), nbr=guided(self.nbr),
-            orient=guided(self.orient), chunks=_map_each(self.chunks, fn))
+            orient=guided(self.orient), chunks=_map_each(self.chunks, fn)),
+            fn, ("nbr",) if self.chunks is None else ())
 
 
 @dataclasses.dataclass(frozen=True)
-class LevelTransition(_DeviceArrays):
-    """Size-2 stride-2 down/up maps between level l (fine) and l+1
-    (coarse)."""
+class LevelTransition(_DeviceArrays, _GatherMaps):
+    """Down/up maps of a size-s stride-t transition between level l
+    (fine) and l+1 (coarse), K = s^3 offsets. The chunk rulebooks come in
+    pairs (each is the other's transpose plan): both or neither."""
 
-    child: object  # int32 [cap_coarse, 8] fine rows per coarse site
-    up: object     # int32 [cap_fine, 8] coarse rows per fine site
+    child: object  # int32 [cap_coarse, K] fine rows per coarse site
+    up: object     # int32 [cap_fine, K] coarse rows per fine site
+    size: int = 2
+    stride: int = 2
     child_chunks: Optional[ChunkPlan] = None
     up_chunks: Optional[ChunkPlan] = None
+    kn: dict = _kn_cache()
 
     def _map(self, fn) -> "LevelTransition":
-        return dataclasses.replace(
+        return self._map_kn(dataclasses.replace(
             self, child_chunks=_map_each(self.child_chunks, fn),
-            up_chunks=_map_each(self.up_chunks, fn))
+            up_chunks=_map_each(self.up_chunks, fn)), fn,
+            ("child", "up") if self.child_chunks is None else ())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,12 +3,16 @@
 // Replaces: the Pallas kernel of occuseg_tpu/ops/pallas/gather_conv.py
 // (`gather_conv_pallas` -> `_pallas_conv` -> `_kernel`), which computes
 //
-//   out[n] = sum_k (nbr_kn[k, n] >= 0 ? feats[nbr_kn[k, n]] : 0) @ W[k]
+//   out[m] = sum_k (nbr_kn[k, m] >= 0 ? feats[nbr_kn[k, m]] : 0) @ W[k]
 //
-// for feats [N, Cin], the transposed neighbour map nbr_kn [K, N] int32 and
-// W [K, Cin, Cout], with f32 accumulation and the output in the feature
-// dtype. The TPU kernel keeps a whole level's features resident in VMEM and
-// permutes them per offset (the one gather Mosaic lowers), which limits it
+// for feats [N, Cin], the transposed map nbr_kn [K, M] int32 and W [K, Cin,
+// Cout], with f32 accumulation and the output [M, Cout] in the feature
+// dtype. M = N for a submanifold map; a strided convolution's child map
+// has M coarse output rows over N fine source rows, a deconvolution's up
+// map the reverse, and the gather convolution's d_feats runs this kernel
+// over the transpose map with the roles of M and N swapped again. The TPU
+// kernel keeps a whole level's features resident in VMEM and permutes them
+// per offset (the one gather Mosaic lowers), which limits it
 // to Cin % 128 == 0 and small levels. Here each block gathers its rows
 // straight from device memory, so any Cin and Cout that are multiples of 8
 // are taken.
@@ -24,9 +28,11 @@
 // Design, bf16 (the chunk-conv forward's machinery, chunk_conv.cuh):
 //  * one block of two warpgroups per (128 output rows, NT output columns,
 //    split), NT = 64, 96 or 128 (the wrapper's `chunk_conv.col_tile`);
+//    the grid, the tiles and the split are sized by the output rows M,
+//    only the validity of an id by the source rows N;
 //  * the tile's neighbour ids for every offset go to shared memory once,
 //    by 4-byte cp.async, all in flight together (a -1, an id out of range
-//    and a row past N are all missing); the warps then mark, per offset,
+//    and a row past M are all missing); the warps then mark, per offset,
 //    which 64-row half has a neighbour, and warp 0 lists the live offsets
 //    in ascending order. An offset whose 128 ids are all -1 is
 //    skipped whole: no gather, no W load, no MMA. The padded rows of a
@@ -86,6 +92,7 @@ struct GcArgs {
   const int32_t* nbr_kn;
   bf16* out;
   int N, cin, K, cout;
+  int M;  // output rows (nbr_kn is [K, M]); N counts the source rows
 };
 
 // Shared memory plan shared by host and device, from a 1024-byte aligned
@@ -135,7 +142,7 @@ gather_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
   uint8_t* klist_s = smem + lay.klist_off;  // [K][2]: k, half mask
 
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const int N = a.N, K = a.K, cin = a.cin;
+  const int N = a.N, M = a.M, K = a.K, cin = a.cin;
   const int r0 = blockIdx.x * kTile, co0 = blockIdx.y * NT;
   const int ncols = min(NT, a.cout - co0);
   const int n_cit = (cin + kCiT - 1) / kCiT;
@@ -149,11 +156,11 @@ gather_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     mbar_fence_init();
   }
   // the tile's neighbour ids, offset-major, all in flight at once; a row
-  // past N is -1 (ids out of range are read as -1 where they are used)
+  // past M is -1 (ids out of [0, N) are read as -1 where they are used)
   for (int i = t; i < K * kTile; i += kWgThreads) {
     const int row = r0 + i % kTile;
-    if (row < N)
-      cp_async4(ids_s + i, a.nbr_kn + static_cast<size_t>(i / kTile) * N + row);
+    if (row < M)
+      cp_async4(ids_s + i, a.nbr_kn + static_cast<size_t>(i / kTile) * M + row);
     else
       ids_s[i] = -1;
   }
@@ -271,7 +278,7 @@ gather_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = r0 + row0 + (lane >> 2) + h * 8;
-        if (row < N)
+        if (row < M)
           *reinterpret_cast<__nv_bfloat162*>(
               a.out + static_cast<size_t>(row) * a.cout + col) =
               __floats2bfloat162_rn(acc[4 * j + 2 * h],
@@ -308,7 +315,7 @@ gather_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
       v.z += w.z;
       v.w += w.w;
     }
-    if (r0 + m < N) {
+    if (r0 + m < M) {
       __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
       __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
       uint2 packed;
@@ -351,7 +358,7 @@ int launch_wgmma(const GcArgs& a, const void* w, int splits,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.N + kTile - 1) / kTile, (a.cout + NT - 1) / NT,
+  cfg.gridDim = dim3((a.M + kTile - 1) / kTile, (a.cout + NT - 1) / NT,
                      splits);
   cfg.blockDim = dim3(kWgThreads);
   cfg.dynamicSmemBytes = smem;
@@ -384,16 +391,18 @@ struct Tiles {
   static constexpr int kLdb = kCols + kVec;     // B tile row stride
 };
 
-// A tile: rows r0.., columns ci0.. of feats gathered through nbr_kn[k].
+// A tile: output rows r0.. (of M), columns ci0.. of feats [N, cin]
+// gathered through nbr_kn[k].
 template <typename T>
-__device__ void load_a(T* a_s, const T* __restrict__ feats, int N, int cin,
-                       const int32_t* __restrict__ nbr_k, int r0, int ci0) {
+__device__ void load_a(T* a_s, const T* __restrict__ feats, int N, int M,
+                       int cin, const int32_t* __restrict__ nbr_k, int r0,
+                       int ci0) {
   using S = Tiles<T>;
   constexpr int kVpr = kCiT / S::kVec;
   for (int i = threadIdx.x; i < kRows * kVpr; i += kThreads) {
     const int m = i / kVpr, col = ci0 + (i % kVpr) * S::kVec;
     const int r = r0 + m;
-    const int src = r < N ? nbr_k[r] : -1;
+    const int src = r < M ? nbr_k[r] : -1;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (src >= 0 && src < N && col < cin)
       v = *reinterpret_cast<const uint4*>(feats + static_cast<size_t>(src) * cin +
@@ -421,7 +430,7 @@ __device__ void load_b(T* b_s, const T* __restrict__ w, int k, int cin,
 
 __global__ void __launch_bounds__(kThreads)
 gather_conv_f32_kernel(const float* __restrict__ feats, int N, int cin,
-                       const int32_t* __restrict__ nbr_kn, int K,
+                       const int32_t* __restrict__ nbr_kn, int K, int M,
                        const float* __restrict__ w, int cout,
                        float* __restrict__ out) {
   using S = Tiles<float>;
@@ -434,10 +443,10 @@ gather_conv_f32_kernel(const float* __restrict__ feats, int N, int cin,
   for (int r = 0; r < 4; ++r)
     for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
   for (int k = 0; k < K; ++k) {
-    const int32_t* nbr_k = nbr_kn + static_cast<size_t>(k) * N;
+    const int32_t* nbr_k = nbr_kn + static_cast<size_t>(k) * M;
     for (int ci0 = 0; ci0 < cin; ci0 += kCiT) {
       __syncthreads();
-      load_a<float>(a_s, feats, N, cin, nbr_k, r0, ci0);
+      load_a<float>(a_s, feats, N, M, cin, nbr_k, r0, ci0);
       load_b<float>(b_s, w, k, cin, cout, ci0, co0);
       __syncthreads();
       for (int ci = 0; ci < kCiT; ++ci) {
@@ -457,7 +466,7 @@ gather_conv_f32_kernel(const float* __restrict__ feats, int N, int cin,
   if (col >= cout) return;
   for (int r = 0; r < 4; ++r) {
     const int row = r0 + rg * 4 + r;
-    if (row >= N) break;
+    if (row >= M) break;
     *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * cout + col) =
         make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
   }
@@ -469,24 +478,25 @@ gather_conv_f32_kernel(const float* __restrict__ feats, int N, int cin,
 
 extern "C" {
 
-// out [N, cout] = sum_k feats[nbr_kn[k]] @ w[k] (see the header); feats
-// [N, cin], w [K, cin, cout] in one dtype, cin and cout multiples of 8.
+// out [M, cout] = sum_k feats[nbr_kn[k]] @ w[k] (see the header); feats
+// [N, cin], nbr_kn [K, M], w [K, cin, cout] in one dtype, cin and cout
+// multiples of 8.
 // bf16 runs in column tiles of nt (64, 96, 128) and `splits` (1-8) ranges
 // of steps per tile, one cluster; f32 ignores both. Returns a
 // cudaError_t, -2 when cin or cout is not a multiple of 8, -3 for an
 // unsupported nt or splits, -4 when the tensor-map encoder is missing or
 // refuses W, -5 when K's neighbour ids do not fit in shared memory.
 int occ_gather_conv(const void* feats, int N, int cin, const void* nbr_kn,
-                    int K, const void* w, int cout, int nt, int splits,
-                    void* out, int is_bf16, void* stream) {
+                    int K, int M, const void* w, int cout, int nt,
+                    int splits, void* out, int is_bf16, void* stream) {
   if (cin % 8 || cout % 8) return -2;
-  if (N == 0) return 0;
+  if (M == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (splits < 1 || splits > kMaxSplits) return -3;
     const GcArgs a{static_cast<const bf16*>(feats),
                    static_cast<const int32_t*>(nbr_kn),
-                   static_cast<bf16*>(out), N, cin, K, cout};
+                   static_cast<bf16*>(out), N, cin, K, cout, M};
     switch (nt) {
       case 64: return launch_wgmma<64>(a, w, splits, s);
       case 96: return launch_wgmma<96>(a, w, splits, s);
@@ -494,11 +504,11 @@ int occ_gather_conv(const void* feats, int N, int cin, const void* nbr_kn,
     }
     return -3;
   }
-  const dim3 grid((N + fma::kRows - 1) / fma::kRows,
+  const dim3 grid((M + fma::kRows - 1) / fma::kRows,
                   (cout + fma::kCols - 1) / fma::kCols);
   fma::gather_conv_f32_kernel<<<grid, fma::kThreads, 0, s>>>(
       static_cast<const float*>(feats), N, cin,
-      static_cast<const int32_t*>(nbr_kn), K, static_cast<const float*>(w),
+      static_cast<const int32_t*>(nbr_kn), K, M, static_cast<const float*>(w),
       cout, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

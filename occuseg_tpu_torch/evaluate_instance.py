@@ -234,7 +234,8 @@ def infer_scenes(config: Dict, args, model: Optional[torch.nn.Module] = None,
         # no normals, as the JAX script's eval step is built without
         # use_normals (scripts/evaluate_instance.py:125): under --use_normal
         # every orientation class is 0, the identity filter
-        scene = prepare_scene(raw["coords"], raw["features"], spec)
+        scene = prepare_scene(raw["coords"], raw["features"], spec,
+                              chunks=bool(config.get("chunk_conv", 1)))
         yield f"scene{i:04d}", dump_scene(raw, predictor(scene), scale)
 
 

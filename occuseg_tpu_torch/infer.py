@@ -4,7 +4,8 @@
     outputs = Predictor(model, "cuda")(scene)   # OccuSegOutputs, [P, ...]
 
 `prepare_scene` runs on the host (NumPy + the C++ planner): the plan, its
-chunk rulebooks, and the sorted point layout with the features permuted
+chunk rulebooks (unless `chunks=False`: then every convolution takes the
+gather path), and the sorted point layout with the features permuted
 into it (a plan whose caps the layout does not fit has none, and keeps the
 original order). `Predictor` moves the plan to the device, runs the
 model's forward under `torch.inference_mode()`, and returns every output
@@ -41,19 +42,24 @@ class PreparedScene:
 
 
 def plan_scene(coords: np.ndarray, spec: PlanSpec, ns: int = 1,
-               normals: Optional[np.ndarray] = None) -> Topology:
+               normals: Optional[np.ndarray] = None,
+               chunks: bool = True) -> Topology:
     """Host plan from coords [P, 4] int32 (b,z,y,x; -1 rows are padding),
     as the benchmark builds it: C++ planner (the blocked multi-scene layout
     for ns > 1 scenes; orientation classes from the points' `normals`
-    [P, 3] when given), chunk rulebooks, sorted point layout."""
-    return augment_plan(build_plan_host_blocked(coords, spec, ns, normals))
+    [P, 3] when given), chunk rulebooks (with `chunks`), sorted point
+    layout."""
+    return augment_plan(build_plan_host_blocked(coords, spec, ns, normals),
+                        chunks)
 
 
-def augment_plan(plan: Topology) -> Topology:
-    """A host plan with its chunk rulebooks and sorted point layout; where
-    the layout does not fit the caps, with the points per voxel alone
-    (host data the InputLayer's mean divides by)."""
-    plan = chunk_conv.augment_plan_with_chunks(plan)
+def augment_plan(plan: Topology, chunks: bool = True) -> Topology:
+    """A host plan with its chunk rulebooks (none without `chunks`, the
+    training CLI's --chunk_conv 0) and sorted point layout; where the
+    layout does not fit the caps, with the points per voxel alone (host
+    data the InputLayer's mean divides by)."""
+    if chunks:
+        plan = chunk_conv.augment_plan_with_chunks(plan)
     plan = augment_plan_with_point_layout(plan)
     if plan.vox_counts is None:
         p2v = np.asarray(plan.p2v)
@@ -63,12 +69,13 @@ def augment_plan(plan: Topology) -> Topology:
 
 
 def prepare_scene(coords: np.ndarray, features: np.ndarray,
-                  spec: PlanSpec, normals: Optional[np.ndarray] = None
-                  ) -> PreparedScene:
+                  spec: PlanSpec, normals: Optional[np.ndarray] = None,
+                  chunks: bool = True) -> PreparedScene:
     """Host preparation of one scene: its plan (`plan_scene`, with the
-    points' `normals` for a normal-guided model) and the features [P, C]
-    permuted into the plan's point layout."""
-    plan = plan_scene(coords, spec, normals=normals)
+    points' `normals` for a normal-guided model, chunk rulebooks with
+    `chunks`) and the features [P, C] permuted into the plan's point
+    layout."""
+    plan = plan_scene(coords, spec, normals=normals, chunks=chunks)
     laid = apply_point_layout({"features": np.asarray(features, np.float32)},
                               plan)
     return PreparedScene(plan=plan, features=laid["features"],

@@ -65,7 +65,8 @@ class _Backbone(nn.Module):
                  residual_blocks: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
                  in_features: int = 3, normal_guided: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 down_size: int = 2, down_stride: int = 2):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.input = InputLayer()
@@ -74,7 +75,8 @@ class _Backbone(nn.Module):
                                           generator=generator)
         self.unet = UNet(block_reps, tuple(n_planes),
                          residual_blocks=residual_blocks,
-                         normal_guided=normal_guided, generator=generator)
+                         normal_guided=normal_guided, generator=generator,
+                         down_size=down_size, down_stride=down_stride)
         self.bn = BatchNormReLU(n_planes[0])
         self.output = OutputLayer()
 
@@ -94,12 +96,13 @@ class InstanceDenseUNet(nn.Module):
                  block_reps: int = 1, residual_blocks: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
                  in_features: int = 3, normal_guided: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 down_size: int = 2, down_stride: int = 2):
         super().__init__()
         m = n_planes[0]
         self.backbone = _Backbone(n_planes, block_reps, residual_blocks,
                                   compute_dtype, in_features, normal_guided,
-                                  generator)
+                                  generator, down_size, down_stride)
         self.linear = _linear(m, num_classes, generator)
         self.fc_embedding = _linear(m, m, generator)
         self.linear_embedding = _linear(m, m, generator)
@@ -126,13 +129,14 @@ class LearningBWDenseUNet(nn.Module):
                  block_reps: int = 1, residual_blocks: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
                  in_features: int = 3, normal_guided: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 down_size: int = 2, down_stride: int = 2):
         super().__init__()
         m = n_planes[0]
         self.backbone = InstanceDenseUNet(n_planes, num_classes, block_reps,
                                           residual_blocks, compute_dtype,
                                           in_features, normal_guided,
-                                          generator)
+                                          generator, down_size, down_stride)
         self.fc_bw = _linear(m, m, generator)
         self.linear_bw = _linear(m, 2, generator)
         self.fc_occupancy = _linear(m, m, generator)

@@ -78,7 +78,8 @@ def merge_scene_plans(plans: Sequence[Topology],
             child=np.concatenate([_off(t.child, s * fine_cap)
                                   for s, t in enumerate(trs)]),
             up=np.concatenate([_off(t.up, s * coarse_cap)
-                               for s, t in enumerate(trs)])))
+                               for s, t in enumerate(trs)]),
+            size=trs[0].size, stride=trs[0].stride))
     return Topology(levels=tuple(levels), transitions=tuple(transitions),
                     p2v=np.full((1,), -1, np.int32),
                     num_points=sum(int(p.num_points) for p in plans))

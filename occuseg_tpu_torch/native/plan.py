@@ -3,8 +3,12 @@
 
 Runs the C++ planner (`csrc/native.cpp`) through the port's binding and
 returns NumPy plan dataclasses bit-identical to the JAX package's host
-plan, orientation classes included. Only the UNet default is supported: a
-cubic kernel with stride-2, size-2 transitions; any other spec raises.
+plan, orientation classes included. Size-2 stride-2 transitions run in the
+C++ planner; any other size and stride (a VGG "Plus" down_size=3, say)
+runs `_general_downsample_np`, the JAX package's NumPy output-region
+transition, with s^3 offsets per map. The JAX package plans dilated
+nearest-neighbour searches and permutohedral lattices only inside jit;
+the port's `PlanSpec` has no fields for them.
 
 With point normals [P, 3] (x, y, z) the plan carries normals for the
 normal-guided convolutions: a level-0 voxel's normal is the normalised sum
@@ -26,8 +30,102 @@ from occuseg_tpu_torch.core.topology import (
     LevelTransition,
     PlanSpec,
     Topology,
+    _even_offsets,
     _offsets,
 )
+
+
+_KEY_PAD = np.int64(1) << np.int64(62)
+_SPATIAL_BITS = 36
+
+
+def _spread3(v: np.ndarray) -> np.ndarray:
+    x = v.astype(np.int64) & 0x1FFFFF
+    x = (x | (x << 32)) & 0x1F00000000FFFF
+    x = (x | (x << 16)) & 0x1F0000FF0000FF
+    x = (x | (x << 8)) & 0x100F00F00F00F00F
+    x = (x | (x << 4)) & 0x10C30C30C30C30C3
+    x = (x | (x << 2)) & 0x1249249249249249
+    return x
+
+
+def _compact3(v: np.ndarray) -> np.ndarray:
+    x = v & 0x1249249249249249
+    x = (x | (x >> 2)) & 0x10C30C30C30C30C3
+    x = (x | (x >> 4)) & 0x100F00F00F00F00F
+    x = (x | (x >> 8)) & 0x1F0000FF0000FF
+    x = (x | (x >> 16)) & 0x1F00000000FFFF
+    x = (x | (x >> 32)) & 0x1FFFFF
+    return x
+
+
+def _pack(coords: np.ndarray) -> np.ndarray:
+    """Morton keys of coords [N, 4] (b, z, y, x); a row with a negative
+    or out-of-range (>= 4096) component is _KEY_PAD."""
+    c = coords.astype(np.int64)
+    invalid = (c < 0).any(axis=1) | (c[:, 1:] >= 4096).any(axis=1)
+    key = ((c[:, 0] << _SPATIAL_BITS) | (_spread3(c[:, 1]) << 2)
+           | (_spread3(c[:, 2]) << 1) | _spread3(c[:, 3]))
+    return np.where(invalid, _KEY_PAD, key)
+
+
+def _unpack(keys: np.ndarray) -> np.ndarray:
+    """Inverse of `_pack`: int32 coords [N, 4], -1 rows for _KEY_PAD."""
+    morton = keys & ((np.int64(1) << _SPATIAL_BITS) - 1)
+    out = np.stack([keys >> _SPATIAL_BITS, _compact3(morton >> 2),
+                    _compact3(morton >> 1), _compact3(morton)],
+                   axis=-1).astype(np.int32)
+    return np.where((keys >= _KEY_PAD)[:, None], np.int32(-1), out)
+
+
+def _lookup(keys: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Row of each query key in sorted `keys`, -1 where absent."""
+    pos = np.clip(np.searchsorted(keys, q), 0, len(keys) - 1)
+    hit = (keys[pos] == q) & (q < _KEY_PAD)
+    return np.where(hit, pos, -1).astype(np.int32)
+
+
+def _general_downsample_np(keys: np.ndarray, coords: np.ndarray,
+                           cap_c: int, size: int, stride: int):
+    """(coarse keys, coarse coords, coarse count, child [cap_c, size^3],
+    up [cap, size^3]) of an output-region transition of any size and
+    stride: coarse site j covers fine sites j*stride + [0, size)^3 (the
+    reference's OutputRegionCalculator); up[i, k] is the coarse site that
+    reaches fine site i through offset k."""
+    valid = coords[:, 0] >= 0
+    sp = coords[:, 1:]
+    ncand = -(-size // stride)
+    cand = []
+    for tz in range(ncand):
+        for ty in range(ncand):
+            for tx in range(ncand):
+                j = sp // stride - np.array([tz, ty, tx], np.int32)
+                ok = valid & (j >= 0).all(1) & (sp - j * stride < size).all(1)
+                cc = np.concatenate([coords[:, :1], j], axis=1)
+                cc[~ok] = -1
+                cand.append(_pack(cc))
+    u = np.unique(np.concatenate(cand))
+    u = u[u < _KEY_PAD][:cap_c]
+    ckeys = np.full(cap_c, _KEY_PAD, np.int64)
+    ckeys[:len(u)] = u
+    ccoords = _unpack(ckeys)
+
+    offs = _even_offsets(size)
+    K = offs.shape[0]
+    child = np.full((cap_c, K), -1, np.int32)
+    up = np.full((coords.shape[0], K), -1, np.int32)
+    cvalid = ccoords[:, 0] >= 0
+    for k, off in enumerate(offs):
+        tgt = np.concatenate(
+            [ccoords[:, :1], ccoords[:, 1:] * stride + off], axis=1)
+        tgt[~cvalid] = -1
+        child[:, k] = _lookup(keys, _pack(tgt))
+        num = sp - off
+        div = valid & (num >= 0).all(1) & (num % stride == 0).all(1)
+        j = np.concatenate([coords[:, :1], num // stride], axis=1)
+        j[~div] = -1
+        up[:, k] = _lookup(ckeys, _pack(j))
+    return ckeys, ccoords, len(u), child, up
 
 
 def _orient_class(normals: np.ndarray) -> np.ndarray:
@@ -48,10 +146,7 @@ def build_plan_host(point_coords: np.ndarray, spec: PlanSpec,
                     point_normals: Optional[np.ndarray] = None) -> Topology:
     """NumPy Topology for padded point coords [P,4] (b,z,y,x; -1 pad),
     with orientation classes from `point_normals` [P, 3] when given."""
-    if not (spec.down_size == 2 and spec.down_stride == 2):
-        raise NotImplementedError(
-            f"build_plan_host: only size-2 stride-2 transitions are ported "
-            f"(got size {spec.down_size}, stride {spec.down_stride})")
+    fast_down = spec.down_size == 2 and spec.down_stride == 2
     offs = _offsets(spec.kernel, spec.dilation)
     K = offs.shape[0]
 
@@ -71,9 +166,16 @@ def build_plan_host(point_coords: np.ndarray, spec: PlanSpec,
     for li, cap in enumerate(spec.caps):
         lvl_data.append((*cur, normals))
         if li + 1 < len(spec.caps):
-            ckeys, ccoords, child, up, nc = native.plan_downsample(
-                cur[0], cur[1], cur[2], spec.caps[li + 1])
-            transitions.append(LevelTransition(child=child, up=up))
+            if fast_down:
+                ckeys, ccoords, child, up, nc = native.plan_downsample(
+                    cur[0], cur[1], cur[2], spec.caps[li + 1])
+            else:
+                ckeys, ccoords, nc, child, up = _general_downsample_np(
+                    cur[0], cur[1], spec.caps[li + 1], spec.down_size,
+                    spec.down_stride)
+            transitions.append(LevelTransition(
+                child=child, up=up, size=spec.down_size,
+                stride=spec.down_stride))
             if spec.guide_levels is not None and li + 1 >= spec.guide_levels:
                 normals = None
             if normals is not None:
@@ -84,13 +186,14 @@ def build_plan_host(point_coords: np.ndarray, spec: PlanSpec,
 
     # Phase 2: neighbor maps, coarsest first. A fine level derives its map
     # from the parent's when that is bit-identical to probing: a 3^3
-    # dilation-1 kernel and a coarse level that did not hit its cap.
+    # dilation-1 kernel, a size-2 stride-2 transition and a coarse level
+    # that did not hit its cap.
     small3 = K == 27 and bool((np.abs(offs) <= 1).all())
     nbrs = [None] * len(spec.caps)
     for li in reversed(range(len(spec.caps))):
         lk, lc, ln, _ = lvl_data[li]
         nbr = None
-        if (small3 and li + 1 < len(spec.caps)
+        if (small3 and fast_down and li + 1 < len(spec.caps)
                 and lvl_data[li + 1][2] < spec.caps[li + 1]):
             tr = transitions[li]
             nbr = native.plan_neighbor_map_derived(

@@ -29,27 +29,31 @@ class PlanPool:
     to `workers + 2` batches in flight."""
 
     def __init__(self, spec, workers: int, bucket_specs_list=None,
-                 ns: int = 1, pin: bool = False):
+                 ns: int = 1, pin: bool = False, chunks: bool = True):
         self.workers = max(int(workers), 1)
         self.window = self.workers + 2
         self.spec = spec
         self.buckets = bucket_specs_list
         self.ns = ns
         self.pin = pin
+        self.chunks = chunks
         self._pool = ThreadPoolExecutor(max_workers=self.workers,
                                         thread_name_prefix="plan")
 
     def _build(self, batch: Dict) -> Tuple[Dict, object, int]:
         """(laid-out batch, host plan, bucket index) of one batch: the
         blocked layout for ns > 1, at the smallest cap bucket that fits
-        with `bucket_specs_list`, what the step uploads pinned with `pin`
-        (`train.state.pinned`). Runs in a worker thread."""
+        with `bucket_specs_list`, chunk rulebooks with `chunks` (the
+        training CLI's --chunk_conv), what the step uploads pinned with
+        `pin` (`train.state.pinned`). Runs in a worker thread."""
         from occuseg_tpu_torch.train.bucketing import prepare_bucketed
         from occuseg_tpu_torch.train.state import pinned, prepare_batch
         if self.buckets is not None:
-            laid, plan, bi = prepare_bucketed(batch, self.buckets, self.ns)
+            laid, plan, bi = prepare_bucketed(batch, self.buckets, self.ns,
+                                              self.chunks)
         else:
-            (laid, plan), bi = prepare_batch(batch, self.spec, self.ns), 0
+            (laid, plan), bi = prepare_batch(batch, self.spec, self.ns,
+                                             self.chunks), 0
         return (*pinned(laid, plan), bi) if self.pin else (laid, plan, bi)
 
     def imap(self, batches: Iterable[Dict]

@@ -6,17 +6,23 @@ Parameter shapes match the JAX package (conv weight [K, Cin, Cout], NIN
 [Cin, Cout]) and the reference He init std (2 / (Cin * K))^0.5, drawn
 from an explicit `torch.Generator`.
 
-Every convolution runs the chunked kernels over the plan's chunk rulebook,
-through the autograd entry points of `ops/kernels/chunk_conv.py` (the
-strided convolution and the deconvolution hand them the transition's
-other map as the transpose plan), except a normal-guided submanifold
-convolution at a level whose plan carries normals (`LevelTopology.guided`):
-that one runs `ops/normal_guide.normal_guided_conv`, the gather-conv
-kernel over the neighbour map permuted by each site's orientation class.
-At the levels past `PlanSpec.guide_levels` every class is 0, the
-identity, and the chunk kernels compute the same function. A level or
-transition without a chunk plan (U overflow or a misaligned cap) makes
-the forward raise and name it; there is no gather fallback yet.
+Every convolution takes the first of these routes that applies:
+  * a normal-guided submanifold convolution at a level whose plan carries
+    normals (`LevelTopology.guided`) runs `ops/normal_guide.
+    normal_guided_conv`, the gather-conv kernel over the neighbour map
+    permuted by each site's orientation class;
+  * where the map has a chunk rulebook and the chunk kernels take the
+    output width (a multiple of 16; Cin is zero-padded), the chunked
+    kernels of `ops/kernels/chunk_conv.py` (a strided convolution and a
+    deconvolution hand them the transition's other rulebook as the
+    transpose plan);
+  * else the gather convolution of `ops/conv.py` over the map itself,
+    with its backward map (the JAX package's fallback, `_chunk_supported`;
+    the TPU kernel's Cout >= 32 is a limit of its compiler, not of these
+    kernels, and is not copied). It reads the maps in its kernel's
+    orientation from the plan (`gather_map`), which uploads each once.
+The routes compute the same function. At the levels past
+`PlanSpec.guide_levels` every orientation class is 0, the identity.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from occuseg_tpu_torch.ops.kernels.chunk_conv import (
     chunk_gather_conv_t,
 )
 
-# the kernel's MMA depth: Cin is zero-padded to a multiple of it
+# the chunk kernels' MMA depth: Cin is zero-padded to a multiple of it,
+# and Cout must be one
 _CIN_ALIGN = 16
 
 
@@ -47,17 +54,20 @@ def _he_weight(shape, volume: int, generator: Optional[torch.Generator]):
     return nn.Parameter(torch.randn(shape, generator=generator) * std)
 
 
-def _run_chunked(feats: torch.Tensor, w: torch.Tensor,
-                 chunks: Optional[ChunkPlan], what: str,
+def chunk_route(chunks: Optional[ChunkPlan], cout: int) -> bool:
+    """Whether a convolution with `cout` output channels over a map with
+    chunk rulebook `chunks` (None: none) runs the chunk kernels; where it
+    does not, it runs the gather convolution."""
+    return chunks is not None and cout % _CIN_ALIGN == 0
+
+
+def _run_chunked(feats: torch.Tensor, w: torch.Tensor, chunks: ChunkPlan,
                  t_chunks: Optional[ChunkPlan] = None) -> torch.Tensor:
     """Chunked conv over `chunks`: submanifold when `t_chunks` is None,
     else a transition with `t_chunks` as its transpose plan. Small Cin
     (the first 3 -> m conv) is zero-padded to the kernels' MMA depth in
     both feats and W; padded columns meet zero weights, so the output is
     unchanged, and F.pad's backward drops their gradient rows."""
-    if chunks is None:
-        raise RuntimeError(f"{what} has no chunk plan (U overflow or a "
-                           f"misaligned cap); the gather path is not ported")
     pad = (-feats.shape[1]) % _CIN_ALIGN
     if pad:
         feats = F.pad(feats, (0, pad))
@@ -87,52 +97,84 @@ class SubmanifoldConvolution(nn.Module):
         if lvl.nbr.shape[1] != self.weight.shape[0]:
             raise ValueError(f"plan kernel volume {lvl.nbr.shape[1]} != "
                              f"module's {self.weight.shape[0]}")
+        f = x.features
         if self.normal_guided and lvl.guided:
-            out = normal_guide.normal_guided_conv(x.features, lvl.nbr,
-                                                  lvl.orient, self.weight)
+            out = normal_guide.normal_guided_conv(f, lvl.nbr, lvl.orient,
+                                                  self.weight)
+        elif chunk_route(lvl.chunks, self.weight.shape[2]):
+            out = _run_chunked(f, self.weight, lvl.chunks)
         else:
-            out = _run_chunked(x.features, self.weight, lvl.chunks,
-                               f"level {x.level}")
+            nbr = lvl.gather_map("nbr", f.device)
+            out = conv_ops.gather_conv_kn(f, nbr, self.weight, nbr, True)
         return x.with_features(out)
 
 
-class Convolution(nn.Module):
-    """Size-2 stride-2 convolution to the next coarser level (rulebook =
-    the transition's child map)."""
+class _Transition(nn.Module):
+    """A size^3 convolution between level l and l+1 with `size^3`
+    weights (the reference's Convolution / Deconvolution)."""
 
-    def __init__(self, in_features: int, out_features: int,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, in_features: int, out_features: int, size: int,
+                 stride: int, generator: Optional[torch.Generator]):
         super().__init__()
-        self.weight = _he_weight((8, in_features, out_features), 8,
+        self.size, self.stride = size, stride
+        K = size ** 3
+        self.weight = _he_weight((K, in_features, out_features), K,
                                  generator)
 
+    def _transition(self, plan: Topology, t: int):
+        tr = plan.transitions[t]
+        if (tr.size, tr.stride) != (self.size, self.stride):
+            raise ValueError(f"transition {t} is size {tr.size} stride "
+                             f"{tr.stride}; the module's {self.size} "
+                             f"{self.stride}")
+        return tr
+
+
+class Convolution(_Transition):
+    """Strided convolution to the next coarser level (rulebook = the
+    transition's child map; backward map `up`)."""
+
+    def __init__(self, in_features: int, out_features: int, size: int = 2,
+                 stride: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_features, out_features, size, stride, generator)
+
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
-        tr = plan.transitions[x.level]
-        out = _run_chunked(x.features, self.weight, tr.child_chunks,
-                           f"transition {x.level} (child map)",
-                           t_chunks=tr.up_chunks)
+        tr = self._transition(plan, x.level)
+        f = x.features
+        if chunk_route(tr.child_chunks, self.weight.shape[2]):
+            out = _run_chunked(f, self.weight, tr.child_chunks,
+                               t_chunks=tr.up_chunks)
+        else:
+            out = conv_ops.gather_conv_kn(
+                f, tr.gather_map("child", f.device), self.weight,
+                tr.gather_map("up", f.device), False)
         return SparseTensor(features=out,
                             num_active=plan.levels[x.level + 1].num_active,
                             level=x.level + 1)
 
 
-class Deconvolution(nn.Module):
-    """Transposed size-2 stride-2 convolution back to the finer level
-    (rulebook = the transition's up map)."""
+class Deconvolution(_Transition):
+    """Transposed strided convolution back to the finer level (rulebook =
+    the transition's up map; backward map `child`)."""
 
-    def __init__(self, in_features: int, out_features: int,
+    def __init__(self, in_features: int, out_features: int, size: int = 2,
+                 stride: int = 2,
                  generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.weight = _he_weight((8, in_features, out_features), 8,
-                                 generator)
+        super().__init__(in_features, out_features, size, stride, generator)
 
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
         if x.level == 0:
             raise ValueError("Deconvolution needs a finer level")
-        tr = plan.transitions[x.level - 1]
-        out = _run_chunked(x.features, self.weight, tr.up_chunks,
-                           f"transition {x.level - 1} (up map)",
-                           t_chunks=tr.child_chunks)
+        tr = self._transition(plan, x.level - 1)
+        f = x.features
+        if chunk_route(tr.up_chunks, self.weight.shape[2]):
+            out = _run_chunked(f, self.weight, tr.up_chunks,
+                               t_chunks=tr.child_chunks)
+        else:
+            out = conv_ops.gather_conv_kn(
+                f, tr.gather_map("up", f.device), self.weight,
+                tr.gather_map("child", f.device), False)
         return SparseTensor(features=out,
                             num_active=plan.levels[x.level - 1].num_active,
                             level=x.level - 1)

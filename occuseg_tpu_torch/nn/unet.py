@@ -62,11 +62,14 @@ class _Block(nn.Module):
 
 class UNet(nn.Module):
     """Recursive sparse UNet over widths n_planes (one per level);
-    `normal_guided` applies to every submanifold convolution."""
+    `normal_guided` applies to every submanifold convolution, and every
+    level change is a convolution of `down_size` and `down_stride` (the
+    plan's transitions must match)."""
 
     def __init__(self, reps: int, n_planes: Sequence[int],
                  residual_blocks: bool = False, normal_guided: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 down_size: int = 2, down_stride: int = 2):
         super().__init__()
         p = tuple(n_planes)
         ng = normal_guided
@@ -78,10 +81,11 @@ class UNet(nn.Module):
         if not self.deep:
             return
         self.down_bn = BatchNormReLU(p[0])
-        self.down_conv = Convolution(p[0], p[1], generator=generator)
-        self.inner = UNet(reps, p[1:], residual_blocks, ng, generator)
+        ds = (down_size, down_stride)
+        self.down_conv = Convolution(p[0], p[1], *ds, generator=generator)
+        self.inner = UNet(reps, p[1:], residual_blocks, ng, generator, *ds)
         self.up_bn = BatchNormReLU(p[1])
-        self.up_conv = Deconvolution(p[1], p[0], generator=generator)
+        self.up_conv = Deconvolution(p[1], p[0], *ds, generator=generator)
         for i in range(reps):
             cin = p[0] * (2 if i == 0 else 1)
             self.add_module(f"dec{i}", _Block(cin, p[0], residual_blocks,

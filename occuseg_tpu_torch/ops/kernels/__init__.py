@@ -79,8 +79,8 @@ def load() -> ctypes.CDLL:
                                 _vp, _int, _vp, _int, _int, _int, _int, _vp,
                                 _vp, _vp, _vp, _vp, _vp, _vp]
     lib.occ_gather_conv.restype = _int
-    lib.occ_gather_conv.argtypes = [_vp, _int, _int, _vp, _int, _vp, _int,
-                                    _int, _int, _vp, _int, _vp]
+    lib.occ_gather_conv.argtypes = [_vp, _int, _int, _vp, _int, _int, _vp,
+                                    _int, _int, _int, _vp, _int, _vp]
     return lib
 
 

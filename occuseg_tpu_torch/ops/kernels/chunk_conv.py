@@ -82,8 +82,9 @@ def augment_plan_with_chunks(plan, M: int = DEFAULT_M, U=None, U_child=None,
     retries with its own U scaled by 1.3; if a transition overflows or
     1.3 is not enough, the whole plan is scaled by each later tier in
     turn. Under the last tier, maps that still overflow keep
-    `chunks=None`, and a forward over them raises. The plan returned
-    records the tier in `chunk_tier`.
+    `chunks=None`, and the convolutions over them take the gather path
+    (`nn/modules.py`, `ops/conv.py`). The plan returned records the tier
+    in `chunk_tier`.
 
     A blocked multi-scene plan (`native/blocked.py`, vector
     `num_active`) is planned as it stands: its per-scene caps are

@@ -81,10 +81,11 @@ def plan_for_batch(specs: Sequence[PlanSpec], coords: np.ndarray,
         i += 1
 
 
-def prepare_bucketed(batch, specs: Sequence[PlanSpec], ns: int = 1):
+def prepare_bucketed(batch, specs: Sequence[PlanSpec], ns: int = 1,
+                     chunks: bool = True):
     """`train.state.prepare_batch` at the bucket `plan_for_batch` picks:
     (laid-out batch, host plan, bucket index)."""
     normals = batch["normals"] if specs[0].guide_levels is not None else None
     bi, plan = plan_for_batch(specs, batch["coords"], normals, ns)
-    plan = augment_plan(plan)
+    plan = augment_plan(plan, chunks)
     return apply_point_layout(batch, plan, num_scenes=ns), plan, bi

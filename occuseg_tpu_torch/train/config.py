@@ -68,7 +68,8 @@ def get_parser() -> argparse.ArgumentParser:
                    help="static per-device instance budget")
     p.add_argument("--chunk_conv", type=int, default=1,
                    help="attach chunk rulebooks to host plans (the chunk "
-                        "conv kernels); 0 = the gather path, not ported")
+                        "conv kernels); 0 = every convolution takes the "
+                        "gather path (the gather-conv kernel)")
     p.add_argument("--num_devices", type=int, default=0,
                    help="cards to train on; 0 and 1 = one card (more: "
                         "not ported, ROADMAP A9)")

@@ -11,7 +11,8 @@ Epoch loop over the dataset: the ScanNet scenes under `--data_dir`
 files), or, when it holds none, the synthetic generator, as in the JAX
 package. Every batch is prepared on the host (the blocked multi-scene plan
 for batches of several scenes, with orientation classes under
---use_normal, chunk rulebooks, sorted point layout; optionally at the
+--use_normal, chunk rulebooks unless --chunk_conv 0 (then every
+convolution runs the gather path), sorted point layout; optionally at the
 smallest cap bucket that fits) in a `PlanPool` of `--plan_workers` threads
 (one for 0 or 1), as NumPy arrays (on a card, what the step uploads is
 pinned there); only this thread pulls the batches from the dataset and
@@ -193,9 +194,6 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
     if int(config.get("spatial_shards", 0) or 0) > 1:
         raise NotImplementedError("--spatial_shards > 1: spatial sharding "
                                   "is " + _NOT_PORTED.format("A9"))
-    if not config.get("chunk_conv", 1):
-        raise NotImplementedError("--chunk_conv 0: the gather convolution "
-                                  "path is not ported")
     dev = _device(device)
     rng = np.random.default_rng(100)  # the reference's seed
     model = build_model(config, torch.Generator().manual_seed(0))
@@ -257,7 +255,8 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
     # --plan_workers 0 or 1: one prefetch thread
     plan_pool = PlanPool(spec, int(config.get("plan_workers", 0) or 0),
                          bucket_specs_list=buckets, ns=blocked_ns,
-                         pin=dev.type == "cuda")
+                         pin=dev.type == "cuda",
+                         chunks=bool(config.get("chunk_conv", 1)))
     try:
         for epoch in range(start_epoch, int(config.get("max_epoch", 1))):
             t0 = time.time()
@@ -340,6 +339,7 @@ def evaluate_semantic(config: Dict, trainer: Trainer, spec: PlanSpec,
     reps = max(int(config.get("val_reps", 1)), 1)
     ncls = int(config.get("class_num", 20))
     use_normals = bool(config.get("use_normal"))
+    chunks = bool(config.get("chunk_conv", 1))
     predictor = Predictor(trainer.model, trainer.device)
     conf = torch.zeros((ncls, ncls), dtype=torch.int64)
     try:
@@ -349,7 +349,8 @@ def evaluate_semantic(config: Dict, trainer: Trainer, spec: PlanSpec,
             store = None
             for raw in raws:
                 scene = prepare_scene(raw["coords"], raw["features"], spec,
-                                      raw["normals"] if use_normals else None)
+                                      raw["normals"] if use_normals else None,
+                                      chunks)
                 logits = predictor(scene).semantics.float()
                 store = logits if store is None else store + logits
             gt = torch.as_tensor(raws[-1]["labels"], device=store.device)

@@ -10,7 +10,7 @@ point layout; the blocked layout of `native/blocked.py` for ns > 1 scenes)
 and permutes every per-point array of the batch into the layout.
 `Trainer.step` moves both to the device, runs the forward in train mode
 (batch statistics, running statistics updated in place), the 6-term loss,
-the backward through the chunk-conv kernels, and one optimizer update, or,
+the backward through the convolution kernels, and one optimizer update, or,
 with `accum_steps` = N > 1, `optax.MultiSteps`' semantics: the gradients
 of N calls are averaged and the update is applied on the N-th (the BN
 statistics update on every call). `Trainer.evaluate` is the eval step: the
@@ -81,14 +81,15 @@ def make_optimizer(params, cfg: TrainConfig = TrainConfig()):
 
 
 def prepare_batch(batch: Dict[str, np.ndarray], spec: PlanSpec,
-                  ns: int = 1) -> Tuple[Dict[str, np.ndarray], Topology]:
+                  ns: int = 1, chunks: bool = True
+                  ) -> Tuple[Dict[str, np.ndarray], Topology]:
     """Host preparation of a training batch of `ns` scenes (`make_batch`
     schema): (the batch with every per-point array in the plan's point
     layout, pad slots of point_scene set to ns; the host plan, blocked for
     ns > 1, with orientation classes from batch["normals"] when the spec
-    has `guide_levels`)."""
+    has `guide_levels`, and chunk rulebooks with `chunks`)."""
     normals = batch["normals"] if spec.guide_levels is not None else None
-    plan = plan_scene(batch["coords"], spec, ns, normals)
+    plan = plan_scene(batch["coords"], spec, ns, normals, chunks)
     return apply_point_layout(batch, plan, num_scenes=ns), plan
 
 

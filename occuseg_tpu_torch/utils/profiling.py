@@ -11,6 +11,7 @@ from typing import Sequence
 import numpy as np
 
 from occuseg_tpu_torch.core.topology import Topology
+from occuseg_tpu_torch.ops.conv import conv_flops
 
 
 def plan_muladd_count(plan: Topology, n_planes: Sequence[int],
@@ -24,8 +25,7 @@ def plan_muladd_count(plan: Topology, n_planes: Sequence[int],
     L = len(n_planes)
 
     def sub(level, cin, cout):
-        return int((np.asarray(plan.levels[level].nbr) >= 0).sum()) \
-            * cin * cout
+        return conv_flops(plan.levels[level].nbr, cin, cout)
 
     def nin_pairs(level, cin, cout):
         return int(np.sum(plan.levels[level].num_active)) * cin * cout
@@ -37,10 +37,8 @@ def plan_muladd_count(plan: Topology, n_planes: Sequence[int],
             total += (2 if residual else 1) * sub(l, a, a)
         if l < L - 1:
             tr = plan.transitions[l]
-            total += int((np.asarray(tr.child) >= 0).sum()) * a \
-                * n_planes[l + 1]
-            total += int((np.asarray(tr.up) >= 0).sum()) * n_planes[l + 1] \
-                * a
+            total += conv_flops(tr.child, a, n_planes[l + 1])
+            total += conv_flops(tr.up, n_planes[l + 1], a)
             for i in range(block_reps):
                 cin = a * (2 if i == 0 else 1)
                 if residual:

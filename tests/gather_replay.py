@@ -2,8 +2,9 @@
 gather_conv.cu`, TPU row #9) replayed in NumPy, in f32, for the CPU tests.
 
 `replay` follows the kernel: `gather_conv.geometry`'s column tile and
-split count; blocks of 128 output rows; each tile's neighbour ids (-1 for
-a missing neighbour, an id out of range and a row past N); its live
+split count over the M output rows of the map nbr_kn [K, M]; blocks of
+128 output rows; each tile's neighbour ids (-1 for a missing neighbour,
+an id outside the N source rows and a row past M); its live
 offsets in ascending order, each with the 64-row halves that have a
 neighbour there (an offset whose 128 ids are all -1 is skipped whole);
 the steps (live offset, Cin tile of 64 columns) with k ascending, then
@@ -20,13 +21,16 @@ import numpy as np
 from occuseg_tpu_torch.ops.kernels import gather_conv as gc
 
 
-def tile_ids(nbr_kn: np.ndarray, tile: int) -> np.ndarray:
-    """[K, 128] ids of one tile's rows, -1 where the kernel reads none."""
-    K, N = nbr_kn.shape
+def tile_ids(nbr_kn: np.ndarray, tile: int, n_src=None) -> np.ndarray:
+    """[K, 128] ids of one tile's output rows into n_src source rows
+    (default: as many as the map's rows), -1 where the kernel reads
+    none."""
+    K, M = nbr_kn.shape
+    n_src = M if n_src is None else n_src
     ids = np.full((K, gc.TILE), -1, np.int64)
-    rows = np.arange(tile * gc.TILE, min(N, (tile + 1) * gc.TILE))
+    rows = np.arange(tile * gc.TILE, min(M, (tile + 1) * gc.TILE))
     ids[:, :rows.size] = nbr_kn[:, rows]
-    ids[(ids < 0) | (ids >= N)] = -1
+    ids[(ids < 0) | (ids >= n_src)] = -1
     return ids
 
 
@@ -40,26 +44,26 @@ def tile_steps(ids: np.ndarray, cin: int):
 
 
 def replay(feats, nbr_kn, w, sms: int):
-    """([N, Cout] f32, skipped (tile, offset) pairs, (column tile,
-    splits))."""
+    """([M, Cout] f32, skipped (tile, offset) pairs, (column tile,
+    splits)) for feats [N, Cin] and nbr_kn [K, M]."""
     feats = np.asarray(feats, np.float32)
     w = np.asarray(w, np.float32)
     nbr_kn = np.asarray(nbr_kn)
     N, cin = feats.shape
-    K, cout = nbr_kn.shape[0], w.shape[2]
-    nt, splits = gc.geometry(N, cin, cout, K, sms)
-    out = np.zeros((N, cout), np.float32)
+    (K, M), cout = nbr_kn.shape, w.shape[2]
+    nt, splits = gc.geometry(M, cin, cout, K, sms)
+    out = np.zeros((M, cout), np.float32)
     skipped = 0
     # zero rows past Cin: the kernel's zero-filled A columns and W rows
     feats_p = np.pad(feats, ((0, 1), (0, -cin % gc.CIN_TILE)))
     w_p = np.pad(w, ((0, 0), (0, -cin % gc.CIN_TILE), (0, 0)))
-    for tile in range(-(-N // gc.TILE)):
-        ids = tile_ids(nbr_kn, tile)
+    for tile in range(-(-M // gc.TILE)):
+        ids = tile_ids(nbr_kn, tile, N)
         steps = tile_steps(ids, cin)
         skipped += K - len({k for k, _, _ in steps})
         n = len(steps)
         r0 = tile * gc.TILE
-        m = min(gc.TILE, N - r0)
+        m = min(gc.TILE, M - r0)
         for co0 in range(0, cout, nt):
             co1 = min(cout, co0 + nt)
             total = None

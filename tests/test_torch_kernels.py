@@ -806,3 +806,86 @@ def test_gather_conv_matches_replay(dev, plan, cin, cout, N):
                             .multi_processor_count)
     _check(out, torch.from_numpy(want).to(dev), TOL[torch.bfloat16])
     assert torch.equal(out, again)
+
+
+def _gather_map(plan, kind, t):
+    """(map [M, K], source rows N) of TPU row #9's roles on the gather
+    path at transition t: a strided convolution's child map, a
+    deconvolution's up map, and the transpose maps their d_feats run
+    over (up and child reversed along K)."""
+    tr = plan.transitions[t]
+    n_f, n_c = tr.up.shape[0], tr.child.shape[0]
+    return {"child": (tr.child, n_f), "up": (tr.up, n_c),
+            "child_t": (tr.up[:, ::-1], n_c),
+            "up_t": (tr.child[:, ::-1], n_f)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["child", "up", "child_t", "up_t"])
+@pytest.mark.parametrize("t,cin,cout", [(0, 64, 128), (3, 136, 72)])
+def test_gather_conv_m_not_n(dev, plan, kind, t, cin, cout):
+    """TPU row #9 with M output rows over N source rows (M != N): bf16
+    against the NumPy replay of its work split (`tests/gather_replay.py`)
+    on the same bf16 values, f32 against the plain version; launched
+    twice, the same bits."""
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    rep = _replay("gather_replay")
+    nbr, n_src = _gather_map(plan, kind, t)
+    nbr_kn = np.ascontiguousarray(nbr.T)
+    M = nbr_kn.shape[1]
+    assert M != n_src
+    rng = np.random.default_rng(M + cin)
+    feats = torch.tensor(rng.standard_normal((n_src, cin)))
+    w = torch.tensor(rng.standard_normal((8, cin, cout)) / cin ** 0.5)
+    nk = torch.from_numpy(nbr_kn).to(dev)
+    for dt in (torch.bfloat16, torch.float32):
+        fd, wd = feats.to(dev, dt), w.to(dev, dt)
+        out = gc.gather_conv(fd, nk, wd)
+        again = gc.gather_conv(fd, nk, wd)
+        torch.cuda.synchronize()
+        assert out.shape == (M, cout) and out.dtype == dt
+        assert torch.equal(out, again)
+        if dt == torch.bfloat16:
+            want, _, _ = rep.replay(fd.float().cpu().numpy(), nbr_kn,
+                                    wd.float().cpu().numpy(),
+                                    torch.cuda.get_device_properties(dev)
+                                    .multi_processor_count)
+            _check(out, torch.from_numpy(want).to(dev), TOL[dt])
+        else:
+            _check(out, gc.gather_conv_plain(fd, nk, wd), TOL[dt])
+
+
+@pytest.mark.parametrize("kind", ["sub", "child", "up"])
+def test_gather_path_autograd_matches_cpu(dev, plan, kind):
+    """`ops/conv.gather_conv` on the card (#9 for the forward and d_feats,
+    PyTorch for dW) against the CPU (the plain versions), f32, with
+    Cin 3 and Cout 24 zero-padded to the kernel's multiple of 8: the
+    launches, the output and both gradients."""
+    from occuseg_tpu_torch.ops import conv as conv_ops
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    tr = plan.transitions[1]
+    nbr, nbr_t = {"sub": (plan.levels[1].nbr, plan.levels[1].nbr),
+                  "child": (tr.child, tr.up[:, ::-1]),
+                  "up": (tr.up, tr.child[:, ::-1])}[kind]
+    rng = np.random.default_rng(len(kind))
+    K = nbr.shape[1]
+    feats = torch.tensor(rng.standard_normal((nbr_t.shape[0], 3)),
+                         dtype=torch.float32)
+    w = torch.tensor(rng.standard_normal((K, 3, 24)), dtype=torch.float32)
+    r = torch.tensor(rng.standard_normal((nbr.shape[0], 24)),
+                     dtype=torch.float32)
+    res = {}
+    for d in ("cpu", dev):
+        x = feats.to(d, copy=True).requires_grad_()
+        wd = w.to(d, copy=True).requires_grad_()
+        before = gc.gather_conv.launches
+        out = conv_ops.gather_conv(
+            x, torch.from_numpy(nbr).to(d), wd,
+            nbr_t=torch.from_numpy(np.ascontiguousarray(nbr_t)).to(d))
+        (out * r.to(d)).sum().backward()
+        res[str(d)] = (out.detach().cpu(), x.grad.cpu(), wd.grad.cpu(),
+                       gc.gather_conv.launches - before)
+    (o, df, dw, n_cpu), (o2, df2, dw2, n_card) = res["cpu"], res[str(dev)]
+    assert (n_cpu, n_card) == (0, 2)
+    _check(o2, o, TOL[torch.float32])
+    _check(df2, df, TOL[torch.float32])
+    _check(dw2, dw, DW_TOL)

@@ -8,8 +8,9 @@ batches and blocked plans for the same rng. Then the port alone:
 `accum_steps=2` makes one update equal to one step on the mean gradient
 (f32, 1e-6); a checkpoint round trip; `PlanPool` yields what the
 sequential preparation gives, in order; `train(config, max_steps=2)` at
-m=8 on the CPU, and a resume from its checkpoint; and no module of the
-port imports jax or the JAX package.
+m=8 on the CPU, and a resume from its checkpoint; the same two steps
+with --chunk_conv 0 (no chunk rulebook, the gather path) against the
+chunked run; and no module of the port imports jax or the JAX package.
 """
 
 import ast
@@ -303,6 +304,32 @@ def test_train_two_steps_and_resume(tmp_path, monkeypatch):
     assert r2["trainer"].steps == 3
     m = loop.evaluate_semantic(cfg, r2["trainer"], r2["spec"])
     assert 0.0 <= m["mean_iou"] <= 1.0
+
+
+def test_train_with_chunk_conv_0_matches_chunked(tmp_path, monkeypatch):
+    """--chunk_conv 0: two steps build no chunk rulebook (every
+    convolution takes the gather path) and give the chunked run's loss
+    parts within 1e-5 (f32; the same function summed in another order)."""
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    built = []
+    real = cc.augment_plan_with_chunks
+    monkeypatch.setattr(cc, "augment_plan_with_chunks",
+                        lambda plan, *a, **k: built.append(1) or real(
+                            plan, *a, **k))
+    runs = {}
+    for flag in ("1", "0"):
+        built.clear()
+        cfg = _small_config(tmp_path, "--taskname", f"c{flag}",
+                            "--chunk_conv", flag)
+        runs[flag] = loop.train(cfg, max_steps=2, device="cpu")
+        assert runs[flag]["steps"] == 2
+        assert (len(built) > 0) == (flag == "1")
+    a, b = runs["1"]["losses"], runs["0"]["losses"]
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_allclose(b[k], a[k], rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
 
 
 def test_loop_refuses_what_is_not_ported(tmp_path):

@@ -169,9 +169,19 @@ def test_plan_to_device_keeps_values():
 
 
 def test_build_plan_host_rejects_other_transitions():
+    """Only what the JAX package's host planner refuses (it returns None
+    there and plans inside jit): nearest-neighbour search and the
+    permutohedral lattice, which the port's `PlanSpec` cannot express.
+    Other transition sizes and strides are planned
+    (`tests/test_torch_gather_path.py` holds them to the JAX plan)."""
+    from occuseg_tpu.native.plan import build_plan_host as jax_or_none
     batch = _batch(0)
-    with pytest.raises(NotImplementedError):
-        build_plan_host(batch["coords"], PlanSpec(caps=CAPS, down_size=3))
+    jax_build_plan_host(batch["coords"], JaxPlanSpec(caps=CAPS))  # loaded
+    for refused in (dict(nn_search=True), dict(lattice="permutohedral")):
+        assert jax_or_none(batch["coords"],
+                           JaxPlanSpec(caps=CAPS, **refused)) is None
+        with pytest.raises(TypeError):
+            PlanSpec(caps=CAPS, **refused)
 
 
 def test_derived_neighbor_map_rejects_duplicate_offsets():
