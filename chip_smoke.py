@@ -119,6 +119,29 @@ and no network. Phases (any failure exits non-zero):
    the contraction; fails unless mean AP@0.5 > 0.6, each seed > 0.35 and
    the contraction < 1.5; then one step of a short soak, profiled (device
    busy against the median step).
+10. planner (runs before ap_gate): the device planner
+   (`core/topology.build_plan` on the card), the modules that need it and
+   the step that plans on the card: (a) the device plan against the host
+   planner without chunks, bit for bit (orientation classes except at
+   near ties), `validate_plan` clean, on the bench scenes, the mid scene
+   at size-3 transitions and one [data] scan with normals and
+   guide_levels, its CUDA-event ms beside the host plan's and its host
+   reads counted; (b) the plans only the device builds (dilation 2 with
+   the nearest-neighbour search, the permutohedral lattice) against the
+   same build on the CPU; (c) #9 in its new roles (K = 13, the dilated
+   map, a FullConvolution's grown `up` map at L0 and L3 and its `child`
+   backward), bf16 and f32, against its plain version, repeated bit for
+   bit, timed beside the bound; (d) `Trainer(spec).step(batch,
+   plan=None)` at full width in bf16 on the bench scenes: #9's launches
+   as predicted, the step beside [train]'s and the plan's share of it,
+   one step profiled; the f32 step over the device plan against the
+   host plan without chunks (card against card), and card against CPU on
+   the mid scene; (e) FullConvolution and a submanifold convolution on
+   its grown level after the m=64 UNet's L0 output, and a permutohedral
+   convolution, card against CPU.
+   In [gather] (e), the step with every rulebook dropped also runs in
+   float64 on the CPU: the card's and the CPU's f32 gradients are each
+   measured against it.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON summary.
@@ -940,7 +963,8 @@ def phase_parity_train(dev):
 
 
 def train_step_parity(dev, laid, plan, model, num_instances,
-                      phase="parity", own_sensitivity=False, noise_runs=1):
+                      phase="parity", own_sensitivity=False, noise_runs=1,
+                      spec=None, float64=False):
     """One f32 training step of `model` on a prepared batch, on the card
     (twice) and on the CPU (`noise_runs` more times, each with its own
     1e-6 input noise: the step's own sensitivity is the largest movement
@@ -949,11 +973,16 @@ def train_step_parity(dev, laid, plan, model, num_instances,
     statistics within PARITY_TOL. With `own_sensitivity`, a tensor whose
     gradient moves by more than GRAD_TOL / 5 of its max under the input
     noise on the CPU alone is held to five times that movement instead
-    (the rule GRAD_TOL was set by, measured on this batch)."""
+    (the rule GRAD_TOL was set by, measured on this batch). With `plan`
+    None, a raw batch is planned on each device at `spec`. With
+    `float64`, the same step also runs in float64 on the CPU, and the
+    card's and the CPU's f32 gradients are each measured against it
+    (`float64_reference`)."""
     from occuseg_tpu_torch.train.state import Trainer
 
     def trainer(d):
-        return Trainer(copy.deepcopy(model), d, num_instances=num_instances)
+        return Trainer(copy.deepcopy(model), d, num_instances=num_instances,
+                       spec=spec)
     cpu, gpu2, gpu = (trainer(d) for d in ("cpu", dev, dev))
     t0 = time.perf_counter()
     cpu_parts = cpu.step(laid, plan)
@@ -1021,6 +1050,61 @@ def train_step_parity(dev, laid, plan, model, num_instances,
         check(err <= PARITY_TOL * bc.abs().max().item() + 1e-6,
               f"{phase} BN statistic {n}: error {err}")
     print(f"[{phase}] step: new BN statistics agree")
+    if float64:
+        return float64_reference(laid, plan, model, num_instances, spec,
+                                 names, card, ref, phase)
+    return None
+
+
+def float64_reference(laid, plan, model, num_instances, spec, names, card,
+                      cpu, phase):
+    """The step of `train_step_parity` in float64 on the CPU (the model,
+    its statistics and the batch's float arrays in f64; every op then
+    accumulates in f64): each f32 gradient's error against it, the card's
+    and the CPU's, per tensor (the largest printed) and over the whole
+    gradient's norm. Rounding leaves the card's error of the CPU's order;
+    the card's global error must stay within five times the CPU's."""
+    import numpy as np
+    from occuseg_tpu_torch.train.state import Trainer
+    m64 = copy.deepcopy(model).double()
+    for mod in m64.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.float64
+    t64 = Trainer(m64, "cpu", num_instances=num_instances, spec=spec)
+    b64 = {k: v.astype(np.float64) if getattr(v, "dtype", None) == np.float32
+           else v for k, v in laid.items()}
+    t0 = time.perf_counter()
+    t64.step(b64, plan)
+    g64 = [p.grad.detach() for p in t64.model.parameters()]
+    secs = time.perf_counter() - t0
+
+    def rel(a, r):
+        return (a.double() - r).abs().max().item() / max(
+            r.abs().max().item(), 1e-300)
+
+    def glob(a_list):
+        num = sum(float(((a.double() - r) ** 2).sum())
+                  for a, r in zip(a_list, g64))
+        return (num / sum(float((r ** 2).sum()) for r in g64)) ** 0.5
+
+    rows = sorted(((rel(c, r), rel(q, r), n) for c, q, r, n
+                   in zip(card, cpu, g64, names)), reverse=True)
+    by_cpu = sorted(rows, key=lambda r: -r[1])
+    for who, top in (("card", rows[:6]), ("CPU", by_cpu[:4])):
+        for e_card, e_cpu, n in top:
+            print(f"[{phase}] float64 reference, the {who}'s worst: grad "
+                  f"{n}: card f32 {e_card:.3e}, CPU f32 {e_cpu:.3e} of its "
+                  f"max")
+    g_card, g_cpu = glob(card), glob(cpu)
+    print(f"[{phase}] float64 reference ({secs:.1f} s on the CPU): the "
+          f"whole gradient's error, card f32 {g_card:.3e}, CPU f32 "
+          f"{g_cpu:.3e} of its norm; the worst tensor, card {rows[0][0]:.3e}"
+          f" ({rows[0][2]}), CPU {by_cpu[0][1]:.3e} ({by_cpu[0][2]})")
+    check(g_card <= 5 * g_cpu, f"{phase} float64 reference: the card's "
+          f"gradient error {g_card} is past five times the CPU's {g_cpu}")
+    return dict(card_global=g_card, cpu_global=g_cpu,
+                worst=[dict(name=n, card=a, cpu=b)
+                       for a, b, n in rows[:6] + by_cpu[:4]])
 
 
 # the classification loss with the BCE kernels against the port's chain at
@@ -1306,7 +1390,7 @@ def phase_train(dev):
                                              prepared[0][2]))
     print(f"[train] device busy {busy:.2f} ms of the median step "
           f"{med:.2f} ms ({100 * busy / med:.1f}%)")
-    return launches
+    return launches, med
 
 
 LOOP_FLAGS = ("--m", "64", "--use_dense_model", "--residual_blocks",
@@ -2071,6 +2155,7 @@ def data_conv(dev, root, tot):
             else:
                 fwd[cin].update(bf16_ms=ms, bf16_chunk_conv_ms=cms)
     tot.gather_cli = list(fwd.values())
+    tot.data_scan = (raw["coords"], raw["normals"], loop.build_spec(config))
 
     # the backward (PyTorch, no atomics), f32
     def fwd_bwd(x, w, g, nbr_, orient_):
@@ -2598,14 +2683,17 @@ def gather_size3(dev):
             generator=torch.Generator().manual_seed(29))
         randomize_bn_stats(model, torch.Generator().manual_seed(30))
         zero_launches()
-        train_step_parity(dev, laid, cut(plan), model, 16, phase="gather",
-                          own_sensitivity=True, noise_runs=6)
+        f64 = train_step_parity(dev, laid, cut(plan), model, 16,
+                                phase="gather", own_sensitivity=True,
+                                noise_runs=6, float64=drop)
         step = read_launches()
         print(f"[gather] (e) {case}: forward launches {got}; two card steps "
               f"launched {step}")
         check(step == want_step, f"[gather] (e) {case} step launches "
               f"{step}, expected {want_step}")
         out[case] = dict(forward=got, two_steps=step)
+        if f64:
+            out[case]["float64_reference"] = f64
     torch.cuda.empty_cache()
     return out
 
@@ -2696,6 +2784,477 @@ def phase_gather(dev, tmp, tot, loop_med, loop_plan):
     tot.gather_cli_run = gather_cli(dev, tmp, loop_med)
 
 
+# [planner]: the device planner (`core/topology.build_plan`), the modules
+# that need it, and the training step that plans on the card
+
+
+def _host_normals(hp, normals):
+    """Per guided level, the host planner's voxel normals (the sums
+    `native/plan.build_plan_host` takes, recomputed from its maps), for
+    the near-tie rule."""
+    import numpy as np
+    from occuseg_tpu_torch.native.plan import _normalize
+    p2v = hp.p2v
+    acc = np.zeros((hp.levels[0].cap, 3), np.float32)
+    valid = p2v >= 0
+    np.add.at(acc, p2v[valid], np.asarray(normals, np.float32)[valid])
+    out = [_normalize(acc)]
+    for t, tr in enumerate(hp.transitions):
+        if not hp.levels[t + 1].guided:
+            break
+        g = np.where((tr.child >= 0)[..., None],
+                     out[-1][np.clip(tr.child, 0, None)], 0.0)
+        out.append(_normalize(g.sum(axis=1)))
+    return out
+
+
+def same_plan(label, dp, hp, normals=None):
+    """Check a device plan against a host plan (or another device plan)
+    bit for bit: keys, coords, counts, nbr, child, up, p2v, the guided
+    levels; the orientation classes equal except at near ties (sites whose
+    two largest |normal components| are within 1e-6 relative, from the
+    host's normals). Returns (near ties, class mismatches)."""
+    import numpy as np
+    from occuseg_tpu_torch.core.topology import _np
+    check(len(dp.levels) == len(hp.levels), f"{label}: levels")
+    hn = _host_normals(hp, normals) if normals is not None else []
+    ties = bad = 0
+    for li, (d, h) in enumerate(zip(dp.levels, hp.levels)):
+        for f in ("keys", "coords", "nbr"):
+            check(np.array_equal(_np(getattr(d, f)), _np(getattr(h, f))),
+                  f"{label}: level {li} {f} differ")
+        check(d.num_active == h.num_active and d.guided == h.guided,
+              f"{label}: level {li} count or guided")
+        diff = _np(d.orient) != _np(h.orient)
+        if li < len(hn):
+            a = np.sort(np.abs(hn[li]), axis=1)
+            near = (a[:, 2] - a[:, 1]) <= 1e-6 * a[:, 2]
+            ties += int(near[:d.num_active].sum())
+            bad += int((diff & ~near).sum())
+        else:
+            bad += int(diff.sum())
+    for ti, (d, h) in enumerate(zip(dp.transitions, hp.transitions)):
+        for f in ("child", "up"):
+            check(np.array_equal(_np(getattr(d, f)), _np(getattr(h, f))),
+                  f"{label}: transition {ti} {f} differ")
+    check(np.array_equal(_np(dp.p2v), _np(hp.p2v)), f"{label}: p2v differ")
+    check(dp.num_points == hp.num_points, f"{label}: point count")
+    check(bad == 0, f"{label}: {bad} orientation classes differ away from "
+          f"a near tie")
+    return ties, bad
+
+
+def device_plan_ms(coords_d, spec, normals_d=None, reps=5):
+    """(median CUDA-event ms of `build_plan` on the card over `reps` warm
+    builds, host reads of one warm build, the plan)."""
+    from occuseg_tpu_torch.core.topology import build_plan
+    plan = build_plan(coords_d, spec, normals_d)   # warm: tables, allocator
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        plan = build_plan(coords_d, spec, normals_d)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    _, reads = host_reads(lambda: build_plan(coords_d, spec, normals_d))
+    return sorted(ms)[len(ms) // 2], reads, plan
+
+
+def planner_vs_host(dev, tot):
+    """(a) `build_plan` on the card against the host planner without
+    chunks (`native/plan.build_plan_host`, the C++ planner): the bench
+    scenes (seeds 0-2), the mid scene at SIZE3_CAPS (size-3 transitions)
+    and one [data] scan with normals and guide_levels; every plan
+    validated (`validate_plan` all zeros); the device build's ms beside
+    the host plan's (and beside the host plan with chunk rulebooks and
+    point layout, as a request plans), host reads counted. Returns the
+    rows and the device plan of bench seed 0."""
+    import numpy as np
+    from occuseg_tpu_torch.core.topology import PlanSpec, validate_plan
+    from occuseg_tpu_torch.infer import plan_scene
+    from occuseg_tpu_torch.native.plan import build_plan_host
+    cases = [(f"bench seed {s}", bench_scene(s)["coords"], None,
+              PlanSpec(caps=BENCH_CAPS)) for s in (0, 1, 2)]
+    cases.append(("mid size 3", _mid_scene()["coords"], None,
+                  PlanSpec(caps=SIZE3_CAPS, down_size=3, down_stride=2)))
+    coords, normals, spec = tot.data_scan
+    cases.append(("[data] scan, normals", coords, normals, spec))
+    rows, bench = [], None
+    for label, coords, normals, spec in cases:
+        cd = torch.from_numpy(coords).to(dev)
+        nd = None if normals is None else torch.from_numpy(normals).to(dev)
+        ms, reads, dp = device_plan_ms(cd, spec, nd)
+        t0 = time.perf_counter()
+        hp = build_plan_host(coords, spec, normals)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        plan_scene(coords, spec, normals=normals)
+        req_ms = 1e3 * (time.perf_counter() - t0)
+        ties, _ = same_plan(f"[planner] (a) {label}", dp, hp, normals)
+        report = validate_plan(dp)
+        check(all(v == 0 for v in report.values()),
+              f"[planner] (a) {label}: validate_plan {report}")
+        print(f"[planner] (a) {label}: voxels per level "
+              f"{[l.num_active for l in dp.levels]}; the device plan equals "
+              f"the host plan bit for bit ({ties} near ties of the "
+              f"orientation classes, 0 mismatches), validate_plan clean; "
+              f"device build {ms:.3f} ms (CUDA events, warm, median of 5, "
+              f"{reads} host read(s)), host plan {host_ms:.1f} ms, with "
+              f"chunks and point layout {req_ms:.1f} ms")
+        check(reads == 1, f"[planner] (a) {label}: {reads} host reads")
+        rows.append(dict(case=label, device_ms=ms, host_reads=reads,
+                         host_plan_ms=host_ms, host_request_plan_ms=req_ms,
+                         near_ties=ties,
+                         voxels=dp.levels[0].num_active))
+        bench = dp if bench is None else bench
+    return rows, bench
+
+
+# the mid scene's sites in lattice coordinates: the lattice's stride-2
+# levels hold more sites than the cubic grid's (10,233 at level 1 against
+# MID_CAPS' 8,448)
+LATTICE_CAPS = (16_128, 12_288, 6_144, 2_048, 512, 128)
+
+
+def planner_device_only(dev):
+    """(b) The plans only the device builds, of the mid scene: dilation 2
+    with the nearest-neighbour search, and the permutohedral lattice (the
+    scene's coordinates through `embed_points`), each equal bit for bit to
+    the same `build_plan` on the CPU (the CPU tests hold that to the JAX
+    planner); `validate_plan` clean where it applies (keys and
+    transitions: neither map is its own reversed transpose)."""
+    import numpy as np
+    from occuseg_tpu_torch.core.topology import (
+        PlanSpec, build_plan, validate_plan,
+    )
+    from occuseg_tpu_torch.ops.permutohedral import embed_points
+    coords = _mid_scene()["coords"]
+    valid = coords[:, 0] >= 0
+    lat = embed_points(coords[valid, 1:].astype(np.float64))
+    lattice = coords.copy()
+    lattice[valid, 1:] = lat - lat.min(0)
+    out = {}
+    for label, c, spec in (
+            ("nn_search", coords, PlanSpec(caps=MID_CAPS, dilation=2,
+                                           nn_search=True)),
+            ("permutohedral", lattice, PlanSpec(caps=LATTICE_CAPS,
+                                                lattice="permutohedral"))):
+        ms, reads, dp = device_plan_ms(torch.from_numpy(c).to(dev), spec)
+        cp = build_plan(torch.from_numpy(c), spec)
+        same_plan(f"[planner] (b) {label}", dp, cp)
+        report = validate_plan(dp)
+        check(report == validate_plan(cp), f"[planner] (b) {label} report")
+        check(all(v == 0 for k, v in report.items()
+                  if "asymmetric" not in k and "bad_center" not in k),
+              f"[planner] (b) {label}: validate_plan {report}")
+        print(f"[planner] (b) {label}: voxels per level "
+              f"{[l.num_active for l in dp.levels]}, K = "
+              f"{dp.levels[0].nbr.shape[1]}; equal to the CPU's build bit "
+              f"for bit; keys and transitions valid; {ms:.3f} ms on the "
+              f"card, {reads} host read(s)")
+        out[label] = dict(plan=dp, device_ms=ms)
+    return out
+
+
+def planner_roles(dev, bench, plans):
+    """(c) #9 in the roles the device planner gives it, bf16 and f32,
+    against its plain version, launched twice (the same bits), timed with
+    CUDA events beside its bound: K = 13 (the lattice, Cin 64 and a Cin
+    tail of 24), the dilated nearest-neighbour map (Cin 64), and a
+    FullConvolution's grown `up` map at L0 (64 -> 32) and L3 (256 -> 128)
+    of the bench plan with its `child` map as the backward (d_feats: 32 ->
+    64, 128 -> 256). These launches compare and are not counted."""
+    from occuseg_tpu_torch.core.topology import full_conv_plan
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    roles = []
+    perm_l0 = plans["permutohedral"]["plan"].levels[0]
+    nn_l0 = plans["nn_search"]["plan"].levels[0]
+    roles.append(("K=13 lattice L0", perm_l0.kn["nbr"], perm_l0, 64, 64))
+    roles.append(("K=13 lattice L0, Cin tail", perm_l0.kn["nbr"], perm_l0,
+                  24, 64))
+    roles.append(("dilated nn L0", nn_l0.kn["nbr"], nn_l0, 64, 64))
+    for l, (cin, cout) in ((0, (64, 32)), (3, (256, 128))):
+        lvl = bench.levels[l]
+        grown, tr = full_conv_plan(lvl, 2, 2, lvl.cap * 8, device=dev)
+        roles.append((f"grown up L{l}", tr.kn["up"], lvl, cin, cout))
+        roles.append((f"grown child L{l} (backward)", tr.kn["child"], grown,
+                      cout, cin))
+    gen = torch.Generator().manual_seed(31)
+    rows, sums = [], collections.defaultdict(float)
+    with torch.inference_mode():
+        for name, nbr_kn, src, cin, cout in roles:
+            K, M = nbr_kn.shape
+            N = src.cap
+            nnz = int((nbr_kn >= 0).sum())
+            x = torch.randn(N, cin, generator=gen)
+            x[src.num_active:] = 0
+            w = torch.randn(K, cin, cout, generator=gen) \
+                * (2 / (K * cin)) ** .5
+            row = dict(role=name, K=K, M=M, N=N, Cin=cin, Cout=cout,
+                       pairs=nnz)
+            for dt, tol, peak, reps in (
+                    (torch.bfloat16, BF16_TOL, PEAK_BF16, (10, 2)),
+                    (torch.float32, F32_TOL, PEAK_F32, (5, 1))):
+                xd, wd = x.to(dev, dt), w.to(dev, dt)
+                label = f"[planner] (c) #9 {name} {str(dt)[6:]}"
+                out = gc.gather_conv(xd, nbr_kn, wd)
+                check(out.shape == (M, cout), f"{label} shape")
+                err, scale = check_close(label, out, gc.gather_conv_plain(
+                    xd, nbr_kn, wd), tol)
+                check(torch.equal(out, gc.gather_conv(xd, nbr_kn, wd)),
+                      f"{label}: a second launch gave other bits")
+                ms = cuda_ms(lambda: gc.gather_conv(xd, nbr_kn, wd), reps[0])
+                pms = cuda_ms(lambda: gc.gather_conv_plain(xd, nbr_kn, wd),
+                              reps[1])
+                flops = 2.0 * nnz * cin * cout
+                nb = nbytes(xd, nbr_kn, wd, out)
+                bnd, by = bound_ms(flops, nb, peak)
+                key = str(dt)[6:]
+                row.update({f"{key}_ms": ms, f"{key}_plain_ms": pms,
+                            f"{key}_bound_ms": bnd, f"{key}_bound_by": by,
+                            f"{key}_max_abs_err": err})
+                sums[f"{key}_ms"] += ms
+                sums[f"{key}_bound_ms"] += bnd
+                sums[f"{key}_plain_ms"] += pms
+                print(f"{label:<58} K={K:<2} M={M:<7} N={N:<7} Cin={cin:<3} "
+                      f"Cout={cout:<3} pairs={nnz:<8} max_abs_err={err:.3e} "
+                      f"max|out|={scale:.3e} kernel={ms:.4f} ms plain="
+                      f"{pms:.4f} ms bound={bnd:.4f} ms ({by}); two launches "
+                      f"the same bits")
+            rows.append(row)
+    print(f"[planner] (c) {len(rows)} roles, sums: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sums.items()))
+    torch.cuda.empty_cache()
+    return dict(roles=rows, **sums)
+
+
+def planner_step(dev, train_med):
+    """(d) `Trainer(spec).step(batch, plan=None)` at full width: the bench
+    scenes (seeds 0-2) planned on the card in each step, bf16 compute and
+    f32 parameters, as [train]: #9's launches against the prediction
+    (printed first: every convolution on the gather path, 33 forwards and
+    32 d_feats; no other kernel), the median step beside [train]'s and the
+    planning share of it, one step profiled. Then the same step in f32 at
+    the bench scene, card against card: over the device plan and over the
+    host plan without chunks (the same route), with [parity]'s
+    tolerances; then card against CPU on the mid scene (f32), with
+    [parity]'s model and tolerances."""
+    from occuseg_tpu_torch.core.topology import PlanSpec, build_plan
+    from occuseg_tpu_torch.models import LearningBWDenseUNet
+    from occuseg_tpu_torch.train.state import Trainer, prepare_batch
+    spec = PlanSpec(caps=BENCH_CAPS)
+    scenes = [bench_scene(s) for s in (0, 1, 2)]
+    model = LearningBWDenseUNet(N_PLANES, compute_dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(41))
+    trainer = Trainer(model, dev, num_instances=BENCH_INSTANCES, spec=spec)
+    pred = predicted_launches(trainer.plan(scenes[0]))
+    print(f"[planner] (d) predicted launches of a device-planned step "
+          f"{pred}")
+    for _ in range(2):
+        trainer.step(scenes[0])
+    torch.cuda.synchronize()
+    zero_launches()
+    step_ms, plan_ms = [], []
+    for batch in scenes:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            parts = trainer.step(batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            vals = {k: float(v) for k, v in parts.items()}
+            check(all(v == v and abs(v) != float("inf")
+                      for v in vals.values()), f"[planner] (d) {vals}")
+    launches = read_launches()
+    want = {k: 9 * v for k, v in pred.items()}
+    check(launches == want, f"[planner] (d) launches {launches}, expected "
+          f"{want}")
+    for batch in scenes:
+        cd = torch.from_numpy(batch["coords"]).to(dev)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            build_plan(cd, spec)
+            plan_ms.append(1e3 * (time.perf_counter() - t0))
+    med = sorted(step_ms)[len(step_ms) // 2]
+    pmed = sorted(plan_ms)[len(plan_ms) // 2]
+    print(f"[planner] (d) 9 device-planned bf16 steps: median {med:.2f} ms "
+          f"(min {min(step_ms):.2f}, max {max(step_ms):.2f}); [train]'s "
+          f"host-planned chunked median {train_med:.2f} ms; the plan on "
+          f"the card {pmed:.2f} ms (host clock, median of 9), "
+          f"{100 * pmed / med:.1f}% of the step; launches {launches} as "
+          f"predicted")
+    busy = profile_step(lambda: trainer.step(scenes[0]), "planner")
+    print(f"[planner] (d) device busy {busy:.2f} ms of the median step "
+          f"{med:.2f} ms ({100 * busy / med:.1f}%)")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # f32, card against card: the device plan against the host plan
+    m32 = LearningBWDenseUNet(N_PLANES,
+                              generator=torch.Generator().manual_seed(42))
+    randomize_bn_stats(m32, torch.Generator().manual_seed(43))
+    laid, hplan = prepare_batch(scenes[0], spec, chunks=False)
+    res = []
+    for batch, plan in ((scenes[0], None), (laid, hplan)):
+        t = Trainer(copy.deepcopy(m32), dev, num_instances=BENCH_INSTANCES,
+                    spec=spec)
+        parts = t.step(batch, plan)
+        res.append(({k: float(v) for k, v in parts.items()},
+                    [p.grad.detach().clone() for p in t.model.parameters()]))
+        del t
+    (pd, gd), (ph, gh) = res
+    for k in pd:
+        tol = 1e-2 if k == "instance_iou" else PARITY_TOL * abs(ph[k]) + 1e-6
+        check(abs(pd[k] - ph[k]) <= tol, f"[planner] (d) {k}: {pd[k]} vs "
+              f"{ph[k]}")
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(gd, gh))
+    den = sum(float((b ** 2).sum()) for b in gh)
+    g_glob = (num / den) ** 0.5
+    worst = max((a - b).abs().max().item() / max(b.abs().max().item(),
+                                                  1e-30)
+                for a, b in zip(gd, gh))
+    check(g_glob <= GRAD_GLOBAL_TOL, f"[planner] (d) gradients {g_glob}")
+    for a, b in zip(gd, gh):
+        check((a - b).abs().max().item() <= GRAD_TOL * b.abs().max().item()
+              + GRAD_FLOOR, "[planner] (d) a gradient differs")
+    print(f"[planner] (d) f32 bench step, device plan against host plan "
+          f"without chunks (card, the gather path both): loss parts within "
+          f"{PARITY_TOL} ("
+          + ", ".join(f"{k} {pd[k]:.6f}/{ph[k]:.6f}" for k in pd)
+          + f"); gradients {g_glob:.3e} of the norm, worst tensor "
+          f"{worst:.3e} of its max")
+    del res, gd, gh
+    torch.cuda.empty_cache()
+
+    # card against CPU on the mid scene, both planned on their device, with
+    # [parity]'s model and tolerances: the check differs from [parity]'s
+    # by the plan alone. (Another random model, seeds 44/45, sat at a
+    # bifurcation of the step: its L4 dec0.conv2 gradient differed card
+    # against CPU by 0.146 of its max, and the CPU's own 1e-6-perturbed
+    # runs fell on the card's side in three calls and on the CPU's in a
+    # fourth, on another machine: no per-tensor bound holds such a step.)
+    m = LearningBWDenseUNet(N_PLANES,
+                            generator=torch.Generator().manual_seed(7))
+    randomize_bn_stats(m, torch.Generator().manual_seed(8))
+    train_step_parity(dev, _mid_scene(), None, m, 16, phase="planner",
+                      spec=PlanSpec(caps=MID_CAPS))
+    return dict(launches_per_step=pred, launches=launches["gather_conv"],
+                step_ms=med, min_step_ms=min(step_ms),
+                train_step_ms=train_med, plan_ms=pmed, busy_ms=busy,
+                f32_vs_host_plan=dict(grad_global=g_glob, grad_worst=worst))
+
+
+def planner_modules(dev):
+    """(e) On the mid scene planned on the card and on the CPU: the m=64
+    model's L0 output (InputLayer, the first convolution and the UNet, f32,
+    no gradient), then FullConvolution(64 -> 32, size 2, stride 2,
+    build_nbr=True) and a K = 27 submanifold convolution 32 -> 32 on the
+    grown level; separately a PermutohedralSubmanifoldConvolution 64 -> 64
+    on the lattice plan of (b). Forward and gradients (input and weights)
+    card against CPU with [parity]'s tolerances."""
+    import numpy as np
+    from occuseg_tpu_torch.core.sparse_tensor import SparseTensor
+    from occuseg_tpu_torch.core.topology import PlanSpec, build_plan
+    from occuseg_tpu_torch.models import LearningBWDenseUNet
+    from occuseg_tpu_torch.nn.extras import (
+        PermutohedralSubmanifoldConvolution,
+    )
+    from occuseg_tpu_torch.nn.modules import (
+        FullConvolution, SubmanifoldConvolution,
+    )
+    from occuseg_tpu_torch.ops.permutohedral import embed_points
+    batch = _mid_scene()
+    model = LearningBWDenseUNet(N_PLANES,
+                                generator=torch.Generator().manual_seed(46))
+    randomize_bn_stats(model, torch.Generator().manual_seed(47))
+    gen = torch.Generator().manual_seed(48)
+    chain = torch.nn.ModuleList([FullConvolution(N_PLANES[0], 32,
+                                                 generator=gen),
+                                 SubmanifoldConvolution(32, 32,
+                                                        generator=gen)])
+    perm = PermutohedralSubmanifoldConvolution(64, 64, generator=gen)
+    coords = batch["coords"]
+    valid = coords[:, 0] >= 0
+    lat = embed_points(coords[valid, 1:].astype(np.float64))
+    lattice = coords.copy()
+    lattice[valid, 1:] = lat - lat.min(0)
+    res = {}
+    for d in ("cpu", dev):
+        plan = build_plan(torch.from_numpy(coords).to(d),
+                          PlanSpec(caps=MID_CAPS))
+        bb = copy.deepcopy(model).to(d).eval().backbone.backbone
+        with torch.no_grad():
+            x = bb.input(torch.from_numpy(batch["features"]).to(d), plan)
+            x = bb.unet(bb.sub(x, plan), plan)
+        f = x.features.detach().requires_grad_()
+        m = copy.deepcopy(chain).to(d)
+        y, grown = m[0](x.with_features(f), plan)
+        y = m[1](y, grown)
+        r = torch.randn(y.features.shape, generator=torch.Generator()
+                        .manual_seed(49)).to(d)
+        (y.features * r).sum().backward()
+        lp = build_plan(torch.from_numpy(lattice).to(d),
+                        PlanSpec(caps=LATTICE_CAPS[:1],
+                                 lattice="permutohedral"))
+        n = lp.levels[0].num_active
+        pf = torch.randn(lp.levels[0].cap, 64, generator=torch.Generator()
+                         .manual_seed(50))
+        pf[n:] = 0
+        pf = pf.to(d).requires_grad_()
+        pm = copy.deepcopy(perm).to(d)
+        z = pm(SparseTensor(features=pf, num_active=n, level=0), lp).features
+        rz = torch.randn(z.shape, generator=torch.Generator()
+                         .manual_seed(51)).to(d)
+        (z * rz).sum().backward()
+        res[str(d)] = dict(
+            grown=(grown.levels[0].num_active, int(grown.levels[0].cap)),
+            chain_out=y.features.detach().cpu(), chain_dx=f.grad.cpu(),
+            chain_dw=[p.grad.cpu() for p in m.parameters()],
+            perm_out=z.detach().cpu(), perm_dx=pf.grad.cpu(),
+            perm_dw=pm.weight.grad.cpu())
+    c, g = res["cpu"], res[str(dev)]
+    check(c["grown"] == g["grown"], f"[planner] (e) grown {g['grown']}")
+    errs = {}
+    for key in ("chain_out", "chain_dx", "perm_out", "perm_dx"):
+        err, scale = _err(g[key], c[key])
+        tol = PARITY_TOL if key.endswith("out") else GRAD_TOL
+        check(err <= tol * max(scale, 1e-30),
+              f"[planner] (e) {key}: {err} > {tol} x {scale}")
+        errs[key] = err / max(scale, 1e-30)
+    for key, a_list, b_list in (("chain_dw", g["chain_dw"], c["chain_dw"]),
+                                ("perm_dw", [g["perm_dw"]], [c["perm_dw"]])):
+        for i, (a, b) in enumerate(zip(a_list, b_list)):
+            err, scale = _err(a, b)
+            check(err <= GRAD_TOL * scale + GRAD_FLOOR,
+                  f"[planner] (e) {key} {i}: {err} > {GRAD_TOL} x {scale}")
+            errs[f"{key}{i}"] = err / max(scale, 1e-30)
+    print(f"[planner] (e) FullConvolution {N_PLANES[0]}->32 (grown level "
+          f"{g['grown'][0]} of {g['grown'][1]} rows) + submanifold 32->32, "
+          f"and the permutohedral 64->64: card against CPU, error/max "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_planner(dev, tot, train_med):
+    """[planner]: the device planner, (a)-(e) above; returns what #9's
+    kernels-line entry reports under "planner"."""
+    t0 = time.perf_counter()
+    a, bench = planner_vs_host(dev, tot)
+    b = planner_device_only(dev)
+    c = planner_roles(dev, bench, b)
+    d = planner_step(dev, train_med)
+    e = planner_modules(dev)
+    print(f"[planner] all parts passed in {time.perf_counter() - t0:.1f} s")
+    return dict(plans=a, device_only={k: dict(device_ms=v["device_ms"])
+                                      for k, v in b.items()},
+                step=d, modules_err=e, **c)
+
+
+
 def phase_ap_gate(dev):
     """[ap_gate]: `tools/ap_gate.run` on the card (seeds 7, 8, 9, 450
     steps each, the port's seeded initialisation): per seed its AP, final
@@ -2768,7 +3327,7 @@ def main() -> int:
     phase_parity_train(dev)
     phase_parity_bce(dev)
     phase_slice(dev)
-    launches = phase_train(dev)
+    launches, train_med = phase_train(dev)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=os.path.dirname(
                                          os.path.abspath(__file__))) as tmp:
@@ -2776,6 +3335,7 @@ def main() -> int:
         phase_instance(dev, tmp, ckpt_dir)
         data_launches = phase_data(dev, tmp, tot)
         phase_gather(dev, tmp, tot, loop_med, loop_plan)
+    planner = phase_planner(dev, tot, train_med)
     gate = phase_ap_gate(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
@@ -2825,7 +3385,10 @@ def main() -> int:
               gather_path=dict(tot.gather_roles, cli=tot.gather_cli_run,
                                size3=tot.gather_size3,
                                ap_gate_launches_per_step=gate[
-                                   "launches_per_step"])),
+                                   "launches_per_step"]),
+              # the device planner's path: #9's roles there, the launches
+              # of a device-planned step and its times
+              planner=planner),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

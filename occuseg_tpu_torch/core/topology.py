@@ -18,15 +18,31 @@ Maps (all padded, -1 = missing):
     `up[cap_fine, s^3]` (the coarse row feeding each fine site at each
     offset, the deconvolution rulebook);
   * `p2v[P]`: point -> level-0 voxel row.
+
+The planner that runs on a tensor's device (`build_plan`, counterpart of
+the JAX package's in-jit planner) builds the same plan from padded point
+coordinates with sorts, searches and lookups over the packed keys of
+`core/coords.py`: bit-identical to the JAX planner, and to the host plan
+where both apply. It also builds what only it can: dilated
+nearest-neighbour maps (`PlanSpec.nn_search`) and permutohedral lattices
+(`PlanSpec.lattice`), and the grown level of a `FullConvolution`
+(`full_conv_plan`). Its arrays are tensors on that device from the start,
+each map also held in the gather convolution's orientation, so `to`
+copies nothing; it has no chunk rulebooks and no sorted point layout
+(every convolution takes the gather path, the InputLayer the scatter
+sum), and its counts are read to the host once, at its end.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from occuseg_tpu_torch.core import coords as C
 
 
 def _offsets(kernel: int, dilation: int = 1) -> np.ndarray:
@@ -256,7 +272,397 @@ class PlanSpec:
     # levels 0..guide_levels-1 carry normals and orientation classes (the
     # reference's normal_guide_scale cutoff); None = every level
     guide_levels: Optional[int] = None
+    # dilated offsets with no active site fall back to the nearest active
+    # site within Chebyshev radius dilation // 2 (`build_level`)
+    nn_search: bool = False
+    # "cubic" (the K^3 stencil) or "permutohedral" (the 13 lattice
+    # neighbours; coordinates pre-mapped with ops/permutohedral.embed_points)
+    lattice: str = "cubic"
+
+    def level_offsets(self) -> Optional[np.ndarray]:
+        """The offsets of every level's neighbour map where they are not
+        the cubic stencil's."""
+        if self.lattice == "permutohedral":
+            from occuseg_tpu_torch.ops.permutohedral import (
+                permutohedral_offsets,
+            )
+            return permutohedral_offsets(3)
+        return None
 
     @property
     def num_levels(self) -> int:
         return len(self.caps)
+
+
+# --- the planner on a tensor's device ------------------------------------
+
+def _table(offsets: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An int32 offset table [K, 3] on `device`, copied there once per
+    table and device (later builds make no copy, and no host wait)."""
+    return _device_table(np.ascontiguousarray(offsets, np.int32).tobytes(),
+                         torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(raw: bytes, device: torch.device) -> torch.Tensor:
+    t = np.frombuffer(raw, np.int32).reshape(-1, 3).copy()
+    with torch.inference_mode(False):   # usable outside inference mode
+        return torch.from_numpy(t).to(device)
+
+
+def _chebyshev_shells(max_radius: int) -> np.ndarray:
+    """All integer offsets with Chebyshev norm <= max_radius, by radius,
+    then lexicographically ((0, 0, 0) first)."""
+    deltas = []
+    for r in range(max_radius + 1):
+        for i in range(-r, r + 1):
+            for j in range(-r, r + 1):
+                for k in range(-r, r + 1):
+                    if max(abs(i), abs(j), abs(k)) == r:
+                        deltas.append((i, j, k))
+    return np.asarray(deltas, np.int32)
+
+
+def _with_batch(coords: torch.Tensor, spatial: torch.Tensor) -> torch.Tensor:
+    """coords [..., N, 4]'s batch column before spatial [..., N, 3]
+    (broadcast over spatial's leading axes)."""
+    b = coords[..., :1].expand(spatial.shape[:-1] + (1,))
+    return torch.cat([b, spatial], dim=-1)
+
+
+def _level(keys: torch.Tensor, kernel: int = 3, dilation: int = 1,
+           orient: Optional[torch.Tensor] = None, nn_search: bool = False,
+           offsets: Optional[np.ndarray] = None) -> LevelTopology:
+    """`build_level` with its count left on the device (0-d int32)."""
+    dev = keys.device
+    coords = C.unpack(keys)
+    num_active = (keys < C.KEY_PAD).sum(dtype=torch.int32)
+    offs = _table(_offsets(kernel, dilation) if offsets is None
+                  else offsets, dev)
+    K = offs.shape[0]
+    if nn_search and dilation > 1:
+        deltas = _table(_chebyshev_shells(dilation // 2), dev)  # [S, 3]
+        S = deltas.shape[0]
+        cols = []
+        for k in range(K):   # [N, S] candidates per offset, radius order
+            cand = coords[:, None, 1:] + offs[k] + deltas[None]
+            q = _with_batch(coords[:, None], cand)
+            rows = C.lookup(keys, C.pack(q.reshape(-1, 4))).reshape(-1, S)
+            hit = rows >= 0
+            first = hit.to(torch.int32).argmax(dim=1)  # first maximal
+            pick = rows.gather(1, first[:, None])[:, 0]
+            cols.append(torch.where(hit.any(dim=1), pick, -1))
+        nbr_kn = torch.stack(cols)
+    else:
+        shifted = coords[None, :, 1:] + offs[:, None, :]         # [K, N, 3]
+        q = _with_batch(coords[None], shifted)
+        nbr_kn = C.lookup(keys, C.pack(q.reshape(-1, 4))).reshape(K, -1)
+    if orient is None:
+        orient = torch.zeros(keys.shape[0], dtype=torch.int32, device=dev)
+    lvl = LevelTopology(keys=keys, coords=coords, num_active=num_active,
+                        nbr=nbr_kn.t(), orient=orient)
+    lvl.kn["nbr"] = nbr_kn
+    return lvl
+
+
+def build_level(keys: torch.Tensor, kernel: int = 3, dilation: int = 1,
+                orient: Optional[torch.Tensor] = None, nn_search: bool = False,
+                offsets: Optional[np.ndarray] = None) -> LevelTopology:
+    """LevelTopology of sorted unique KEY_PAD-padded keys on their device:
+    coords, the count of real keys and the neighbour map over the K^3
+    cubic offsets (or explicit `offsets` [K, 3], e.g. the permutohedral
+    lattice's), all K lookups in one search. With `nn_search` (dilation >
+    1 only), a dilated offset with no active site falls back to the
+    nearest active site within Chebyshev radius dilation // 2, the first
+    hit in radius order, one offset at a time over [N, S] candidates."""
+    return _on_host_counts(_level(keys, kernel, dilation, orient, nn_search,
+                                  offsets))
+
+
+def _voxelize(point_coords: torch.Tensor, cap: int):
+    """(sorted unique keys [cap], p2v [P] int32, the points' segment ids
+    in key order): the points sorted by key (a stable sort, so a voxel's
+    points keep their order), their distinct keys left-packed."""
+    skeys, order = torch.sort(C.pack(point_coords), stable=True)
+    _, seg, _ = C.unique_consecutive(skeys)
+    unique_keys, _, _ = C.compact_unique(skeys, cap)
+    vox_row = torch.where(seg < cap, seg, -1)
+    p2v = torch.empty_like(vox_row).scatter_(0, order, vox_row)
+    return unique_keys, p2v, order, seg
+
+
+def voxelize_coords(point_coords: torch.Tensor, cap: int):
+    """(sorted unique voxel keys [cap], p2v [P] int32) of padded point
+    coords [P, 4] (-1 rows are padding). A point past the cap, or a pad
+    point, gets p2v -1; as in the JAX package, a pad point gets row P
+    instead where P < cap (the unique-key index it is given is P)."""
+    keys, p2v, _, _ = _voxelize(torch.as_tensor(point_coords), cap)
+    return keys, p2v
+
+
+def downsample_keys(level: LevelTopology, size: int, stride: int, cap: int
+                    ) -> torch.Tensor:
+    """Sorted padded keys of the output sites of a size/stride convolution
+    over `level`: at 2/2 the parent keys, already sorted (no sort); else
+    every output site whose window covers an active site (ceil(size /
+    stride)^3 candidates each), sorted and deduplicated."""
+    if size == stride == 2:
+        return C.compact_unique(C.parent_keys(level.keys), cap)[0]
+    c = level.coords
+    sp = c[:, 1:]
+    ncand = -(-size // stride)
+    base = torch.where(sp >= 0, torch.div(sp, stride, rounding_mode="floor"),
+                       -1)
+    cands = []
+    for tz in range(ncand):
+        for ty in range(ncand):
+            for tx in range(ncand):
+                j = torch.stack([base[:, 0] - tz, base[:, 1] - ty,
+                                 base[:, 2] - tx], dim=1)
+                # output j covers input i iff j*stride <= i < j*stride + size
+                ok = ((j >= 0) & (sp - j * stride < size)).all(dim=1) \
+                    & (c[:, 0] >= 0)
+                cc = torch.where(ok[:, None], torch.cat([c[:, :1], j], 1), -1)
+                cands.append(C.pack(cc))
+    skeys = torch.sort(torch.cat(cands)).values
+    return C.compact_unique(skeys, cap)[0]
+
+
+def grow_keys(level: LevelTopology, size: int, stride: int, cap_out: int
+              ) -> torch.Tensor:
+    """Sorted padded keys of a full (active-set-growing) transposed
+    convolution's output: every active site c gives c * stride + off for
+    each off in [0, size)^3."""
+    c = level.coords
+    offs = _table(_even_offsets(size), c.device)                # [K, 3]
+    cand = _with_batch(c[None], c[None, :, 1:] * stride + offs[:, None, :])
+    cand = torch.where(c[None, :, :1] >= 0, cand, -1)
+    skeys = torch.sort(C.pack(cand.reshape(-1, 4))).values
+    return C.compact_unique(skeys, cap_out)[0]
+
+
+def build_transition(fine: LevelTopology, coarse: LevelTopology,
+                     size: int, stride: int) -> LevelTransition:
+    """Child and up maps between two levels built on one device, one
+    lookup for all offsets each way: child[j, k] is the fine row at
+    coarse site j * stride + off_k, up[i, k] the coarse row j with
+    j * stride + off_k = fine site i."""
+    cc, fc = coarse.coords, fine.coords
+    offs = _table(_even_offsets(size), cc.device)               # [K, 3]
+    K = offs.shape[0]
+    tgt = _with_batch(cc[None], cc[None, :, 1:] * stride + offs[:, None, :])
+    tgt = torch.where(cc[None, :, :1] >= 0, tgt, -1)
+    child_kn = C.lookup(fine.keys, C.pack(tgt.reshape(-1, 4))).reshape(K, -1)
+    num = fc[None, :, 1:] - offs[:, None, :]                    # [K, N, 3]
+    divisible = ((num % stride == 0) & (num >= 0)).all(dim=-1)
+    j = _with_batch(fc[None], torch.div(num, stride, rounding_mode="floor"))
+    j = torch.where((divisible & (fc[None, :, 0] >= 0))[..., None], j, -1)
+    up_kn = C.lookup(coarse.keys, C.pack(j.reshape(-1, 4))).reshape(K, -1)
+    tr = LevelTransition(child=child_kn.t(), up=up_kn.t(), size=size,
+                         stride=stride)
+    tr.kn.update(child=child_kn, up=up_kn)
+    return tr
+
+
+def _on_device(level: LevelTopology, device) -> LevelTopology:
+    """`level` with its keys and coords as tensors on `device` (a host
+    plan's stay on the host)."""
+    if isinstance(level.keys, torch.Tensor) and level.keys.device == device:
+        return level
+    return dataclasses.replace(
+        level, keys=torch.tensor(level.keys, device=device),
+        coords=torch.tensor(level.coords, device=device))
+
+
+def _with_count(level: LevelTopology, n: int, **fields) -> LevelTopology:
+    new = dataclasses.replace(level, num_active=n, **fields)
+    new.kn.update(level.kn)
+    return new
+
+
+def _on_host_counts(*levels: LevelTopology):
+    """The levels with their device counts read to host ints, in one read
+    (one level: the level itself)."""
+    counts = torch.stack([l.num_active for l in levels]).tolist()
+    out = tuple(_with_count(l, n) for l, n in zip(levels, counts))
+    return out[0] if len(out) == 1 else out
+
+
+def full_conv_plan(level: LevelTopology, size: int, stride: int,
+                   cap_out: int, kernel: int = 3, build_nbr: bool = True,
+                   device=None) -> Tuple[LevelTopology, LevelTransition]:
+    """The grown output level of a FullConvolution over `level` and the
+    transition from it (fine: the grown level, coarse: `level`), on
+    `device` (default: where the level's keys are, the CPU for a host
+    plan). The convolution is the deconvolution over the transition's
+    `up` map; its `child` map is the backward's. `build_nbr=False` skips
+    the grown level's neighbour map ([cap_out, 1] of -1)."""
+    if device is None:
+        device = (level.keys.device if isinstance(level.keys, torch.Tensor)
+                  else torch.device("cpu"))
+    level = _on_device(level, torch.device(device))
+    out_keys = grow_keys(level, size, stride, cap_out)
+    if build_nbr:
+        out = _level(out_keys, kernel)
+    else:
+        nbr_kn = torch.full((1, cap_out), -1, dtype=torch.int32,
+                            device=out_keys.device)
+        out = LevelTopology(
+            keys=out_keys, coords=C.unpack(out_keys),
+            num_active=(out_keys < C.KEY_PAD).sum(dtype=torch.int32),
+            nbr=nbr_kn.t(), orient=torch.zeros(cap_out, dtype=torch.int32,
+                                               device=out_keys.device))
+        out.kn["nbr"] = nbr_kn
+    tr = build_transition(out, level, size, stride)
+    return _on_host_counts(out), tr
+
+
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    """v / max(|v|, 1e-8) per row of [N, 3], the squares summed in axis
+    order on every device."""
+    n = torch.sqrt(v[:, :1] * v[:, :1] + v[:, 1:2] * v[:, 1:2]
+                   + v[:, 2:] * v[:, 2:])
+    return v / torch.clamp(n, min=1e-8)
+
+
+def _child_normals(normals: torch.Tensor, child_kn: torch.Tensor
+                   ) -> torch.Tensor:
+    """Normalised sums of each coarse site's children's normals, summed in
+    offset order."""
+    g = normals[child_kn.clamp(min=0).long()] * (child_kn >= 0)[..., None]
+    s = g[0]
+    for k in range(1, g.shape[0]):
+        s = s + g[k]
+    return _normalize(s)
+
+
+def build_plan(point_coords, spec: PlanSpec, point_normals=None
+               ) -> Topology:
+    """The full topology of padded point coords [P, 4] (b, z, y, x; -1
+    rows are padding), planned on their device (a NumPy array plans on the
+    CPU). With point normals [P, 3] (x, y, z) each voxel's normal is the
+    normalised sum of its points' (summed in the points' order, one
+    segment at a time: the same bits on every run), carried down by the
+    children's sums to `spec.guide_levels`, and each such level gets its
+    orientation classes. The counts are read to the host once, at the
+    end; the plan carries the points per voxel (`vox_counts`), no chunk
+    rulebook and no point layout."""
+    from occuseg_tpu_torch.ops.normal_guide import oriented_filter
+
+    pc = torch.as_tensor(point_coords)
+    dev = pc.device
+    cap0 = spec.caps[0]
+    keys0, p2v, order, seg = _voxelize(pc, cap0)
+    num_points = (C.pack(pc) < C.KEY_PAD).sum(dtype=torch.int32)
+    bounds = torch.searchsorted(seg, torch.arange(cap0 + 1, dtype=torch.int32,
+                                                  device=dev))
+    vox_counts = (bounds[1:] - bounds[:-1]).to(torch.float32)
+
+    normals = orient = None
+    if point_normals is not None:
+        pn = torch.as_tensor(point_normals, device=dev).to(torch.float32)
+        nsum = torch.segment_reduce(pn[order], "sum", offsets=bounds,
+                                    axis=0, unsafe=True)
+        normals = _normalize(nsum)
+        orient = oriented_filter(normals)
+    offsets = spec.level_offsets()
+
+    def level(keys, orient_l):
+        return _level(keys, spec.kernel, spec.dilation, orient_l,
+                      spec.nn_search, offsets)
+
+    levels = [level(keys0, orient)]
+    guided = [normals is not None]
+    transitions = []
+    for li in range(1, spec.num_levels):
+        keys = downsample_keys(levels[-1], spec.down_size, spec.down_stride,
+                               spec.caps[li])
+        lvl = level(keys, None)
+        tr = build_transition(levels[-1], lvl, spec.down_size,
+                              spec.down_stride)
+        if spec.guide_levels is not None and li >= spec.guide_levels:
+            normals = None
+        if normals is not None:
+            normals = _child_normals(normals, tr.kn["child"])
+            lvl = _with_count(lvl, lvl.num_active,
+                              orient=oriented_filter(normals))
+        guided.append(normals is not None)
+        transitions.append(tr)
+        levels.append(lvl)
+    counts = torch.stack([l.num_active for l in levels]
+                         + [num_points]).tolist()
+    levels = tuple(_with_count(l, n, guided=g)
+                   for l, n, g in zip(levels, counts, guided))
+    return Topology(levels=levels, transitions=tuple(transitions), p2v=p2v,
+                    num_points=counts[-1], vox_counts=vox_counts)
+
+
+def _np(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def _active_rows(num_active, cap: int) -> np.ndarray:
+    """Real rows of either layout: the prefix [0, n), or per-scene blocks
+    of a blocked plan's tuple of counts."""
+    if np.ndim(num_active) == 0:
+        return np.arange(int(num_active))
+    counts = list(num_active)
+    if not counts:
+        return np.arange(0)
+    sc = cap // len(counts)
+    return np.concatenate([s * sc + np.arange(int(c))
+                           for s, c in enumerate(counts)]).astype(np.int64)
+
+
+def validate_plan(plan: Topology) -> dict:
+    """Violation counts of a plan's invariants, all zeros on a healthy
+    plan (host NumPy; a host or a device plan, prefix or blocked):
+    "overflow" (a level filled its cap, per scene when blocked); per level
+    keys not strictly increasing within a scene, neighbour-map centres
+    that are not the row itself, and asymmetric pairs (nbr[r, k] = i
+    without nbr[i, K-1-k] = r); per transition child entries whose up
+    entry does not point back and, where size == stride, active fine rows
+    no coarse site covers."""
+    out = {"overflow": 0}
+    for lvl in plan.levels:
+        cap = _np(lvl.keys).shape[0]
+        n = lvl.num_active
+        if np.ndim(n) == 0:
+            out["overflow"] |= int(int(n) >= cap)
+        else:
+            out["overflow"] |= int(any(int(c) >= cap // len(n) for c in n))
+    for li, lvl in enumerate(plan.levels):
+        keys = _np(lvl.keys)
+        rows = _active_rows(lvl.num_active, keys.shape[0])
+        kv = keys[rows].astype(np.int64)
+        same_blk = np.diff(rows) == 1
+        out[f"level{li}_unsorted_or_dup"] = int(
+            not np.all(np.diff(kv)[same_blk] > 0))
+        nbr = _np(lvl.nbr)
+        K = nbr.shape[1]
+        out[f"level{li}_bad_center"] = int(np.sum(nbr[rows, K // 2] != rows))
+        bad_sym = 0
+        for k in range(K):
+            col = nbr[rows, k]
+            hit = col >= 0
+            bad_sym += int(np.sum(nbr[col[hit], K - 1 - k] != rows[hit]))
+        out[f"level{li}_asymmetric"] = bad_sym
+    for ti, tr in enumerate(plan.transitions):
+        child, up = _np(tr.child), _np(tr.up)
+        fine, coarse = plan.levels[ti], plan.levels[ti + 1]
+        fine_rows = _active_rows(fine.num_active, _np(fine.keys).shape[0])
+        crows = _active_rows(coarse.num_active, _np(coarse.keys).shape[0])
+        bad = 0
+        for k in range(child.shape[1]):
+            col = child[crows, k]
+            hit = col >= 0
+            bad += int(np.sum(up[col[hit], k] != crows[hit]))
+        out[f"transition{ti}_child_up_mismatch"] = bad
+        if tr.size == tr.stride:
+            covered = np.zeros(_np(fine.keys).shape[0], bool)
+            flat = child[crows].reshape(-1)
+            covered[flat[flat >= 0]] = True
+            out[f"transition{ti}_uncovered_fine"] = int(
+                np.sum(~covered[fine_rows]))
+    return out

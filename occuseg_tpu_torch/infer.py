@@ -48,9 +48,14 @@ def plan_scene(coords: np.ndarray, spec: PlanSpec, ns: int = 1,
     as the benchmark builds it: C++ planner (the blocked multi-scene layout
     for ns > 1 scenes; orientation classes from the points' `normals`
     [P, 3] when given), chunk rulebooks (with `chunks`), sorted point
-    layout."""
-    return augment_plan(build_plan_host_blocked(coords, spec, ns, normals),
-                        chunks)
+    layout. A spec only the device planner builds raises ValueError:
+    plan it with `core.topology.build_plan` (`Trainer.step(batch,
+    plan=None)`)."""
+    plan = build_plan_host_blocked(coords, spec, ns, normals)
+    if plan is None:
+        raise ValueError(f"the host planner does not build {spec}; plan it "
+                         f"on the device (core.topology.build_plan)")
+    return augment_plan(plan, chunks)
 
 
 def augment_plan(plan: Topology, chunks: bool = True) -> Topology:

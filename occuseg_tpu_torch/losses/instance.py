@@ -27,6 +27,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from occuseg_tpu_torch.ops import acc, acc_dtype
 from occuseg_tpu_torch.ops.kernels import bce_loss
 
 
@@ -64,14 +65,14 @@ def _seg_sum(x: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
     if num <= 128:
         oh = (seg[None, :] == torch.arange(num, dtype=seg.dtype,
                                            device=seg.device)[:, None])
-        xf = x.float()
-        out = oh.float() @ (xf[:, None] if x.dim() == 1 else xf)
+        xf = acc(x)
+        out = oh.to(xf.dtype) @ (xf[:, None] if x.dim() == 1 else xf)
         out = out[:, 0] if x.dim() == 1 else out
     else:
         keep = (seg >= 0) & (seg < num)
-        out = torch.zeros((num,) + x.shape[1:], dtype=torch.float32,
+        out = torch.zeros((num,) + x.shape[1:], dtype=acc_dtype(x),
                           device=x.device)
-        out = out.index_add(0, seg[keep].long(), x[keep].float())
+        out = out.index_add(0, seg[keep].long(), acc(x[keep]))
     return out.to(x.dtype)
 
 
@@ -108,9 +109,9 @@ def _seg_lookup(table: torch.Tensor, seg: torch.Tensor,
     serialises on the duplicates (measured ~32 ms per [262144, 64] lookup
     on the H100). Rows with seg outside [0, num) read 0 (callers mask
     those points anyway)."""
+    t = acc(table)
     oh = (seg[:, None] == torch.arange(num, dtype=seg.dtype,
-                                       device=seg.device)[None, :]).float()
-    t = table.float()
+                                       device=seg.device)[None, :]).to(t.dtype)
     out = oh @ (t[:, None] if t.dim() == 1 else t)
     return out[:, 0] if t.dim() == 1 else out
 
@@ -124,7 +125,7 @@ def semantic_cross_entropy(logits: torch.Tensor,
                            labels: torch.Tensor) -> torch.Tensor:
     """Mean CE over points with label >= 0."""
     valid = labels >= 0
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(acc(logits), dim=-1)
     nll = -logp.gather(1, torch.where(valid, labels, 0).long()[:, None])[:, 0]
     return _where0(valid, nll).sum() / torch.clamp(valid.float().sum(),
                                                    min=1)
@@ -147,7 +148,7 @@ def discriminative_loss(embedding: torch.Tensor, instance_id: torch.Tensor,
                         point_scene: torch.Tensor, num_scenes: int,
                         num_instances: int,
                         cfg: LossConfig = LossConfig()) -> torch.Tensor:
-    e = embedding.float()
+    e = acc(embedding)
     I, S = num_instances, num_scenes
     seg = _sanitize_seg(instance_id, I)
     valid_pt = instance_id >= 0
@@ -208,15 +209,15 @@ def classification_loss(embedding: torch.Tensor, bw: torch.Tensor,
     """Soft-membership BCE (weight applied) and the mean instance IoU,
     over instances with at least `min_instance_points` points."""
     I = num_instances
-    e = embedding.float()
-    x = pose.float()
-    rx = regressed_pose.float()
+    e = acc(embedding)
+    x = acc(pose)
+    rx = acc(regressed_pose)
     seg = _sanitize_seg(instance_id, I)
     valid_pt = instance_id >= 0
 
     mu, _ = _seg_mean(_where0(valid_pt[:, None], e), seg, I + 1)
     mean_pose, _ = _seg_mean(_where0(valid_pt[:, None], x), seg, I + 1)
-    sig, _ = _seg_mean(_where0(valid_pt[:, None], bw.float()), seg, I + 1)
+    sig, _ = _seg_mean(_where0(valid_pt[:, None], acc(bw)), seg, I + 1)
     mu, mean_pose, sig = mu[:I], mean_pose[:I], sig[:I]
     scene_i, count_i, _, exists = _instance_stats(instance_id, point_scene,
                                                   labels, I)
@@ -349,20 +350,20 @@ def occuseg_total_loss(outputs, batch: Dict[str, torch.Tensor],
 
     # offset (centredness) regression: L1 over foreground points * 100
     n_fg = fg_pt.float().sum()
-    off_l1 = (outputs.offset.float() - batch["offsets"]).abs()
+    off_l1 = (acc(outputs.offset) - batch["offsets"]).abs()
     off_sum = _where0(fg_pt[:, None], off_l1).sum()
     regression = (off_sum / torch.clamp(n_fg, min=1.0) / off_l1.shape[1]
                   * cfg.regress_weight)
 
-    disp_err = _safe_norm(outputs.displacement.float()
+    disp_err = _safe_norm(acc(outputs.displacement)
                           - batch["displacements"], dim=1)
-    occ_err = _safe_norm(outputs.occupancy.float() - batch["occupancy"],
+    occ_err = _safe_norm(acc(outputs.occupancy) - batch["occupancy"],
                          dim=1)
     displacement, occupancy = _cluster_losses(
-        disp_err, occ_err, outputs.occupancy.float(), iid, pscene, labels,
+        disp_err, occ_err, acc(outputs.occupancy), iid, pscene, labels,
         num_scenes, num_instances, cfg)
 
-    regressed_pose = batch["pose"] - outputs.displacement.float()
+    regressed_pose = batch["pose"] - acc(outputs.displacement)
     classification, miou = classification_loss(
         outputs.embedding, outputs.bw, regressed_pose, batch["pose"], iid,
         pscene, labels, num_scenes, num_instances, cfg)
@@ -398,11 +399,11 @@ def drift_loss(embedding: torch.Tensor, regressed_pose: torch.Tensor,
     seg = _sanitize_seg(instance_id, I)
     valid_pt = instance_id >= 0
     valid = valid_pt & (offset_pred.reshape(-1) > 0.01)
-    e = embedding.float()
-    rp = regressed_pose.float()
-    w = offset_pred.reshape(-1, 1).float()
+    e = acc(embedding)
+    rp = acc(regressed_pose)
+    w = acc(offset_pred.reshape(-1, 1))
     mu_e, _ = _seg_mean(_where0(valid_pt[:, None], e), seg, I + 1)
-    mu_p, _ = _seg_mean(_where0(valid_pt[:, None], pose.float()), seg, I + 1)
+    mu_p, _ = _seg_mean(_where0(valid_pt[:, None], acc(pose)), seg, I + 1)
     _, _, cls_i, exists = _instance_stats(instance_id, point_scene, labels, I)
     fg = exists & (cls_i >= cfg.foreground_class_threshold)
     err = ((e * w - _seg_lookup(mu_e[:I], seg, I) * w).abs().mean(1)

@@ -10,6 +10,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from occuseg_tpu_torch.ops import acc
+
 # Per-class CE weight tables for weighted_cross_entropy, by dataset.
 SCANNET_CE_WEIGHTS = (
     0.3005, 0.2700, 0.0418, 0.0275, 0.0810, 0.0254, 0.0462, 0.0418,
@@ -63,7 +65,7 @@ def lovasz_softmax(logits: torch.Tensor, labels: torch.Tensor
 def _ce_per_point(logits: torch.Tensor, labels: torch.Tensor):
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(acc(logits), dim=-1)
     return -logp.gather(1, safe[:, None])[:, 0], valid, safe
 
 

@@ -33,6 +33,7 @@ from occuseg_tpu_torch.nn.modules import (
     SubmanifoldConvolution,
 )
 from occuseg_tpu_torch.nn.unet import UNet
+from occuseg_tpu_torch.ops import acc
 
 
 class OccuSegOutputs(NamedTuple):
@@ -86,7 +87,7 @@ class _Backbone(nn.Module):
         x = self.sub(x, plan)
         x = self.unet(x, plan)
         x = self.bn(x, plan)
-        return self.output(x, plan).float()
+        return acc(self.output(x, plan))
 
 
 class InstanceDenseUNet(nn.Module):

@@ -87,15 +87,16 @@ def merge_scene_plans(plans: Sequence[Topology],
 
 def build_plan_host_blocked(point_coords: np.ndarray, spec: PlanSpec,
                             ns: int, point_normals: Optional[np.ndarray] = None
-                            ) -> Topology:
+                            ) -> Optional[Topology]:
     """Blocked plan of an ns-scene batch: point_coords [P, 4] (b, z, y, x)
     with b in [0, ns) and -1 pad rows, and optionally the points' normals
     [P, 3] (each scene's plan takes its own points' normals). ns <= 1 is
     the one-scene plan. The returned p2v maps the ORIGINAL point order into
     blocked voxel rows; the sorted point layout (`core/point_layout.py`)
     then groups each scene's points, since its slots follow voxel
-    blocks."""
-    if ns <= 1:
+    blocks. None for a spec only the device planner builds, as
+    `build_plan_host`."""
+    if ns <= 1 or spec.nn_search or spec.lattice != "cubic":
         return build_plan_host(point_coords, spec, point_normals)
     scaps = blocked_scene_caps(spec.caps, ns)
     sspec = dataclasses.replace(spec, caps=scaps)

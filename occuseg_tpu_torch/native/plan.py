@@ -6,9 +6,11 @@ returns NumPy plan dataclasses bit-identical to the JAX package's host
 plan, orientation classes included. Size-2 stride-2 transitions run in the
 C++ planner; any other size and stride (a VGG "Plus" down_size=3, say)
 runs `_general_downsample_np`, the JAX package's NumPy output-region
-transition, with s^3 offsets per map. The JAX package plans dilated
-nearest-neighbour searches and permutohedral lattices only inside jit;
-the port's `PlanSpec` has no fields for them.
+transition, with s^3 offsets per map. Dilated nearest-neighbour searches
+(`PlanSpec.nn_search`) and permutohedral lattices (`PlanSpec.lattice`)
+are planned only on the device (`core/topology.build_plan`): for such a
+spec `build_plan_host` returns None, as the JAX package's host planner
+does.
 
 With point normals [P, 3] (x, y, z) the plan carries normals for the
 normal-guided convolutions: a level-0 voxel's normal is the normalised sum
@@ -143,9 +145,14 @@ def _normalize(v: np.ndarray) -> np.ndarray:
 
 
 def build_plan_host(point_coords: np.ndarray, spec: PlanSpec,
-                    point_normals: Optional[np.ndarray] = None) -> Topology:
+                    point_normals: Optional[np.ndarray] = None
+                    ) -> Optional[Topology]:
     """NumPy Topology for padded point coords [P,4] (b,z,y,x; -1 pad),
-    with orientation classes from `point_normals` [P, 3] when given."""
+    with orientation classes from `point_normals` [P, 3] when given; None
+    for a spec only the device planner builds (`nn_search`, a lattice
+    other than "cubic")."""
+    if spec.nn_search or spec.lattice != "cubic":
+        return None
     fast_down = spec.down_size == 2 and spec.down_stride == 2
     offs = _offsets(spec.kernel, spec.dilation)
     K = offs.shape[0]

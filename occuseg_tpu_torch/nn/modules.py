@@ -22,7 +22,10 @@ Every convolution takes the first of these routes that applies:
     kernels, and is not copied). It reads the maps in its kernel's
     orientation from the plan (`gather_map`), which uploads each once.
 The routes compute the same function. At the levels past
-`PlanSpec.guide_levels` every orientation class is 0, the identity.
+`PlanSpec.guide_levels` every orientation class is 0, the identity. A
+plan built on the device (`core/topology.build_plan`) has no chunk
+rulebook, so all of its convolutions take the gather path, as do
+`FullConvolution`'s, whose grown topology is planned in its forward.
 """
 
 from __future__ import annotations
@@ -178,6 +181,53 @@ class Deconvolution(_Transition):
         return SparseTensor(features=out,
                             num_active=plan.levels[x.level - 1].num_active,
                             level=x.level - 1)
+
+
+class FullConvolution(nn.Module):
+    """Active-set-growing transposed convolution (the reference's
+    FullConvolution): its output sites are every in * stride + [0, size)^3
+    position, a new topology rather than a return to a finer level of the
+    plan. The grown level and its transition are planned on the features'
+    device (`core/topology.full_conv_plan`); the convolution is #9's
+    gather convolution over the transition's `up` map, with its `child`
+    map as the backward's.
+
+    Returns (SparseTensor at level 0 of a new one-level Topology, that
+    Topology). `cap_out` is the output-site budget (default cap_in *
+    size^3, the exact bound); `build_nbr` also builds the grown level's
+    submanifold neighbour map for convolutions that follow on it."""
+
+    def __init__(self, in_features: int, out_features: int, size: int = 2,
+                 stride: int = 2, cap_out: Optional[int] = None,
+                 build_nbr: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.size, self.stride = size, stride
+        self.cap_out, self.build_nbr = cap_out, build_nbr
+        K = size ** 3
+        self.weight = _he_weight((K, in_features, out_features), K,
+                                 generator)
+
+    def forward(self, x: SparseTensor, plan: Topology):
+        from occuseg_tpu_torch.core.topology import full_conv_plan
+        f = x.features
+        lvl = plan.levels[x.level]
+        cap_out = self.cap_out or lvl.cap * self.size ** 3
+        out_lvl, tr = full_conv_plan(lvl, self.size, self.stride, cap_out,
+                                     build_nbr=self.build_nbr,
+                                     device=f.device)
+        out = conv_ops.gather_conv_kn(f, tr.gather_map("up", f.device),
+                                      self.weight,
+                                      tr.gather_map("child", f.device), False)
+        new_plan = Topology(levels=(out_lvl,), transitions=(),
+                            p2v=torch.full((1,), -1, dtype=torch.int32,
+                                           device=f.device), num_points=0)
+        return (SparseTensor(features=out, num_active=out_lvl.num_active,
+                             level=0), new_plan)
+
+
+class TransposeConvolution(FullConvolution):
+    """The reference's alias of FullConvolution."""
 
 
 class NetworkInNetwork(nn.Module):

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from occuseg_tpu_torch.ops import acc, acc_dtype
 from occuseg_tpu_torch.ops.kernels import gather_conv as gc
 
 # the gather-conv kernel takes channel counts that are multiples of 8
@@ -90,11 +91,11 @@ class _GatherConv(torch.autograd.Function):
             d_feats = _kernel_conv(ctc, bwd_kn,
                                    w_t.flip(0) if ctx.reverse else w_t)
         if ctx.needs_input_grad[3]:
-            f = feats.float().t()
-            d_w = torch.empty(weight.shape, dtype=torch.float32,
+            f = acc(feats).t()
+            d_w = torch.empty(weight.shape, dtype=f.dtype,
                               device=feats.device)
             for k, j in enumerate(order):
-                torch.matmul(f, gather_rows(ctc, bwd_kn[k]).float(),
+                torch.matmul(f, acc(gather_rows(ctc, bwd_kn[k])),
                              out=d_w[j])
             d_w = d_w.to(weight.dtype)
         return d_feats, None, None, d_w, None
@@ -145,9 +146,9 @@ def gather_conv_fused(feats: torch.Tensor, nbr: torch.Tensor,
     JAX package's `gather_conv_fused`)."""
     K, cin, cout = weight.shape
     g = gather_rows(feats, nbr.reshape(-1)).reshape(nbr.shape[0], K * cin)
-    out = g.float() @ weight.reshape(K * cin, cout).float()
+    out = acc(g) @ weight.reshape(K * cin, cout).to(acc_dtype(g))
     if bias is not None:
-        out = out + bias.float()
+        out = out + bias.to(out.dtype)
     return out.to(feats.dtype)
 
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from occuseg_tpu_torch.ops import kernels
+from occuseg_tpu_torch.ops import acc, kernels
 from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
 
 TILE = 128      # output rows per block of the bf16 kernel
@@ -59,11 +59,13 @@ def _check(feats: torch.Tensor, nbr_kn: torch.Tensor,
 def gather_conv_plain(feats: torch.Tensor, nbr_kn: torch.Tensor,
                       weight: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: per offset a clamped row gather with the -1
-    rows zeroed, then one f32 einsum; [M, Cout] in feats.dtype."""
+    rows zeroed, then one f32 einsum (f64 for f64 feats); [M, Cout] in
+    feats.dtype."""
     _check(feats, nbr_kn, weight)
-    g = feats[nbr_kn.clamp(min=0).long()].float()            # [K, M, Cin]
-    g = torch.where((nbr_kn >= 0)[..., None], g, torch.zeros((), device=g.device))
-    out = torch.einsum("kni,kio->no", g, weight.float())
+    g = acc(feats[nbr_kn.clamp(min=0).long()])               # [K, M, Cin]
+    g = torch.where((nbr_kn >= 0)[..., None], g, torch.zeros((), dtype=g.dtype,
+                                                             device=g.device))
+    out = torch.einsum("kni,kio->no", g, weight.to(g.dtype))
     return out.to(feats.dtype)
 
 

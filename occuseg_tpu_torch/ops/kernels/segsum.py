@@ -18,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from occuseg_tpu_torch.ops import kernels
+from occuseg_tpu_torch.ops import acc, acc_dtype, kernels
 
 
 # Floats of x a CTA stages: up to SMALL_SLAB with 128 threads, else with
@@ -62,9 +62,9 @@ def blocked_segment_sum_plain(x: torch.Tensor, vox_seg: torch.Tensor,
     slot = torch.arange(B * R, device=x.device)
     valid = seg >= 0
     dst = (slot // R) * W + seg
-    out = torch.zeros((num_out, x.shape[1]), dtype=torch.float32,
+    out = torch.zeros((num_out, x.shape[1]), dtype=acc_dtype(x),
                       device=x.device)
-    return out.index_add_(0, dst[valid], x[:B * R][valid].float())
+    return out.index_add_(0, dst[valid], acc(x[:B * R][valid]))
 
 
 def blocked_segment_sum(x: torch.Tensor, vox_seg: torch.Tensor,
@@ -108,9 +108,9 @@ def tail_segment_sum(x: torch.Tensor, p2v: torch.Tensor, main_rows: int,
     # layout, and the accumulating index_put_ serialises on duplicates
     # (measured 166 ms per CLI step on an H100 80GB HBM3 at 700 W)
     valid = seg >= 0
-    out = torch.zeros((num_out, x.shape[1]), dtype=torch.float32,
+    out = torch.zeros((num_out, x.shape[1]), dtype=acc_dtype(x),
                       device=x.device)
-    return out.index_put_((seg[valid],), x[main_rows:][valid].float(),
+    return out.index_put_((seg[valid],), acc(x[main_rows:][valid]),
                           accumulate=True)
 
 

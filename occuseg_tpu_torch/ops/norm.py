@@ -22,13 +22,14 @@ from occuseg_tpu_torch.core.sparse_tensor import (
     active_mask,
     total_active,
 )
+from occuseg_tpu_torch.ops import acc
 
 
 def _affine(feats: torch.Tensor, num_active: NumActive, mean: torch.Tensor,
             inv_std: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             leakiness: float) -> torch.Tensor:
-    w = inv_std * scale.float()
-    b = bias.float() - mean * w
+    w = inv_std * acc(scale)
+    b = acc(bias) - mean * w
     dt = feats.dtype
     y = feats * w.to(dt) + b.to(dt)
     if leakiness != 1.0:
@@ -47,8 +48,8 @@ def batch_norm_eval(feats: torch.Tensor, num_active: NumActive,
                     *, eps: float = 1e-4, leakiness: float = 1.0
                     ) -> torch.Tensor:
     """Normalise with the running statistics."""
-    return _affine(feats, num_active, running_mean.float(),
-                   torch.rsqrt(running_var.float() + eps), scale, bias,
+    return _affine(feats, num_active, acc(running_mean),
+                   torch.rsqrt(acc(running_var) + eps), scale, bias,
                    leakiness)
 
 
@@ -61,10 +62,10 @@ def batch_norm_train(feats: torch.Tensor, num_active: NumActive,
     `running_mean` / `running_var` IN PLACE under no_grad: the update is
     not part of the graph (the JAX package returns new statistics
     instead)."""
-    f = feats.float()
+    f = acc(feats)
     mask = active_mask(num_active, feats.shape[0], feats.device)[:, None]
     n = float(max(total_active(num_active), 1))
-    zero = torch.zeros((), dtype=torch.float32, device=feats.device)
+    zero = torch.zeros((), dtype=f.dtype, device=feats.device)
     sum_f = torch.where(mask, f, zero).sum(0)
     sumsq = torch.where(mask, f * f, zero).sum(0)
     mean = sum_f / n

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from occuseg_tpu_torch.ops import acc
 from occuseg_tpu_torch.ops.conv import gather_rows
 from occuseg_tpu_torch.ops.kernels.segsum import sorted_segment_sum
 
@@ -47,7 +48,7 @@ class _Devoxelize(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         p2v, vox_seg = ctx.saved_tensors
-        d_vox = sorted_segment_sum(ct.float().contiguous(), p2v, vox_seg,
+        d_vox = sorted_segment_sum(acc(ct).contiguous(), p2v, vox_seg,
                                    ctx.num_out)
         return d_vox.to(ct.dtype), None, None
 
@@ -61,7 +62,7 @@ def voxelize_features(point_feats: torch.Tensor, p2v: torch.Tensor,
     `vox_seg` and `vox_counts` are the plan's sorted point layout, or None
     (`infer.augment_plan` gives a plan without the layout its counts; a
     None here counts p2v on the device)."""
-    s = _Voxelize.apply(point_feats.float(), p2v, vox_seg, num_voxels_cap)
+    s = _Voxelize.apply(acc(point_feats), p2v, vox_seg, num_voxels_cap)
     if vox_counts is None:
         vox_counts = torch.bincount(p2v[p2v >= 0].long(),
                                     minlength=num_voxels_cap).float()

@@ -8,7 +8,8 @@
 `prepare_batch` builds the host plan (C++ planner, chunk rulebooks, sorted
 point layout; the blocked layout of `native/blocked.py` for ns > 1 scenes)
 and permutes every per-point array of the batch into the layout.
-`Trainer.step` moves both to the device, runs the forward in train mode
+`Trainer.step` moves both to the device (or, given no plan, plans the raw
+batch on the device, `Trainer(spec=...)`), runs the forward in train mode
 (batch statistics, running statistics updated in place), the 6-term loss,
 the backward through the convolution kernels, and one optimizer update, or,
 with `accum_steps` = N > 1, `optax.MultiSteps`' semantics: the gradients
@@ -16,6 +17,15 @@ of N calls are averaged and the update is applied on the N-th (the BN
 statistics update on every call). `Trainer.evaluate` is the eval step: the
 eval-mode forward. The entry points run on "cuda" unless the caller passes
 another device.
+
+    trainer = Trainer(model, spec=PlanSpec(caps))
+    parts = trainer.step(make_batch(...))   # plan=None: planned on the card
+
+With no plan, as the JAX steps' in-graph fallback, `step` and `evaluate`
+take a raw `make_batch` batch (original point order, no point layout) and
+build its plan on the device (`core/topology.build_plan`, with the batch's
+normals under `use_normals`): no chunk rulebook, so every convolution runs
+the gather path.
 
 Not ported: the data-parallel loss weight `_w` and the `axis_name`
 reductions (ROADMAP A9). `optax.flatten` needs no counterpart: it only
@@ -25,13 +35,13 @@ fuses the elementwise update on the TPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from occuseg_tpu_torch.core.point_layout import apply_point_layout
-from occuseg_tpu_torch.core.topology import PlanSpec, Topology, pin
+from occuseg_tpu_torch.core.topology import PlanSpec, Topology, build_plan, pin
 from occuseg_tpu_torch.infer import Predictor, plan_scene
 from occuseg_tpu_torch.losses.instance import LossConfig, occuseg_total_loss
 from occuseg_tpu_torch.models.occuseg import OccuSegOutputs
@@ -105,12 +115,16 @@ def pinned(batch: Dict[str, np.ndarray], plan: Topology
 class Trainer:
     """Trains an OccuSeg model (with bw and occupancy heads) on one
     device. The optimizer's gradients stay on the parameters after each
-    update until the next cycle starts."""
+    update until the next cycle starts. `spec` is the plan a call without
+    one builds on the device, with the batch's "normals" under
+    `use_normals`."""
 
     def __init__(self, model: torch.nn.Module, device="cuda",
                  cfg: TrainConfig = TrainConfig(),
                  loss_cfg: LossConfig = LossConfig(),
-                 num_instances: int = 64, num_scenes: int = 1):
+                 num_instances: int = 64, num_scenes: int = 1,
+                 spec: Optional[PlanSpec] = None, use_normals: bool = False):
+        self.spec, self.use_normals = spec, use_normals
         self.device = torch.device(device)
         self.model = model.to(self.device).train()
         self.optimizer, self.scheduler = make_optimizer(
@@ -121,16 +135,29 @@ class Trainer:
         self.accum_steps = max(int(cfg.accum_steps), 1)
         self.steps = 0   # calls of `step`, as the JAX TrainState.step
 
+    def _upload(self, a) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device, non_blocking=True)
+
+    def plan(self, batch: Dict[str, np.ndarray]) -> Topology:
+        """The plan of a raw batch, built on the device from its coords
+        (and its normals under `use_normals`) at `spec`."""
+        if self.spec is None:
+            raise ValueError("Trainer: a call without a plan needs "
+                             "Trainer(spec=...)")
+        normals = self._upload(batch["normals"]) if self.use_normals \
+            else None
+        return build_plan(self._upload(batch["coords"]), self.spec, normals)
+
     def _inputs(self, batch, plan):
-        plan = plan.to(self.device)
-        b = {k: torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
-             for k in _BATCH_KEYS}
+        plan = self.plan(batch) if plan is None else plan.to(self.device)
+        b = {k: self._upload(batch[k]) for k in _BATCH_KEYS}
         return b, plan
 
-    def step(self, batch: Dict[str, np.ndarray], plan: Topology
-             ) -> Dict[str, torch.Tensor]:
-        """One call from a prepared batch and its host plan; returns the
-        loss parts (and "total") as detached 0-d tensors on the device."""
+    def step(self, batch: Dict[str, np.ndarray],
+             plan: Optional[Topology] = None) -> Dict[str, torch.Tensor]:
+        """One call from a prepared batch and its host plan, or from a raw
+        batch planned on the device (plan None); returns the loss parts
+        (and "total") as detached 0-d tensors on the device."""
         b, plan = self._inputs(batch, plan)
         self.model.train()
         out = self.model(b["features"], plan)
@@ -150,10 +177,13 @@ class Trainer:
         self.steps += 1
         return {k: v.detach() for k, v in parts.items()}
 
-    def evaluate(self, batch: Dict[str, np.ndarray], plan: Topology
-                 ) -> OccuSegOutputs:
+    def evaluate(self, batch: Dict[str, np.ndarray],
+                 plan: Optional[Topology] = None) -> OccuSegOutputs:
         """The eval step: `Predictor.forward` (running statistics), outputs
-        in the plan's point-layout order."""
+        in the plan's point-layout order (a raw batch planned on the
+        device: its own order)."""
+        if plan is None:
+            plan = self.plan(batch)
         try:
             return Predictor(self.model, self.device).forward(
                 batch["features"], plan)

@@ -889,3 +889,185 @@ def test_gather_path_autograd_matches_cpu(dev, plan, kind):
     _check(o2, o, TOL[torch.float32])
     _check(df2, df, TOL[torch.float32])
     _check(dw2, dw, DW_TOL)
+
+
+# --- the device planner and #9's roles on its path ----------------------
+
+PLANNER_CAPS = (12_288, 8_192, 4_096, 2_048)
+
+
+@pytest.fixture(scope="module")
+def raw_scene():
+    return make_batch(SceneConfig(num_points=12_000, extent=128,
+                                  num_objects=8),
+                      num_scenes=1, p_cap=24_576, num_instances=16, seed=3)
+
+
+def _lattice_coords(coords):
+    from occuseg_tpu_torch.ops.permutohedral import embed_points
+    valid = coords[:, 0] >= 0
+    lat = embed_points(coords[valid, 1:].astype(np.float64))
+    out = coords.copy()
+    out[valid, 1:] = lat - lat.min(0)
+    return out
+
+
+def _same_tensors(a, b):
+    from occuseg_tpu_torch.core.topology import _np
+    return np.array_equal(_np(a), _np(b))
+
+
+@pytest.mark.parametrize("case", ["cubic", "normals", "size3", "nn_search",
+                                  "permutohedral"])
+def test_device_plan_matches_cpu(dev, raw_scene, case):
+    """`core/topology.build_plan` on the card equals the same build on the
+    CPU (which the CPU tests hold to the JAX planner) bit for bit:
+    keys, coords, counts, maps, p2v; orientation classes except where a
+    site's two largest normal components are within 1e-6 relative."""
+    from occuseg_tpu_torch.core.topology import build_plan
+    coords, normals = raw_scene["coords"], None
+    kw = {}
+    if case == "normals":
+        normals, kw = raw_scene["normals"], dict(guide_levels=2)
+    elif case == "size3":
+        kw = dict(down_size=3, down_stride=2)
+    elif case == "nn_search":
+        kw = dict(dilation=2, nn_search=True)
+    elif case == "permutohedral":
+        coords, kw = _lattice_coords(coords), dict(lattice="permutohedral")
+    spec = PlanSpec(caps=PLANNER_CAPS, **kw)
+
+    def plan_on(d):
+        return build_plan(torch.from_numpy(coords).to(d), spec,
+                          None if normals is None
+                          else torch.from_numpy(normals).to(d))
+    cp, gp = plan_on("cpu"), plan_on(dev)
+    assert gp.levels[0].keys.is_cuda and gp.levels[0].kn["nbr"].is_cuda
+    for c, g in zip(cp.levels, gp.levels):
+        for f in ("keys", "coords", "nbr"):
+            assert _same_tensors(getattr(c, f), getattr(g, f)), f
+        assert c.num_active == g.num_active and c.guided == g.guided
+        # the classes: on the card the sums run in the same order, so no
+        # site is expected to differ; a near tie would be allowed to
+        assert (c.orient.numpy() != g.orient.cpu().numpy()).sum() == 0
+    for c, g in zip(cp.transitions, gp.transitions):
+        assert _same_tensors(c.child, g.child)
+        assert _same_tensors(c.up, g.up)
+    assert _same_tensors(cp.p2v, gp.p2v)
+    assert _same_tensors(cp.vox_counts, gp.vox_counts)
+    assert cp.num_points == gp.num_points
+
+
+def _role_maps(raw_scene, role):
+    """(nbr_kn [K, M] int32 on the CPU, source rows N) of #9's roles on the
+    device planner's path."""
+    from occuseg_tpu_torch.core.topology import build_plan, full_conv_plan
+    coords = raw_scene["coords"]
+    if role.startswith("k13"):
+        p = build_plan(torch.from_numpy(_lattice_coords(coords)),
+                       PlanSpec(caps=PLANNER_CAPS[:1],
+                                lattice="permutohedral"))
+        return p.levels[0].kn["nbr"], p.levels[0].cap
+    if role == "dilated":
+        p = build_plan(torch.from_numpy(coords), PlanSpec(
+            caps=PLANNER_CAPS[:1], dilation=2, nn_search=True))
+        return p.levels[0].kn["nbr"], p.levels[0].cap
+    p = build_plan(torch.from_numpy(coords), PlanSpec(caps=PLANNER_CAPS))
+    lvl = p.levels[1]
+    out, tr = full_conv_plan(lvl, 2, 2, lvl.cap * 8)
+    if role == "grown_up":
+        return tr.kn["up"], lvl.cap
+    return tr.kn["child"], out.cap
+
+
+@pytest.mark.parametrize("role,cin,cout", [
+    ("k13", 64, 64), ("k13_tail", 24, 40), ("dilated", 64, 64),
+    ("grown_up", 64, 32), ("grown_child", 32, 64)])
+def test_gather_conv_planner_roles(dev, raw_scene, role, cin, cout):
+    """TPU row #9 in the device planner's roles: K = 13 (the lattice; a
+    Cin tail), a dilated nearest-neighbour map, a FullConvolution's grown
+    `up` map (M = 8 x N) and its `child` map (the backward): bf16 against
+    the NumPy replay of its work split on the same bf16 values, f32
+    against the plain version; launched twice, the same bits."""
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    rep = _replay("gather_replay")
+    nbr_kn, n_src = _role_maps(raw_scene, role)
+    K, M = nbr_kn.shape
+    rng = np.random.default_rng(M + cin)
+    feats = torch.tensor(rng.standard_normal((n_src, cin)))
+    w = torch.tensor(rng.standard_normal((K, cin, cout)) / cin ** 0.5)
+    nk = nbr_kn.to(dev)
+    for dt in (torch.bfloat16, torch.float32):
+        fd, wd = feats.to(dev, dt), w.to(dev, dt)
+        out = gc.gather_conv(fd, nk, wd)
+        again = gc.gather_conv(fd, nk, wd)
+        torch.cuda.synchronize()
+        assert out.shape == (M, cout) and out.dtype == dt
+        assert torch.equal(out, again)
+        if dt == torch.bfloat16:
+            want, _, _ = rep.replay(fd.float().cpu().numpy(),
+                                    nbr_kn.numpy(),
+                                    wd.float().cpu().numpy(),
+                                    torch.cuda.get_device_properties(dev)
+                                    .multi_processor_count)
+            _check(out, torch.from_numpy(want).to(dev), TOL[dt])
+        else:
+            _check(out, gc.gather_conv_plain(fd, nk, wd), TOL[dt])
+
+
+@pytest.mark.parametrize("kind", ["full_conv", "permutohedral"])
+def test_planner_modules_autograd_match_cpu(dev, raw_scene, kind):
+    """`FullConvolution` (64 -> 32) chained with a submanifold convolution
+    on its grown level, and `PermutohedralSubmanifoldConvolution` (64 ->
+    64), on a plan built on the card against the same on the CPU, f32:
+    outputs and both gradients, #9 launched for each forward and d_feats."""
+    import copy
+    from occuseg_tpu_torch.core.sparse_tensor import SparseTensor
+    from occuseg_tpu_torch.core.topology import build_plan
+    from occuseg_tpu_torch.nn.extras import (
+        PermutohedralSubmanifoldConvolution,
+    )
+    from occuseg_tpu_torch.nn.modules import (
+        FullConvolution, SubmanifoldConvolution,
+    )
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    gen = torch.Generator().manual_seed(5)
+    coords = raw_scene["coords"]
+    if kind == "full_conv":
+        spec = PlanSpec(caps=PLANNER_CAPS[:2])
+        mods = torch.nn.ModuleList([
+            FullConvolution(64, 32, generator=gen),
+            SubmanifoldConvolution(32, 32, generator=gen)])
+    else:
+        coords = _lattice_coords(coords)
+        spec = PlanSpec(caps=PLANNER_CAPS[:1], lattice="permutohedral")
+        mods = torch.nn.ModuleList([PermutohedralSubmanifoldConvolution(
+            64, 64, generator=gen)])
+    res = {}
+    for d in ("cpu", dev):
+        plan = build_plan(torch.from_numpy(coords).to(d), spec)
+        lvl = plan.levels[0]
+        x0 = torch.randn(lvl.cap, 64, generator=torch.Generator()
+                         .manual_seed(6))
+        x0[lvl.num_active:] = 0
+        x = x0.to(d).requires_grad_()
+        m = copy.deepcopy(mods).to(d)
+        before = gc.gather_conv.launches
+        y = SparseTensor(features=x, num_active=lvl.num_active, level=0)
+        if kind == "full_conv":
+            y, grown = m[0](y, plan)
+            y = m[1](y, grown)
+        else:
+            y = m[0](y, plan)
+        r = torch.randn(y.features.shape, generator=torch.Generator()
+                        .manual_seed(7)).to(d)
+        (y.features * r).sum().backward()
+        res[str(d)] = (y.features.detach().cpu(), x.grad.cpu(),
+                       [p.grad.cpu() for p in m.parameters()],
+                       gc.gather_conv.launches - before)
+    (o, df, dw, n_cpu), (o2, df2, dw2, n_card) = res["cpu"], res[str(dev)]
+    assert n_cpu == 0 and n_card == 2 * len(mods)
+    _check(o2, o, TOL[torch.float32])
+    _check(df2, df, TOL[torch.float32])
+    for a, b in zip(dw2, dw):
+        _check(a, b, DW_TOL)

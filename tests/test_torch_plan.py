@@ -171,17 +171,27 @@ def test_plan_to_device_keeps_values():
 def test_build_plan_host_rejects_other_transitions():
     """Only what the JAX package's host planner refuses (it returns None
     there and plans inside jit): nearest-neighbour search and the
-    permutohedral lattice, which the port's `PlanSpec` cannot express.
-    Other transition sizes and strides are planned
+    permutohedral lattice. The port's host planner (and its blocked form)
+    returns None for both specs, as JAX's does, and the port's device
+    planner builds them (`tests/test_torch_planner.py` holds them to the
+    JAX in-jit plan). Other transition sizes and strides are planned
     (`tests/test_torch_gather_path.py` holds them to the JAX plan)."""
     from occuseg_tpu.native.plan import build_plan_host as jax_or_none
+    from occuseg_tpu_torch.core.topology import build_plan
+    from occuseg_tpu_torch.native.blocked import build_plan_host_blocked
     batch = _batch(0)
     jax_build_plan_host(batch["coords"], JaxPlanSpec(caps=CAPS))  # loaded
-    for refused in (dict(nn_search=True), dict(lattice="permutohedral")):
+    for refused in (dict(dilation=2, nn_search=True),
+                    dict(lattice="permutohedral")):
         assert jax_or_none(batch["coords"],
                            JaxPlanSpec(caps=CAPS, **refused)) is None
-        with pytest.raises(TypeError):
-            PlanSpec(caps=CAPS, **refused)
+        spec = PlanSpec(caps=CAPS, **refused)
+        assert build_plan_host(batch["coords"], spec) is None
+        assert build_plan_host_blocked(batch["coords"], spec, 2) is None
+        plan = build_plan(torch.from_numpy(batch["coords"]), spec)
+        assert plan.levels[0].num_active > 0
+        assert plan.levels[0].nbr.shape[1] == (
+            13 if "lattice" in refused else 27)
 
 
 def test_derived_neighbor_map_rejects_duplicate_offsets():
