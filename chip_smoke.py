@@ -142,6 +142,30 @@ and no network. Phases (any failure exits non-zero):
    In [gather] (e), the step with every rulebook dropped also runs in
    float64 on the CPU: the card's and the CPU's f32 gradients are each
    measured against it.
+11. families (after planner, before ap_gate): pooling, the IO modes,
+   randomized strides, the op-library extras and the other model
+   families: (a) max_pool, avg_pool and unpool at the bench plan's 5
+   transitions, bf16 and f32, forward and gradients card against CPU,
+   timed beside the byte bound, and the five voxelize modes at 200k points
+   (C = 3 and 64); (b) the main path: InputLayer -> SubmanifoldConvolution
+   -> DenseUNet_BN(N_PLANES) -> OutputLayer -> Linear(64, 20) with the
+   semantic cross-entropy, bf16 training steps on the 3 bench scenes'
+   chunked host plans, #1, #3-#5 and #2's launches per step predicted
+   and checked, the step timed and profiled, then f32 card against CPU on
+   the mid scene; (c) ThreeVoxelKernel through Predictor (33 + 1
+   launches) and card against CPU; (d) FullyConvolutionalNet, SparseVggNet
+   (MP, a Plus spec of depth 3) and SparseResNet on the mid scene's device
+   plans with size-3 transitions, card against CPU, #9's launches
+   counted; (e) the randomized plan of the bench scene on the card, bit
+   for bit as the CPU's from the same seed, timed, its host reads
+   counted; a randomized-stride net card against CPU; #9 on the jittered
+   child and up maps against its plain version; (f)
+   `classification_train_validate` with a SparseResNet and ActivePooling
+   over 64 synthetic shapes, 2 epochs on the card, the first step's loss
+   against the CPU's, #9's launches counted; (g) ClusterSegNet at P =
+   262,144 and the extras (upsample_feature, ShapeContext,
+   MultiscaleShapeContext, sparse_to_dense, sparsify_coords,
+   compare_sparse) card against CPU.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON summary.
@@ -150,6 +174,7 @@ per-kernel JSON summary.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import json
 import os
@@ -200,6 +225,10 @@ PARITY_TOL = 1e-3
 GRAD_GLOBAL_TOL = 1e-3
 GRAD_TOL = 5e-2
 GRAD_FLOOR = 1e-5
+# a gradient that is zero in exact arithmetic, against the largest entry
+# of its step's gradient: ClusterSegNet's f32 residue is ~6e-7 of it, the
+# float64 step's ~1e-15
+ZERO_TOL = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores,
 # f32 outside them, HBM3
@@ -327,15 +356,18 @@ def gather_maps(plan, conv, dev):
 
 def predicted_launches(plan, esize: int = 2, bce: bool = False,
                        in_features: int = 3, normal_guided: bool = False,
-                       n_planes=N_PLANES) -> dict:
+                       n_planes=N_PLANES, calls=None) -> dict:
     """Kernel launches of one training step on `plan` with activations of
     `esize` bytes: a chunked convolution's from its backward route, a
     convolution on the gather path one #9 forward and one #9 d_feats (none
     for the first convolution, whose input is data); the segment sum runs
     twice where the plan has the sorted point layout, the BCE kernels once
     each with `bce`. With `normal_guided`, the convolutions at the plan's
-    guided levels launch #9 once each (their backward is PyTorch)."""
-    calls = conv_calls(plan, n_planes, in_features)
+    guided levels launch #9 once each (their backward is PyTorch).
+    `calls` replaces the UNet's convolutions (`conv_calls`) with another
+    model's, the first taking the data."""
+    if calls is None:
+        calls = conv_calls(plan, n_planes, in_features)
     ng = [normal_guided and guided(c, plan) for c in calls]
     ch = [not g and chunked(c) for c, g in zip(calls, ng)]
     routes = collections.Counter(route_of(c, esize)
@@ -451,7 +483,7 @@ class Totals:
 
 
 def _err(out, ref):
-    return ((out.float() - ref.float()).abs().max().item(),
+    return ((out.float().to(ref.device) - ref.float()).abs().max().item(),
             ref.float().abs().max().item())
 
 
@@ -923,6 +955,9 @@ def forward_parity(dev, scene, model, phase="parity"):
     gpu_out = Predictor(model, dev)(scene)  # moves the model to the card
     torch.cuda.synchronize()
     for name in gpu_out._fields:
+        if getattr(cpu_out, name) is None:   # a head the model lacks
+            check(getattr(gpu_out, name) is None, f"{phase} {name}")
+            continue
         g, c = getattr(gpu_out, name).cpu(), getattr(cpu_out, name)
         check(g.shape == c.shape, f"{phase} {name}: shapes differ")
         err = (g - c).abs().max().item()
@@ -2968,7 +3003,6 @@ def planner_roles(dev, bench, plans):
     of the bench plan with its `child` map as the backward (d_feats: 32 ->
     64, 128 -> 256). These launches compare and are not counted."""
     from occuseg_tpu_torch.core.topology import full_conv_plan
-    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
     roles = []
     perm_l0 = plans["permutohedral"]["plan"].levels[0]
     nn_l0 = plans["nn_search"]["plan"].levels[0]
@@ -2982,7 +3016,16 @@ def planner_roles(dev, bench, plans):
         roles.append((f"grown up L{l}", tr.kn["up"], lvl, cin, cout))
         roles.append((f"grown child L{l} (backward)", tr.kn["child"], grown,
                       cout, cin))
-    gen = torch.Generator().manual_seed(31)
+    return time_gather_roles(dev, roles, "[planner] (c)", 31)
+
+
+def time_gather_roles(dev, roles, tag, seed):
+    """#9 over each (name, map [K, M], source level, Cin, Cout) of `roles`
+    on random inputs (the source's pad rows 0), bf16 and f32, against its
+    plain version, launched twice (the same bits), timed with CUDA events
+    beside its bound. These launches compare and are not counted."""
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    gen = torch.Generator().manual_seed(seed)
     rows, sums = [], collections.defaultdict(float)
     with torch.inference_mode():
         for name, nbr_kn, src, cin, cout in roles:
@@ -2999,7 +3042,7 @@ def planner_roles(dev, bench, plans):
                     (torch.bfloat16, BF16_TOL, PEAK_BF16, (10, 2)),
                     (torch.float32, F32_TOL, PEAK_F32, (5, 1))):
                 xd, wd = x.to(dev, dt), w.to(dev, dt)
-                label = f"[planner] (c) #9 {name} {str(dt)[6:]}"
+                label = f"{tag} #9 {name} {str(dt)[6:]}"
                 out = gc.gather_conv(xd, nbr_kn, wd)
                 check(out.shape == (M, cout), f"{label} shape")
                 err, scale = check_close(label, out, gc.gather_conv_plain(
@@ -3025,7 +3068,7 @@ def planner_roles(dev, bench, plans):
                       f"{pms:.4f} ms bound={bnd:.4f} ms ({by}); two launches "
                       f"the same bits")
             rows.append(row)
-    print(f"[planner] (c) {len(rows)} roles, sums: "
+    print(f"{tag} {len(rows)} roles, sums: "
           + ", ".join(f"{k} {v:.4f}" for k, v in sums.items()))
     torch.cuda.empty_cache()
     return dict(roles=rows, **sums)
@@ -3255,6 +3298,1038 @@ def phase_planner(dev, tot, train_med):
 
 
 
+# [families]: pooling, the IO modes, randomized strides, the op-library
+# extras and the other model families (DenseUNet_BN, ThreeVoxelKernel,
+# ClusterSegNet, the builders) with the classification harness
+
+
+def _bf16_exact(t):
+    """t rounded to bf16 and back to f32: the same values in both
+    dtypes, so one f32 reference on the CPU holds both."""
+    return t.to(torch.bfloat16).float()
+
+
+def _glob(a_list, b_list):
+    """||a - b|| / ||b|| over a list of tensors (in float64)."""
+    num = sum(float(((a.double() - b.double()) ** 2).sum())
+              for a, b in zip(a_list, b_list))
+    den = sum(float((b.double() ** 2).sum()) for b in b_list)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def _rel(a, b):
+    return (a.double() - b.double()).abs().max().item() / max(
+        b.double().abs().max().item(), 1e-30)
+
+
+def _grad_check(label, card, cpu, names, zero=()):
+    """Gradients card against CPU: each tensor within GRAD_TOL of its max
+    (plus GRAD_FLOOR), the whole within GRAD_GLOBAL_TOL of its norm;
+    returns (norm share, worst tensor share). The tensors named in
+    `zero` have a gradient of exactly zero (a bias whose shift a later
+    batch norm removes: the float64 step's is ~1e-15 of the largest
+    entry), so what each side computes is rounding residue: each is held
+    within ZERO_TOL of the largest gradient entry instead."""
+    g_glob = _glob(card, cpu)
+    top = max(b.abs().max().item() for b in cpu)
+    worst = max(_rel(a, b) for a, b, n in zip(card, cpu, names)
+                if n not in zero)
+    for a, b, n in zip(card, cpu, names):
+        if n in zero:
+            res = max(a.abs().max().item(), b.abs().max().item())
+            check(res <= ZERO_TOL * top, f"{label} gradient {n}: {res} is "
+                  f"not zero to {ZERO_TOL} of the largest entry {top}")
+            continue
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        check(err <= GRAD_TOL * scale + GRAD_FLOOR,
+              f"{label} gradient {n}: {err} > {GRAD_TOL} x {scale}")
+    check(g_glob <= GRAD_GLOBAL_TOL,
+          f"{label} gradients {g_glob} of the norm > {GRAD_GLOBAL_TOL}")
+    return g_glob, worst
+
+
+def families_pool(dev):
+    """(a) max_pool, avg_pool and unpool at the bench plan's 5 transitions
+    (child maps for the pools, up maps for the unpool), at N_PLANES'
+    widths, on ReLU'd inputs (ties at 0), bf16 and f32: forward and the
+    input gradient on the card against the CPU (one f32 reference from
+    bf16-exact inputs), the forward timed beside its byte bound; then the
+    five voxelize modes at the bench scene's 200k points (its sorted point
+    layout: sum and mean on #2), C = 3 and 64, f32, forward and gradient
+    card against CPU, timed. These launches compare and are not counted."""
+    import numpy as np
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.infer import plan_scene
+    from occuseg_tpu_torch.ops import pool as pool_ops
+    batch = bench_scene(0)
+    plan = plan_scene(batch["coords"], PlanSpec(caps=BENCH_CAPS))
+    check(plan.vox_seg is not None, "[families] (a) no point layout")
+    gen = torch.Generator().manual_seed(61)
+    rows, sums = [], collections.defaultdict(float)
+    for t, tr in enumerate(plan.transitions):
+        for op in ("max_pool", "avg_pool", "unpool"):
+            up = op == "unpool"
+            src = plan.levels[t + 1] if up else plan.levels[t]
+            c = N_PLANES[t + 1] if up else N_PLANES[t]
+            idx = torch.from_numpy(np.ascontiguousarray(tr.up if up
+                                                        else tr.child))
+            M, K = idx.shape
+            x = torch.relu(_bf16_exact(torch.randn(src.cap, c,
+                                                   generator=gen)))
+            x[src.num_active:] = 0
+            ct = _bf16_exact(torch.randn(M, c, generator=gen))
+            fn = getattr(pool_ops, op)
+            xc = x.detach().clone().requires_grad_()
+            ref = fn(xc, idx)
+            (ref * ct).sum().backward()
+            idx_d = idx.to(dev)
+            row = dict(op=op, transition=t, M=M, N=src.cap, C=c, K=K)
+            for dt, tol in ((torch.bfloat16, BF16_TOL),
+                            (torch.float32, F32_TOL)):
+                key = str(dt)[6:]
+                label = f"[families] (a) {op} T{t} {key}"
+                xd = x.to(dev, dt).detach().requires_grad_()
+                out = fn(xd, idx_d)
+                (out * ct.to(dev, dt)).sum().backward()
+                err, scale = check_close(label, out, ref.detach(), tol)
+                gerr, _ = check_close(f"{label} gradient", xd.grad, xc.grad,
+                                      tol)
+                xn = xd.detach()
+                with torch.no_grad():
+                    ms = cuda_ms(lambda: fn(xn, idx_d), 5)
+                nb = nbytes(xn, idx_d) + M * c * xn.element_size()
+                bnd, _ = bound_ms(0.0, nb)
+                row.update({f"{key}_ms": ms, f"{key}_bound_ms": bnd,
+                            f"{key}_max_abs_err": err,
+                            f"{key}_grad_err": gerr})
+                sums[f"{op}_{key}_ms"] += ms
+                sums[f"{op}_{key}_bound_ms"] += bnd
+                print(f"{label:<36} M={M:<7} N={src.cap:<7} K={K} C={c:<3} "
+                      f"max_abs_err={err:.3e} (max|out| {scale:.3e}) grad "
+                      f"err={gerr:.3e} forward {ms:.4f} ms, byte bound "
+                      f"{bnd:.4f} ms")
+            rows.append(row)
+    P = batch["coords"].shape[0]
+    p2v = torch.from_numpy(np.asarray(plan.p2v))
+    seg = torch.from_numpy(np.asarray(plan.vox_seg))
+    counts = torch.from_numpy(np.asarray(plan.vox_counts))
+    cap0 = plan.levels[0].cap
+    vox = []
+    for C in (3, 64):
+        x = torch.randint(-3, 4, (P, C), generator=gen).float()
+        ct = torch.randn(cap0, C, generator=gen)
+        for mode in pool_ops.MODES:
+            label = f"[families] (a) voxelize {mode} C={C}"
+            xc = x.detach().clone().requires_grad_()
+            ref = pool_ops.voxelize_features(xc, p2v, cap0, seg, counts, mode)
+            (ref * ct).sum().backward()
+            args = [a.to(dev) for a in (p2v, seg, counts)]
+            xd = x.to(dev).detach().requires_grad_()
+            out = pool_ops.voxelize_features(xd, args[0], cap0, args[1],
+                                             args[2], mode)
+            (out * ct.to(dev)).sum().backward()
+            err, _ = check_close(label, out, ref.detach(), F32_TOL)
+            gerr, _ = check_close(f"{label} gradient", xd.grad, xc.grad,
+                                  F32_TOL)
+            xn = xd.detach()
+            with torch.no_grad():
+                ms = cuda_ms(lambda: pool_ops.voxelize_features(
+                    xn, args[0], cap0, args[1], args[2], mode), 5)
+            bnd, _ = bound_ms(0.0, nbytes(xn, args[0]) + cap0 * C * 4)
+            vox.append(dict(mode=mode, C=C, ms=ms, bound_ms=bnd,
+                            max_abs_err=err, grad_err=gerr))
+            print(f"{label:<40} P={P} voxels={plan.levels[0].num_active} "
+                  f"max_abs_err={err:.3e} grad err={gerr:.3e} forward "
+                  f"{ms:.4f} ms, byte bound {bnd:.4f} ms")
+    torch.cuda.empty_cache()
+    return dict(pool=rows, pool_sums=dict(sums), voxelize=vox)
+
+
+def dense_conv_calls(plan, n_planes=N_PLANES, in_features=3):
+    """The 33 chunk convolutions of one forward of `dense_semantic_model`
+    on `plan` (the first conv, DenseUNet_BN's encoder residual blocks and
+    strided convolutions, its decoder's deconvolutions and residual
+    blocks), as `conv_calls` lists the UNet's."""
+    caps = [l.cap for l in plan.levels]
+    act = [l.num_active for l in plan.levels]
+    lv = plan.levels
+    L = len(n_planes)
+    calls = [Conv("sub L0", lv[0].chunks, lv[0].chunks, caps[0], act[0],
+                  in_features + (-in_features) % 16, n_planes[0], caps[0],
+                  act[0], ("level", 0))]
+
+    def sub(label, l):
+        p = n_planes[l]
+        calls.append(Conv(f"{label} L{l}", lv[l].chunks, lv[l].chunks,
+                          caps[l], act[l], p, p, caps[l], act[l],
+                          ("level", l)))
+    for l in range(L):
+        sub("res.conv1", l)
+        sub("res.conv2", l)
+        if l + 1 < L:
+            tr = plan.transitions[l]
+            calls.append(Conv(f"conv L{l}->L{l + 1}", tr.child_chunks,
+                              tr.up_chunks, caps[l], act[l], n_planes[l],
+                              n_planes[l + 1], caps[l + 1], act[l + 1],
+                              ("child", l)))
+    for l in range(L - 2, -1, -1):
+        tr = plan.transitions[l]
+        calls.append(Conv(f"deconv L{l + 1}->L{l}", tr.up_chunks,
+                          tr.child_chunks, caps[l + 1], act[l + 1],
+                          n_planes[l + 1], n_planes[l], caps[l], act[l],
+                          ("up", l)))
+        sub("res2.conv1", l)
+        sub("res2.conv2", l)
+    return calls
+
+
+def dense_semantic_model(compute_dtype, seed):
+    """InputLayer -> SubmanifoldConvolution(3, 64) -> DenseUNet_BN(N_PLANES,
+    block_reps=1) -> OutputLayer -> Linear(64, 20): the dense-skip UNet as
+    a semantic model (activations in `compute_dtype`, parameters f32,
+    per-point features to f32 before the head)."""
+    from occuseg_tpu_torch.models import DenseUNet_BN
+    from occuseg_tpu_torch.models.occuseg import _linear
+    from occuseg_tpu_torch.nn.modules import (
+        InputLayer, OutputLayer, SubmanifoldConvolution,
+    )
+    from occuseg_tpu_torch.ops import acc
+
+    class DenseSemantic(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator().manual_seed(seed)
+            self.input = InputLayer()
+            self.sub = SubmanifoldConvolution(3, N_PLANES[0], generator=gen)
+            self.dense = DenseUNet_BN(N_PLANES, block_reps=1, generator=gen)
+            self.output = OutputLayer()
+            self.linear = _linear(N_PLANES[0], 20, gen)
+
+        def forward(self, feats, plan):
+            x = self.input(feats.to(compute_dtype), plan)
+            x = self.dense(self.sub(x, plan), plan)
+            return self.linear(acc(self.output(x, plan)))
+    return DenseSemantic()
+
+
+def families_dense_unet(dev, train_med):
+    """(b) The slice's main path: `dense_semantic_model` in bf16 (f32
+    parameters, Adam) on the 3 bench scenes' host plans with chunk
+    rulebooks and the sorted point layout, as [train]: the semantic
+    cross-entropy, forward, backward and update; #1, #3-#5 and #2's
+    launches per step predicted from the plan (printed first) and checked
+    step by step and over the 9 timed steps; the median step beside
+    [train]'s, the peak memory, one step profiled. Then one f32 step on
+    the mid scene, card against CPU: loss, logits, gradients and new BN
+    statistics."""
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.losses.instance import semantic_cross_entropy
+    from occuseg_tpu_torch.train.state import prepare_batch
+    spec = PlanSpec(caps=BENCH_CAPS)
+    prepared = []
+    for seed in (0, 1, 2):
+        laid, plan = prepare_batch(bench_scene(seed), spec)
+        check(all(l.chunks is not None for l in plan.levels),
+              f"[families] (b) seed {seed}: a level is not chunked")
+        calls = dense_conv_calls(plan)
+        check(len(calls) == 33, f"[families] (b) {len(calls)} convolutions")
+        pred = predicted_launches(plan, calls=calls)
+        print(f"[families] (b) seed {seed}: {plan.levels[0].num_active} "
+              f"voxels; predicted launches per DenseUNet_BN step {pred}")
+        prepared.append((laid, plan, pred))
+    model = dense_semantic_model(torch.bfloat16, 71).to(dev).train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def step(laid, plan):
+        dplan = plan.to(dev)
+        feats = torch.as_tensor(laid["features"]).to(dev)
+        labels = torch.as_tensor(laid["labels"]).to(dev)
+        opt.zero_grad(set_to_none=True)
+        loss = semantic_cross_entropy(model(feats, dplan), labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    for _ in range(2):
+        step(*prepared[0][:2])
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in model.parameters()]
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    expected = collections.Counter()
+    step_ms, losses, per_seed = [], [], []
+    for laid, plan, pred in prepared:
+        seen = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            was = read_launches()
+            loss = step(laid, plan)
+            seen.append({k: v - was[k] for k, v in read_launches().items()})
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(loss))
+        expected.update({k: 3 * v for k, v in pred.items()})
+        per_seed.append(seen)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = sum(not torch.equal(p.detach(), q)
+                for p, q in zip(model.parameters(), before))
+    med = sorted(step_ms)[len(step_ms) // 2]
+    print(f"[families] (b) DenseUNet_BN bf16 steps: median {med:.2f} ms (min "
+          f"{min(step_ms):.2f}, max {max(step_ms):.2f}; [train]'s "
+          f"LearningBWDenseUNet median {train_med:.2f} ms); peak device "
+          f"memory {peak:.2f} GiB; losses "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; {moved} of {len(before)} parameter tensors moved")
+    print(f"[families] (b) launches {launches}, expected {dict(expected)}")
+    check(all(v == v and abs(v) != float("inf") for v in losses),
+          "[families] (b) loss not finite")
+    check(moved == len(before), f"[families] (b) {moved} moved")
+    check(launches == dict(expected), f"[families] (b) launches {launches}, "
+          f"expected {dict(expected)}")
+    for (_, _, pred), seen in zip(prepared, per_seed):
+        check(all(s == pred for s in seen), f"[families] (b) one step's "
+              f"launches {seen}, predicted {pred}")
+    busy = profile_step(lambda: step(*prepared[0][:2]), "families")
+    print(f"[families] (b) device busy {busy:.2f} ms of the median step "
+          f"{med:.2f} ms ({100 * busy / med:.1f}%)")
+    per_step = per_seed[0][0]   # seed 0's first timed step, as counted
+    del model, opt, prepared
+    torch.cuda.empty_cache()
+
+    # f32, card against CPU on the mid scene
+    laid, plan = prepare_batch(_mid_scene(), PlanSpec(caps=MID_CAPS))
+    m32 = dense_semantic_model(torch.float32, 72)
+    randomize_bn_stats(m32, torch.Generator().manual_seed(73))
+    res = {}
+    for d in ("cpu", dev):
+        m = copy.deepcopy(m32).to(d).train()
+        dplan = plan.to(d)
+        feats = torch.as_tensor(laid["features"]).to(d)
+        labels = torch.as_tensor(laid["labels"]).to(d)
+        logits = m(feats, dplan)
+        loss = semantic_cross_entropy(logits, labels)
+        loss.backward()
+        res[str(d)] = (float(loss), logits.detach().cpu(),
+                       [p.grad.detach().cpu() for p in m.parameters()],
+                       [b.detach().cpu() for b in m.buffers()])
+    (lc, oc, gc_, bc), (lg, og, gg, bg) = res["cpu"], res[str(dev)]
+    check(abs(lg - lc) <= PARITY_TOL * abs(lc) + 1e-6,
+          f"[families] (b) f32 loss {lg} vs {lc}")
+    err, scale = check_close("[families] (b) f32 logits", og, oc, PARITY_TOL)
+    names = [n for n, _ in m32.named_parameters()]
+    g_glob, worst = _grad_check("[families] (b) f32", gg, gc_, names)
+    for a, b in zip(bg, bc):
+        check((a - b).abs().max().item() <= PARITY_TOL * b.abs().max().item()
+              + 1e-6, "[families] (b) f32 BN statistic")
+    print(f"[families] (b) f32 mid scene, card against CPU: loss {lg:.6f} / "
+          f"{lc:.6f}; logits error {err:.3e} of max {scale:.3e}; gradients "
+          f"{g_glob:.3e} of the norm, worst tensor {worst:.3e} of its max; "
+          f"new BN statistics agree")
+    torch.cuda.empty_cache()
+    return dict(launches_per_step=per_step, step_ms=med,
+                min_step_ms=min(step_ms), train_step_ms=train_med,
+                peak_gib=peak, busy_ms=busy,
+                f32_vs_cpu=dict(grad_global=g_glob, grad_worst=worst))
+
+
+def families_three_voxel(dev):
+    """(c) ThreeVoxelKernel at N_PLANES: a bench-scene request through
+    `Predictor` in bf16 (33 chunk forwards + 1 segment sum, outputs finite
+    and in the request's point order), then the f32 model card against
+    CPU on the mid scene with [parity]'s tolerances."""
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.infer import Predictor, prepare_scene
+    from occuseg_tpu_torch.models import ThreeVoxelKernel
+    model = ThreeVoxelKernel(N_PLANES, compute_dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(74))
+    randomize_bn_stats(model, torch.Generator().manual_seed(75))
+    batch = bench_scene(0)
+    scene = prepare_scene(batch["coords"], batch["features"],
+                          PlanSpec(caps=BENCH_CAPS))
+    predictor = Predictor(model, dev)
+    predictor(scene)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = predictor(scene)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = {k: v for k, v in read_launches().items() if v}
+    check(launches == {"chunk_conv": 33, "blocked_segment_sum": 1},
+          f"[families] (c) launches {launches}")
+    P = batch["coords"].shape[0]
+    for name in ("semantics", "features", "embedding", "offset"):
+        t = getattr(out, name)
+        check(t.shape[0] == P and bool(torch.isfinite(t).all()),
+              f"[families] (c) {name}")
+    check(bool((out.displacement == 0).all()) and out.bw is None,
+          "[families] (c) displacement / heads")
+    print(f"[families] (c) ThreeVoxelKernel bench request: forward {ms:.2f} "
+          f"ms, launches {launches}")
+    mid = _mid_scene()
+    m32 = ThreeVoxelKernel(N_PLANES, generator=torch.Generator()
+                           .manual_seed(76))
+    randomize_bn_stats(m32, torch.Generator().manual_seed(77))
+    forward_parity(dev, prepare_scene(mid["coords"], mid["features"],
+                                      PlanSpec(caps=MID_CAPS)), m32,
+                   phase="families")
+    torch.cuda.empty_cache()
+    return dict(forward_ms=ms, launches=launches)
+
+
+def _convs(model):
+    from occuseg_tpu_torch.nn.modules import (
+        Convolution, Deconvolution, SubmanifoldConvolution,
+    )
+    return sum(isinstance(m, (Convolution, Deconvolution,
+                              SubmanifoldConvolution))
+               for m in model.modules())
+
+
+def _builders(dev):
+    """(d)'s three nets, its input per net, and the mid scene's device
+    plans at SIZE3_CAPS on the CPU and the card."""
+    from occuseg_tpu_torch.core.topology import PlanSpec, build_plan
+    from occuseg_tpu_torch.nn.unet import (
+        FullyConvolutionalNet, SparseResNet, SparseVggNet,
+    )
+    spec = PlanSpec(caps=SIZE3_CAPS, down_size=3, down_stride=2)
+    coords = _mid_scene()["coords"]
+    plans = {str(d): build_plan(torch.from_numpy(coords).to(d), spec)
+             for d in ("cpu", dev)}
+    g = torch.Generator().manual_seed(78)
+    nets = (("FullyConvolutionalNet", FullyConvolutionalNet(
+                1, (32, 64, 96), down_size=3, generator=g), 32),
+            ("SparseVggNet", SparseVggNet(3, (("C", 32), "MP", ("C", 64),
+                                              ("C", 32, 32, 32, 32)), g), 3),
+            ("SparseResNet", SparseResNet(3, (("b", 32, 1, 1),
+                                              ("b", 64, 2, 2),
+                                              ("b", 96, 1, 2)), g), 3))
+    lvl0 = plans["cpu"].levels[0]
+    out = []
+    for name, net, cin in nets:
+        randomize_bn_stats(net, torch.Generator().manual_seed(79))
+        x = torch.randn(lvl0.cap, cin, generator=g)
+        x[lvl0.num_active:] = 0
+        out.append((name, net, x))
+    return out, plans
+
+
+def _builder_step(net, x, plan, d, dtype=torch.float32, masks=None,
+                  replay=False):
+    """One training-mode forward and backward of a copy of `net` on `d`
+    in `dtype` against a seeded cotangent: (output, level, input
+    gradient, parameter gradients, new buffers, ReLU masks), on the CPU.
+    The BN-ReLU branches are recorded, or imposed from `masks` with
+    `replay` (`choices`)."""
+    from occuseg_tpu_torch.core.sparse_tensor import SparseTensor
+    from occuseg_tpu_torch.ops import norm as norm_ops
+    m = copy.deepcopy(net).to(device=d, dtype=dtype).train()
+    f = x.to(d, dtype).detach().requires_grad_()
+    with choices([] if masks is None else masks, replay,
+                 (norm_ops, "_affine", bn_branches)) as masks:
+        y = m(SparseTensor(features=f, num_active=plan.levels[0]
+                           .num_active, level=0), plan)
+        ct = torch.randn(y.features.shape, generator=torch.Generator()
+                         .manual_seed(80)).to(d, dtype)
+        (y.features * ct).sum().backward()
+    return (y.features.detach().cpu(), y.level, f.grad.cpu(),
+            [p.grad.cpu() for p in m.parameters()],
+            [b.cpu() for b in m.buffers()], masks)
+
+
+def _flips(a, b):
+    """Elements whose ReLU branch differs between two mask lists."""
+    return sum(int((p != q).sum()) for p, q in zip(a, b))
+
+
+def _float64_errors(label, runs, g64, names):
+    """Each run's gradients ([input] + parameters) against the float64
+    ones: the share of the norm, printed with the three worst tensors
+    (share of each tensor's max); returns {run: norm share}."""
+    out = {}
+    for who, grads in runs.items():
+        out[who] = _glob(grads, g64)
+        worst = sorted(((_rel(a, r), n) for a, r, n
+                        in zip(grads, g64, names)), reverse=True)[:3]
+        print(f"{label} float64 reference: {who} {out[who]:.3e} of the norm"
+              f"; worst " + ", ".join(f"{n} {e:.2e}" for e, n in worst))
+    return out
+
+
+@contextlib.contextmanager
+def choices(masks, replay, *sites):
+    """Record into `masks` (or, with `replay`, impose from it, in the same
+    order) the discrete choices a step makes at `sites`: (module, name,
+    wrap), where wrap(f, choose, replay) replaces module.name. Recording,
+    it computes f as it is and passes each choice's mask to choose;
+    replaying, choose(t) returns the next recorded mask on t's device,
+    and the wrapper takes the branches it names. Imposed on another
+    device's step (or a float64 one), the card's choices leave the two
+    apart by rounding alone, where rounding would otherwise flip the few
+    near a tie."""
+    n = [0]
+
+    def choose(mask):
+        if replay:
+            mask = masks[n[0]].to(mask.device)
+            n[0] += 1
+        else:
+            masks.append(mask.cpu())
+        return mask
+    saved = [(m, name, getattr(m, name)) for m, name, _ in sites]
+    for m, name, wrap in sites:
+        setattr(m, name, wrap(getattr(m, name), choose, replay))
+    try:
+        yield masks
+    finally:
+        for m, name, f in saved:
+            setattr(m, name, f)
+
+
+def bn_branches(affine, choose, replay):
+    """The sparse BN-(leaky)ReLU's branch: which rows x channels are
+    positive (`ops/norm._affine`; its output is positive where its input
+    is, for every leakiness)."""
+    def wrapped(feats, num_active, mean, inv_std, scale, bias, leakiness):
+        if leakiness == 1.0 or not replay:
+            y = affine(feats, num_active, mean, inv_std, scale, bias,
+                       leakiness)
+            if leakiness != 1.0:
+                choose(y > 0)
+            return y
+        y = affine(feats, num_active, mean, inv_std, scale, bias, 1.0)
+        return torch.where(choose(y > 0), y, leakiness * y)
+    return wrapped
+
+
+def leaky_branches(leaky, choose, replay):
+    """ClusterSegNet's leaky ReLU's branch (`models/occuseg._leaky`)."""
+    def wrapped(h, slope=0.01):
+        if not replay:
+            choose(h >= 0)
+            return leaky(h, slope)
+        return torch.where(choose(h >= 0), h, slope * h)
+    return wrapped
+
+
+def max_winners(segment_max, choose, replay):
+    """The rows that hold each segment's maximum, per channel
+    (`models/occuseg.segment_max`). Imposed, each segment and channel
+    takes the mean of its recorded rows, so its gradient splits evenly
+    among them, as the maximum splits it among tied rows (the card can
+    tie where the CPU does not)."""
+    def wrapped(x, seg, num_segments):
+        seg = seg.long()
+        if not replay:
+            out = segment_max(x, seg, num_segments)
+            choose(x.detach() == out.detach()[seg])
+            return out
+        win = choose(x.detach() > 0)
+        z = torch.zeros((num_segments, x.shape[1]), dtype=x.dtype,
+                        device=x.device)
+        cnt = z.index_add(0, seg, win.to(x.dtype))
+        tot = z.index_add(0, seg, torch.where(win, x, 0.0))
+        return torch.where(cnt > 0, tot / cnt.clamp(min=1), float("-inf"))
+    return wrapped
+
+
+def builders_float64_sources(dev, which=("FullyConvolutionalNet",
+                                         "SparseResNet")):
+    """Where (d)'s card gradients part from float64: each net's f32 step
+    on the card with #9 as it is and with its plain version run on the
+    card, each with the BN statistics in f32 (as the port computes them)
+    and in f64, and the CPU's f32 step, each against the float64 step on
+    the CPU with that run's own ReLU branches imposed, and, for the
+    card's first run and the CPU's, against the free float64 step;
+    printed with the elements whose branch differs from the free float64
+    step's, and returned as {net: {run: norm share}}, with the free
+    float64 step's own movement under 1e-7 and 1e-6 relative input
+    noise (smooth: in proportion; across a kink: a jump). A diagnosis,
+    not run by `main`; with dev the CPU, every "card" run is the CPU's."""
+    from occuseg_tpu_torch.ops import norm as norm_ops
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    nets, plans = _builders(dev)
+    kernel, acc = gc.gather_conv, norm_ops.acc
+    out = {}
+    for name, net, x in nets:
+        if name not in which:
+            continue
+        label = f"[families] (d) {name}"
+        names = ["input"] + [n for n, _ in net.named_parameters()]
+        free = _builder_step(net, x, plans["cpu"], "cpu", torch.float64)
+        runs = {"CPU f32": _builder_step(net, x, plans["cpu"], "cpu")}
+        for plain in (False, True):
+            for bn64 in (False, True):
+                gc.gather_conv = gc.gather_conv_plain if plain else kernel
+                norm_ops.acc = (lambda t: t.double()) if bn64 else acc
+                try:
+                    runs[("card, #9 plain" if plain else "card, #9")
+                         + (", BN statistics in f64" if bn64 else "")] = _builder_step(
+                        net, x, plans[str(dev)], dev)
+                finally:
+                    gc.gather_conv, norm_ops.acc = kernel, acc
+        errs = {}
+        for who, r in runs.items():
+            ref = _builder_step(net, x, plans["cpu"], "cpu", torch.float64,
+                                r[5], replay=True)
+            print(f"{label} {who}: {_flips(r[5], free[5])} ReLU branches "
+                  f"differ from the free float64 step's")
+            errs[who] = _float64_errors(
+                label, {who + " (its branches)": [r[2]] + r[3]},
+                [ref[2]] + ref[3], names)[who + " (its branches)"]
+        errs.update(_float64_errors(
+            label, {f"{who} (free float64)": [runs[who][2]] + runs[who][3]
+                    for who in ("CPU f32", "card, #9")},
+            [free[2]] + free[3], names))
+        for eps in (1e-7, 1e-6):
+            xn = x.double() * (1 + eps * torch.randn(
+                x.shape, dtype=torch.float64,
+                generator=torch.Generator().manual_seed(1)))
+            r = _builder_step(net, xn, plans["cpu"], "cpu", torch.float64)
+            key = f"float64 under {eps:g} noise"
+            errs[key] = _glob([r[2]] + r[3], [free[2]] + free[3])
+            print(f"{label} the free float64 step under {eps:g} input "
+                  f"noise moves {errs[key]:.3e} of the norm")
+        out[name] = errs
+    torch.cuda.empty_cache()
+    return out
+
+
+def families_builders(dev):
+    """(d) FullyConvolutionalNet, SparseVggNet ("MP" and a Plus spec of
+    depth 3) and SparseResNet (stride-2 basic blocks) on the mid scene's
+    device plans at SIZE3_CAPS (size-3 stride-2 transitions), training
+    mode. A step's gradients jump where a pre-activation crosses 0, and
+    f32 rounding moves the few within ~1e-7 of it: the CPU's f32
+    ResNet step takes one branch other than the float64 step's and lands
+    3.4e-4 of the norm from it, 6.5e-7 with that branch imposed. So the
+    card's step records its ReLU branches (`choices`), and with them
+    imposed the CPU's f32 step holds its output, input and parameter
+    gradients and new BN statistics to [parity]'s tolerances; the card's
+    gradients against the float64 step with the card's branches stay
+    within five times the CPU's free f32 step against the float64 one
+    with the CPU's (the rule of `float64_reference`). #9 launched twice
+    per convolution (forward and d_feats: every convolution's input
+    needs its gradient), against the count."""
+    nets, plans = _builders(dev)
+    cpu = plans["cpu"]
+    out = {}
+    for name, net, x in nets:
+        label = f"[families] (d) {name}"
+        zero_launches()
+        og, lg, dg, gg, bg, mg = _builder_step(net, x, plans[str(dev)], dev)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        free = _builder_step(net, x, cpu, "cpu")
+        oc, lc, dc, gc_, bc, _ = _builder_step(net, x, cpu, "cpu", masks=mg,
+                                               replay=True)
+        want = {"gather_conv": 2 * _convs(net)}
+        check(lg == lc, f"{label} level")
+        err, scale = check_close(f"{label} output", og, oc, PARITY_TOL)
+        names = ["input"] + [n for n, _ in net.named_parameters()]
+        g_glob, worst = _grad_check(label, [dg] + gg, [dc] + gc_, names)
+        for a, b in zip(bg, bc):
+            check((a - b).abs().max().item() <= PARITY_TOL
+                  * b.abs().max().item() + 1e-6, f"{label} BN statistic")
+        check(launches == want, f"{label} launches {launches}, expected "
+              f"{want}")
+        r64 = {who: _builder_step(net, x, cpu, "cpu", torch.float64, m,
+                                  replay=True)
+               for who, m in (("card", mg), ("CPU", free[5]))}
+        e_card = _glob([dg] + gg, [r64["card"][2]] + r64["card"][3])
+        e_cpu = _glob([free[2]] + free[3], [r64["CPU"][2]] + r64["CPU"][3])
+        flips = _flips(mg, free[5])
+        g_free = _glob([dg] + gg, [free[2]] + free[3])
+        print(f"{label}: output {tuple(og.shape)} at level {lg}, error "
+              f"{err:.3e} of max {scale:.3e}; with the card's ReLU "
+              f"branches gradients {g_glob:.3e} of the norm, worst "
+              f"{worst:.3e}; {flips} branches differ from the CPU's own, "
+              f"which alone is {g_free:.3e} from the card; against float64 "
+              f"with each one's branches: card {e_card:.3e}, CPU f32 "
+              f"{e_cpu:.3e} of the norm; launches {launches} as predicted")
+        check(e_card <= 5 * e_cpu, f"{label} float64 reference: the card's "
+              f"gradient error {e_card} is past five times the CPU's {e_cpu}")
+        out[name] = dict(launches=launches.get("gather_conv", 0),
+                         grad_global=g_glob, branch_flips=flips,
+                         grad_global_free=g_free, float64_card=e_card,
+                         float64_cpu=e_cpu)
+    torch.cuda.empty_cache()
+    return out
+
+
+# the bench scene's randomized levels: jittered windows hold more coarse
+# sites than regular ones (142,521 at level 1 from seed 17 against the
+# regular plan's 130,259)
+RANDOMIZED_CAPS = (196_608, 196_608, 98_304)
+
+
+def families_randomized(dev):
+    """(e) `build_randomized_plan` of the bench scene (3 levels at
+    RANDOMIZED_CAPS, extent 512) on the card, equal bit for bit to
+    the CPU's build from the same numpy seed; its CUDA-event ms (warm,
+    median of 3) and host reads; a SubmanifoldConvolution(3, 64) ->
+    RandomizedStrideConvolution(64, 128) -> RandomizedStrideMaxPooling
+    net over it, card against CPU (output, gradients; #9 launched 3
+    times: the two forwards and the strided one's d_feats); #9 on the
+    jittered child and up maps against its plain version."""
+    import numpy as np
+    from occuseg_tpu_torch.core.randomized import build_randomized_plan
+    from occuseg_tpu_torch.core.sparse_tensor import SparseTensor
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.nn.modules import (
+        RandomizedStrideConvolution, RandomizedStrideMaxPooling,
+        SubmanifoldConvolution,
+    )
+    spec = PlanSpec(caps=RANDOMIZED_CAPS)
+    coords = bench_scene(0)["coords"]
+    cd = torch.from_numpy(coords).to(dev)
+
+    def build(c):
+        return build_randomized_plan(c, spec, np.random.default_rng(17), 512)
+    build(cd)
+    ms = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        dp = build(cd)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append((start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)))
+    _, reads = host_reads(lambda: build(cd))
+    t0 = time.perf_counter()
+    cp = build(torch.from_numpy(coords))
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    same_plan("[families] (e) randomized plan", dp, cp)
+    check(all(l.num_active < l.cap for l in dp.levels),
+          f"[families] (e) a level fills its cap")
+    dev_ms, host_ms = sorted(ms)[1]
+    print(f"[families] (e) randomized plan: voxels per level "
+          f"{[l.num_active for l in dp.levels]}; equal to the CPU's build bit "
+          f"for bit; {dev_ms:.3f} ms on the card (CUDA events; host clock "
+          f"{host_ms:.3f} ms; warm, median of 3), {reads} host read(s); the "
+          f"CPU's build {cpu_ms:.1f} ms")
+    g = torch.Generator().manual_seed(81)
+    net = torch.nn.ModuleList([SubmanifoldConvolution(3, 64, generator=g),
+                               RandomizedStrideConvolution(64, 128,
+                                                           generator=g),
+                               RandomizedStrideMaxPooling()])
+    lvl0 = cp.levels[0]
+    x = torch.randn(lvl0.cap, 3, generator=g)
+    x[lvl0.num_active:] = 0
+    res = {}
+    for d, plan in (("cpu", cp), (dev, dp)):
+        m = copy.deepcopy(net).to(d)
+        zero_launches()
+        y = SparseTensor(features=x.to(d), num_active=lvl0.num_active,
+                         level=0)
+        for mod in m:
+            y = mod(y, plan)
+        ct = torch.randn(y.features.shape, generator=torch.Generator()
+                         .manual_seed(82)).to(d)
+        (y.features * ct).sum().backward()
+        if d != "cpu":
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in read_launches().items() if v}
+        res[str(d)] = (y.features.detach().cpu(), y.level,
+                       [p.grad.cpu() for p in m.parameters()])
+    (oc, lc, gc_), (og, lg, gg) = res["cpu"], res[str(dev)]
+    check(lg == lc == 2, "[families] (e) level")
+    err, scale = check_close("[families] (e) net output", og, oc, PARITY_TOL)
+    g_glob, worst = _grad_check("[families] (e) net", gg, gc_,
+                                ["sub", "rconv"])
+    check(launches == {"gather_conv": 3}, f"[families] (e) net launches "
+          f"{launches}")
+    print(f"[families] (e) randomized-stride net 3 -> 64 -> 128: error "
+          f"{err:.3e} of max {scale:.3e}, gradients {g_glob:.3e} of the "
+          f"norm; launches {launches}")
+    t0, t1 = dp.transitions
+    l0, l1, l2 = dp.levels
+    roles = [("randomized child T0", t0.kn["child"], l0, 64, 128),
+             ("randomized up T0 (d_feats)", t0.kn["up"], l1, 128, 64),
+             ("randomized child T1", t1.kn["child"], l1, 128, 192),
+             ("randomized up T1 (d_feats)", t1.kn["up"], l2, 192, 128)]
+    timed = time_gather_roles(dev, roles, "[families] (e)", 83)
+    torch.cuda.empty_cache()
+    return dict(plan_device_ms=dev_ms, plan_host_clock_ms=host_ms,
+                host_reads=reads, plan_cpu_ms=cpu_ms,
+                voxels=[l.num_active for l in dp.levels],
+                net_launches=launches.get("gather_conv", 0), **timed)
+
+
+SHAPE_CAPS = (12_288, 16_384, 6_144, 2_048)
+
+
+def shape_batches(seed, n_batches, batch_size=8, points=1500, p_cap=12_288):
+    """Batches of synthetic shapes in two classes that the shape decides:
+    a sphere shell (class 0) or a cube's surface (class 1) of random size
+    in a 48^3 grid, one per sample; features 1 at every point."""
+    import numpy as np
+
+    def gen():
+        rng = np.random.default_rng(seed)
+        for _ in range(n_batches):
+            pts, labels = [], []
+            for b in range(batch_size):
+                cls = int(rng.integers(0, 2))
+                d = rng.standard_normal((points, 3))
+                d /= np.linalg.norm(d, axis=1, keepdims=True)
+                if cls == 0:
+                    p = d * rng.uniform(10, 18)
+                else:
+                    p = d / np.abs(d).max(1, keepdims=True) \
+                        * rng.uniform(8, 14)
+                p = np.clip(np.round(p + 24), 0, 47)
+                pts.append(np.concatenate([np.full((points, 1), b), p], 1))
+                labels.append(cls)
+            c = np.concatenate(pts).astype(np.int32)
+            c = np.concatenate([c, -np.ones((p_cap - len(c), 4), np.int32)])
+            f = (c[:, :1] >= 0).repeat(3, 1).astype(np.float32)
+            yield {"coords": c, "features": f,
+                   "label": np.asarray(labels, np.int32)}
+    return gen
+
+
+def shape_classifier(seed):
+    """InputLayer -> SubmanifoldConvolution(3, 32) -> SparseResNet (basic
+    blocks at 32, 64, 96, 128, strides 1, 2, 2, 2) -> ActivePooling(8) ->
+    Linear(128, 2)."""
+    from occuseg_tpu_torch.models.occuseg import _linear
+    from occuseg_tpu_torch.nn.extras import ActivePooling
+    from occuseg_tpu_torch.nn.modules import (
+        InputLayer, SubmanifoldConvolution,
+    )
+    from occuseg_tpu_torch.nn.unet import SparseResNet
+
+    class ShapeNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator().manual_seed(seed)
+            self.input = InputLayer()
+            self.sub = SubmanifoldConvolution(3, 32, generator=g)
+            self.resnet = SparseResNet(32, (("b", 32, 1, 1), ("b", 64, 1, 2),
+                                            ("b", 96, 1, 2), ("b", 128, 1, 2)),
+                                       g)
+            self.pool = ActivePooling(num_samples=8)
+            self.head = _linear(128, 2, g)
+
+        def forward(self, feats, plan):
+            x = self.resnet(self.sub(self.input(feats, plan), plan), plan)
+            return self.head(self.pool(x, plan))
+    return ShapeNet()
+
+
+def families_classification(dev):
+    """(f) `classification_train_validate` on the card: `shape_classifier`
+    over 64 shapes (8 batches of 8), 2 epochs at lr 1e-3, validated on 16
+    more, every batch planned on the card (SHAPE_CAPS, size-3 stride-2
+    transitions); the first step's loss against the CPU's from the same
+    weights; the history finite; #9's launches against the count (per
+    step every convolution's forward and, but for the first, its d_feats;
+    per validation batch the forwards); seconds per epoch and the
+    validation accuracy printed, not gated."""
+    import math
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.train.classification import (
+        classification_train_validate,
+    )
+    spec = PlanSpec(caps=SHAPE_CAPS, down_size=3, down_stride=2)
+    model = shape_classifier(84)
+    first = shape_batches(85, 1)
+    none = lambda: iter(())  # noqa: E731
+    one = {str(d): classification_train_validate(
+        copy.deepcopy(model), spec, first, none, 1, 1e-3,
+        device=d)["history"][0]["loss"] for d in ("cpu", dev)}
+    check(abs(one[str(dev)] - one["cpu"]) <= PARITY_TOL * abs(one["cpu"]),
+          f"[families] (f) first step loss {one}")
+    n_conv = _convs(model)
+    steps, vals, epochs = 8, 2, 2
+    want = {"gather_conv": epochs * (steps * (2 * n_conv - 1)
+                                     + vals * n_conv)}
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = classification_train_validate(
+        copy.deepcopy(model), spec, shape_batches(86, steps),
+        shape_batches(87, vals), epochs, 1e-3, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_launches().items() if v}
+    hist = res["history"]
+    check(all(math.isfinite(h[k]) for h in hist for k in h),
+          f"[families] (f) history {hist}")
+    check(launches == want, f"[families] (f) launches {launches}, expected "
+          f"{want}")
+    print(f"[families] (f) classification harness: first step loss card "
+          f"{one[str(dev)]:.6f}, CPU {one['cpu']:.6f}; {epochs} epochs of "
+          f"{steps} steps in {wall:.2f} s ({wall / epochs:.2f} s per epoch, "
+          f"validation included); history {hist}; launches {launches} as "
+          f"predicted")
+    return dict(first_loss=one, seconds_per_epoch=wall / epochs,
+                history=hist, launches=launches.get("gather_conv", 0))
+
+
+def families_extras(dev):
+    """(g) ClusterSegNet at P = 262,144, 64-wide features and 1024
+    clusters, training mode: logits, input and parameter gradients and
+    running statistics, card against the CPU with the card's choices
+    imposed (`choices`: the per-cluster max sends a channel's gradient to
+    one point, and near ties among a cluster's ~256 points flip with
+    rounding, as do leaky ReLU branches near 0); then on the mid scene
+    planned on each device: `upsample_feature` (nearest and trilinear,
+    level 1 to 0), ShapeContext, MultiscaleShapeContext, `sparse_to_dense` (forward
+    and gradients), `sparsify_coords` and `compare_sparse`, card against
+    CPU (coordinates exactly, the rest within F32_TOL)."""
+    from occuseg_tpu_torch.core.sparse_tensor import SparseTensor
+    from occuseg_tpu_torch.core.topology import PlanSpec, build_plan
+    from occuseg_tpu_torch.models import ClusterSegNet
+    from occuseg_tpu_torch.nn import extras
+    from occuseg_tpu_torch.models import occuseg as occ_models
+    g = torch.Generator().manual_seed(88)
+    P = BENCH_P_CAP
+    net = ClusterSegNet(64, num_classes=20, num_clusters=1024, generator=g)
+    feats = torch.randn(P, 64, generator=g)
+    ci = torch.randint(-1, 1024, (P,), generator=g)
+    ct = torch.randn(1024, 20, generator=g)
+    sites = ((occ_models, "_leaky", leaky_branches),
+             (occ_models, "segment_max", max_winners))
+    res = {}
+    for d, masks in ((dev, None), ("cpu", None), ("cpu", "card")):
+        m = copy.deepcopy(net).to(d).train()
+        f = feats.to(d).detach().requires_grad_()
+        t0 = time.perf_counter()
+        with choices([] if masks is None else res[str(dev)][5],
+                     masks is not None, *sites) as made:
+            y = m(f, ci.to(d))
+            (y * ct.to(d)).sum().backward()
+        if d != "cpu":
+            torch.cuda.synchronize()
+        res[str(d) if masks is None else masks] = (
+            y.detach().cpu(), f.grad.cpu(), [p.grad.cpu()
+                                            for p in m.parameters()],
+            [b.cpu() for b in m.buffers()], 1e3 * (time.perf_counter() - t0),
+            made)
+    (oc, dc, gc_, bc, _, _), (og, dg, gg, bg, g_ms, mg) = (res["card"],
+                                                           res[str(dev)])
+    free = res["cpu"]
+    c_ms = free[4]
+    err, scale = check_close("[families] (g) ClusterSegNet logits", og, oc,
+                             PARITY_TOL)
+    g_glob, worst = _grad_check("[families] (g) ClusterSegNet", [dg] + gg,
+                                [dc] + gc_, ["input"] + [
+                                    n for n, _ in net.named_parameters()],
+                                zero=("mlp1.bias", "mlp2.bias", "l2_bn.bias",
+                                      "mlp3.bias"))
+    for a, b in zip(bg, bc):
+        check((a - b).abs().max().item() <= PARITY_TOL * b.abs().max().item()
+              + 1e-6, "[families] (g) ClusterSegNet running statistic")
+    flips = _flips(mg, free[5])
+    g_free = _glob([dg] + gg, [free[1]] + free[2])
+    print(f"[families] (g) ClusterSegNet P={P}: logits error {err:.3e} of "
+          f"max {scale:.3e}; with the card's choices (leaky ReLU branches, "
+          f"cluster-max rows) gradients {g_glob:.3e} of the norm (worst "
+          f"{worst:.3e}), running statistics agree; {flips} choices differ "
+          f"from the CPU's own, which alone is {g_free:.3e} from the card; "
+          f"a training call {g_ms:.1f} ms on the card (first call), "
+          f"{c_ms:.1f} ms on the CPU")
+
+    from occuseg_tpu_torch.data.synthetic import SceneConfig, make_batch
+    batch = _mid_scene()
+    other = make_batch(SceneConfig(num_points=20_000, extent=128,
+                                   num_objects=8), num_scenes=1,
+                       p_cap=MID_P_CAP, num_instances=16, seed=1)
+    spec = PlanSpec(caps=MID_CAPS)
+    C = 16
+    out = {}
+    for d in ("cpu", dev):
+        plan = build_plan(torch.from_numpy(batch["coords"]).to(d), spec)
+        plan_b = build_plan(torch.from_numpy(other["coords"]).to(d), spec)
+        l0, l1 = plan.levels[0], plan.levels[1]
+        gg_ = torch.Generator().manual_seed(89)
+        x0 = torch.randn(l0.cap, C, generator=gg_)
+        x0[l0.num_active:] = 0
+        x1 = torch.randn(l1.cap, C, generator=gg_)
+        x1[l1.num_active:] = 0
+        xb = torch.randn(plan_b.levels[0].cap, C, generator=gg_)
+        xb[plan_b.levels[0].num_active:] = 0
+        r = {}
+
+        def run(name, fn, x, level):
+            f = x.to(d).detach().requires_grad_()
+            y = fn(SparseTensor(features=f, num_active=plan.levels[level]
+                                .num_active, level=level))
+            y = y.features if hasattr(y, "features") else y
+            ctv = torch.randn(y.shape, generator=torch.Generator()
+                              .manual_seed(90)).to(d)
+            (y * ctv).sum().backward()
+            r[name] = (y.detach().cpu(), f.grad.cpu())
+        run("upsample nearest",
+            lambda t: extras.upsample_feature(t, 0, plan), x1, 1)
+        run("upsample trilinear",
+            lambda t: extras.upsample_feature(t, 0, plan, bilinear=True),
+            x1, 1)
+        run("ShapeContext", lambda t: extras.ShapeContext()(t, plan), x0, 0)
+        run("MultiscaleShapeContext",
+            lambda t: extras.MultiscaleShapeContext(3)(t, plan), x0, 0)
+        run("sparse_to_dense",
+            lambda t: extras.sparse_to_dense(t, plan, 128, 1), x0, 0)
+        t0 = SparseTensor(features=x0.to(d), num_active=l0.num_active,
+                          level=0)
+        r["sparsify_coords"] = extras.sparsify_coords(t0, plan, l0.cap,
+                                                      8.0).cpu()
+        r["compare_sparse"] = extras.compare_sparse(
+            plan, t0, plan_b, SparseTensor(
+                features=xb.to(d), num_active=plan_b.levels[0].num_active,
+                level=0)).cpu()
+        out[str(d)] = r
+    c, gd = out["cpu"], out[str(dev)]
+    errs = {}
+    for name in ("upsample nearest", "upsample trilinear", "ShapeContext",
+                 "MultiscaleShapeContext", "sparse_to_dense"):
+        e, _ = check_close(f"[families] (g) {name}", gd[name][0], c[name][0],
+                           F32_TOL)
+        ge, _ = check_close(f"[families] (g) {name} gradient", gd[name][1],
+                            c[name][1], F32_TOL)
+        errs[name] = (e, ge)
+    check(torch.equal(gd["sparsify_coords"], c["sparsify_coords"]),
+          "[families] (g) sparsify_coords differ")
+    check(int((c["sparsify_coords"][:, 0] >= 0).sum()) > 0,
+          "[families] (g) sparsify_coords kept nothing")
+    err_cs, _ = check_close("[families] (g) compare_sparse",
+                            gd["compare_sparse"], c["compare_sparse"],
+                            F32_TOL)
+    print("[families] (g) extras on the mid scene, card against CPU "
+          "(forward error, gradient error): "
+          + ", ".join(f"{k} {a:.2e} {b:.2e}" for k, (a, b) in errs.items())
+          + f"; sparsify_coords equal ({int((c['sparsify_coords'][:, 0] >= 0).sum())}"
+          f" kept); compare_sparse {float(gd['compare_sparse']):.6f}")
+    torch.cuda.empty_cache()
+    return dict(cluster_seg_net=dict(grad_global=g_glob, card_ms=g_ms,
+                                     choice_flips=flips,
+                                     grad_global_free=g_free),
+                extras_err={k: v[0] for k, v in errs.items()})
+
+
+def phase_families(dev, train_med):
+    """[families]: (a)-(g) above; returns what the kernels line reports
+    under "families"."""
+    t0 = time.perf_counter()
+    out = dict(pool=families_pool(dev))
+    out["dense_unet_bn"] = families_dense_unet(dev, train_med)
+    out["three_voxel_kernel"] = families_three_voxel(dev)
+    out["builders"] = families_builders(dev)
+    out["randomized"] = families_randomized(dev)
+    out["classification"] = families_classification(dev)
+    out["extras"] = families_extras(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[families] all parts passed in {out['seconds']:.1f} s")
+    return out
+
+
 def phase_ap_gate(dev):
     """[ap_gate]: `tools/ap_gate.run` on the card (seeds 7, 8, 9, 450
     steps each, the port's seeded initialisation): per seed its AP, final
@@ -3336,6 +4411,7 @@ def main() -> int:
         data_launches = phase_data(dev, tmp, tot)
         phase_gather(dev, tmp, tot, loop_med, loop_plan)
     planner = phase_planner(dev, tot, train_med)
+    families = phase_families(dev, train_med)
     gate = phase_ap_gate(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
@@ -3353,18 +4429,23 @@ def main() -> int:
 
     fused = launches["chunk_conv_bwd_fused"]
     grouped = launches["chunk_conv_bwd_fused_kgrouped"]
+    # the DenseUNet_BN step of [families] (b): the launches counted in
+    # its first timed step (seed 0)
+    dense = dict(dense_unet_bn_launches_per_step=families["dense_unet_bn"][
+        "launches_per_step"])
     print(json.dumps({"kernels": [
         entry("chunk_conv_fwd", "chunk_conv", "chunk_conv.cu",
-              "chunk_conv.py:671", launches["chunk_conv"]),
+              "chunk_conv.py:671", launches["chunk_conv"], families=dense),
         entry("blocked_segment_sum", "blocked_segment_sum", "segsum.cu",
               "segsum.py:67", launches["blocked_segment_sum"],
-              shapes=tot.segsum_shapes),
+              shapes=tot.segsum_shapes, families=dense),
         entry("chunk_conv_bwd_fused (#3 shapes)", "#3", "chunk_conv_bwd.cu",
-              "chunk_conv.py:442", fused - grouped),
+              "chunk_conv.py:442", fused - grouped, families=dense),
         entry("chunk_conv_bwd_fused (#4 shapes)", "#4", "chunk_conv_bwd.cu",
-              "chunk_conv.py:568", grouped),
+              "chunk_conv.py:568", grouped, families=dense),
         entry("chunk_conv_dw", "chunk_conv_dw", "chunk_conv_bwd.cu",
-              "chunk_conv.py:720", launches["chunk_conv_dw"]),
+              "chunk_conv.py:720", launches["chunk_conv_dw"],
+              families=dense),
         # the training CLI's path: once each per step; beside them the
         # port's [P, I] chain, forward and backward (not a library call)
         entry("bce_radius", "bce_radius", "bce_loss.cu", "bce_loss.py:227",
@@ -3388,7 +4469,20 @@ def main() -> int:
                                    "launches_per_step"]),
               # the device planner's path: #9's roles there, the launches
               # of a device-planned step and its times
-              planner=planner),
+              planner=planner,
+              # [families]: #9 on a randomized plan's jittered maps, and
+              # its launches in the builders, the randomized-stride net
+              # and the classification harness
+              families=dict(
+                  randomized={k: v for k, v in families["randomized"].items()
+                              if k != "net_launches"},
+                  launches=dict(
+                      builders={k: v["launches"] for k, v in
+                                families["builders"].items()},
+                      randomized_net=families["randomized"]["net_launches"],
+                      classification=families["classification"]["launches"]),
+                  step_ms=families["dense_unet_bn"]["step_ms"],
+                  seconds=families["seconds"])),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -200,10 +200,25 @@ class LevelTopology(_DeviceArrays, _GatherMaps):
     guided: bool = False
     chunks: Optional[ChunkPlan] = None
     kn: dict = _kn_cache()
+    # (name, device) -> keys or coords copied there (`device_array`)
+    arrays: dict = _kn_cache()
 
     @property
     def cap(self) -> int:
         return self.nbr.shape[0]
+
+    def device_array(self, name: str, device) -> torch.Tensor:
+        """Array `name` ("keys" or "coords") as a tensor on `device`: a
+        plan built there holds it, a host plan's copy is made once per
+        plan object and device (`to` and `pinned` do not carry it)."""
+        a = getattr(self, name)
+        device = torch.device(device)
+        if isinstance(a, torch.Tensor) and a.device == device:
+            return a
+        m = self.arrays.get((name, device))
+        if m is None:
+            m = self.arrays[name, device] = _to(a, device)
+        return m
 
     def _map(self, fn) -> "LevelTopology":
         guided = fn if self.guided else _keep

@@ -25,7 +25,12 @@ The routes compute the same function. At the levels past
 `PlanSpec.guide_levels` every orientation class is 0, the identity. A
 plan built on the device (`core/topology.build_plan`) has no chunk
 rulebook, so all of its convolutions take the gather path, as do
-`FullConvolution`'s, whose grown topology is planned in its forward.
+`FullConvolution`'s, whose grown topology is planned in its forward, and
+those over a randomized plan (`core/randomized.py`).
+
+The pooling modules reduce over the transition's child map (`up` for
+UnPooling) in plain PyTorch (`ops/pool.py`); the IO layers voxelize in
+the reference's five modes.
 """
 
 from __future__ import annotations
@@ -231,29 +236,40 @@ class TransposeConvolution(FullConvolution):
 
 
 class NetworkInNetwork(nn.Module):
-    """1x1 convolution = row matmul."""
+    """1x1 convolution = row matmul (with `use_bias`, plus a bias)."""
 
     def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.weight = _he_weight((in_features, out_features), 1, generator)
+        self.bias = (nn.Parameter(torch.zeros(out_features)) if use_bias
+                     else None)
 
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
-        return x.with_features(conv_ops.nin(x.features, self.weight))
+        return x.with_features(conv_ops.nin(x.features, self.weight,
+                                            self.bias))
 
 
 class BatchNormalization(nn.Module):
     """Masked BN + fused leaky activation, reference semantics (eps 1e-4;
-    momentum 0.9 as a decay; leakiness 0 = ReLU, 1 = none). Running
-    statistics are buffers; in training mode the forward normalises with
-    the batch statistics and updates them in place."""
+    momentum 0.9 as a decay; leakiness 0 = ReLU, 1 = none; a subclass
+    sets its default, an argument overrides it). Running statistics are
+    buffers; in training mode the forward normalises with the batch
+    statistics and updates them in place."""
 
     leakiness = 1.0
     momentum = 0.9
 
-    def __init__(self, num_channels: int, eps: float = 1e-4):
+    def __init__(self, num_channels: int, eps: float = 1e-4,
+                 leakiness: Optional[float] = None,
+                 momentum: Optional[float] = None):
         super().__init__()
         self.eps = eps
+        if leakiness is not None:
+            self.leakiness = leakiness
+        if momentum is not None:
+            self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
         self.register_buffer("running_mean", torch.zeros(num_channels))
@@ -275,15 +291,74 @@ class BatchNormReLU(BatchNormalization):
     leakiness = 0.0
 
 
+class BatchNormLeakyReLU(BatchNormalization):
+    leakiness = 0.333
+
+
+class MaxPooling(nn.Module):
+    """Max over each coarse site's children in the transition from the
+    tensor's level (`ops/pool.max_pool`). `size` and `stride` are the
+    reference's arguments; as in the JAX package the plan's transition
+    is taken as it is."""
+
+    def __init__(self, size: int = 2, stride: int = 2):
+        super().__init__()
+        self.size, self.stride = size, stride
+
+    def _pool(self, f, child):
+        return pool_ops.max_pool(f, child)
+
+    def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
+        tr = plan.transitions[x.level]
+        f = x.features
+        out = self._pool(f, tr.gather_map("child", f.device).t())
+        return SparseTensor(features=out,
+                            num_active=plan.levels[x.level + 1].num_active,
+                            level=x.level + 1)
+
+
+class AveragePooling(MaxPooling):
+    """Mean over each coarse site's children (`ops/pool.avg_pool`)."""
+
+    def _pool(self, f, child):
+        return pool_ops.avg_pool(f, child)
+
+
+class UnPooling(nn.Module):
+    """Coarse features back onto the finer level through the transition's
+    up map (`ops/pool.unpool`)."""
+
+    def __init__(self, size: int = 2, stride: int = 2):
+        super().__init__()
+        self.size, self.stride = size, stride
+
+    def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
+        if x.level == 0:
+            raise ValueError("UnPooling needs a finer level")
+        tr = plan.transitions[x.level - 1]
+        f = x.features
+        out = pool_ops.unpool(f, tr.gather_map("up", f.device).t())
+        return SparseTensor(features=out,
+                            num_active=plan.levels[x.level - 1].num_active,
+                            level=x.level - 1)
+
+
 class InputLayer(nn.Module):
-    """Point cloud -> level-0 sparse tensor (mean of each voxel's point
-    features)."""
+    """Point cloud -> level-0 sparse tensor: each voxel's point features
+    reduced in `mode` (`ops/pool.MODES`; the mean by default)."""
+
+    def __init__(self, mode: str = "mean"):
+        super().__init__()
+        if mode not in pool_ops.MODES:
+            raise ValueError(f"unknown voxelize mode: {mode}")
+        self.mode = mode
 
     def forward(self, point_features: torch.Tensor,
                 plan: Topology) -> SparseTensor:
         lvl = plan.levels[0]
         vox = pool_ops.voxelize_features(point_features, plan.p2v, lvl.cap,
-                                         plan.vox_seg, plan.vox_counts)
+                                         plan.vox_seg, plan.vox_counts,
+                                         self.mode)
         return SparseTensor(features=vox, num_active=lvl.num_active, level=0)
 
 
@@ -295,3 +370,43 @@ class OutputLayer(nn.Module):
             raise ValueError("OutputLayer expects level-0 features")
         return pool_ops.devoxelize_features(x.features, plan.p2v,
                                             plan.vox_seg)
+
+
+class BLInputLayer(InputLayer):
+    """Batch x length point-cloud input: features [B, L, C] whose coords
+    [B, L, 4] were flattened into the plan (rows with coords < 0 are
+    padding) -> level-0 sparse tensor."""
+
+    def forward(self, point_features: torch.Tensor,
+                plan: Topology) -> SparseTensor:
+        B, L, C = point_features.shape
+        return super().forward(point_features.reshape(B * L, C), plan)
+
+
+class BLOutputLayer(nn.Module):
+    """Inverse of BLInputLayer: level-0 features -> [B, L, C]."""
+
+    def __init__(self, batch_size: int = 1):
+        super().__init__()
+        self.batch_size = batch_size
+
+    def forward(self, x: SparseTensor, plan: Topology) -> torch.Tensor:
+        if x.level != 0:
+            raise ValueError("BLOutputLayer expects level-0 features")
+        flat = pool_ops.devoxelize_features(x.features, plan.p2v,
+                                            plan.vox_seg)
+        return flat.reshape(self.batch_size, -1, flat.shape[1])
+
+
+class RandomizedStrideConvolution(Convolution):
+    """Strided convolution whose training windows are jittered (the
+    reference's RandomizedStrideConvolution). The jitter lives in the
+    plan: train on a `core/randomized.build_randomized_plan` topology and
+    evaluate on a regular one; the module is the strided convolution over
+    whichever transition the plan carries (a randomized plan has no chunk
+    rulebooks, so it takes the gather convolution)."""
+
+
+class RandomizedStrideMaxPooling(MaxPooling):
+    """Max pooling over jittered windows (the reference's
+    RandomizedStrideMaxPooling); see RandomizedStrideConvolution."""

@@ -35,13 +35,22 @@ from occuseg_tpu_torch.ops.kernels import gather_conv as gc
 _ALIGN = 8
 
 
-def gather_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """feats[idx] with -1 (missing) rows filled with zeros. A bare
-    feats[idx] would silently read the last row for -1."""
-    g = feats[idx.clamp(min=0).long()]
+def gather_rows(feats: torch.Tensor, idx: torch.Tensor,
+                fill: float = 0.0) -> torch.Tensor:
+    """feats[idx] [*idx.shape, *feats.shape[1:]] with the -1 (missing)
+    rows set to `fill`; a bare feats[idx] would silently read the last
+    row for -1. It goes through `index_select`, whose backward adds the
+    cotangent rows with `index_add_` (atomics on a card: the order of a
+    row's sum, and so its last bits, may change from run to run). A bare
+    feats[idx]'s backward is an accumulating `index_put_` that sorts the
+    ids and serialises their duplicates: in the 35 nearest-upsampling
+    gathers of a DenseUNet_BN step it took 152 ms of 245 busy (NVIDIA
+    H100 80GB HBM3, 700.00 W)."""
+    g = feats.index_select(0, idx.reshape(-1).clamp(min=0).long())
+    g = g.reshape(idx.shape + feats.shape[1:])
     valid = (idx >= 0).reshape(idx.shape + (1,) * (feats.dim() - 1))
-    return torch.where(valid, g, torch.zeros((), dtype=feats.dtype,
-                                             device=feats.device))
+    return torch.where(valid, g, torch.full((), fill, dtype=feats.dtype,
+                                            device=feats.device))
 
 
 def _kernel_conv(feats: torch.Tensor, nbr_kn: torch.Tensor,
@@ -158,7 +167,12 @@ def conv_flops(nbr, cin: int, cout: int) -> int:
     return int((torch.as_tensor(nbr) >= 0).sum()) * cin * cout
 
 
-def nin(feats: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def nin(feats: torch.Tensor, weight: torch.Tensor,
+        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """NetworkInNetwork: feats [N, Cin] @ weight [Cin, Cout] in the
-    feature dtype."""
-    return torch.matmul(feats, weight.to(feats.dtype))
+    feature dtype; with a bias, the product and the bias are summed in
+    f32 before the cast, as the JAX package's `nin` does."""
+    if bias is None:
+        return torch.matmul(feats, weight.to(feats.dtype))
+    out = acc(feats) @ acc(weight.to(feats.dtype)) + acc(bias)
+    return out.to(feats.dtype)
