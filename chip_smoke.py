@@ -116,9 +116,10 @@ and no network. Phases (any failure exits non-zero):
    weights, scored through the clustering cascade; per seed AP, final
    loss parts, median step ms and one step's launches (#9 at the 8- and
    24-wide convolutions, #1 at the 16-wide ones) against the prediction;
-   the contraction; fails unless mean AP@0.5 > 0.6, each seed > 0.35 and
-   the contraction < 1.5; then one step of a short soak, profiled (device
-   busy against the median step).
+   the contraction; the accuracy floor of tests/test_accuracy_floor.py on
+   seed 7's first 50 steps; fails unless mean AP@0.5 > 0.6, each seed >
+   0.35, the contraction < 1.5 and the floor holds; then one step of a
+   short soak, profiled (device busy against the median step).
 10. planner (runs before ap_gate): the device planner
    (`core/topology.build_plan` on the card), the modules that need it and
    the step that plans on the card: (a) the device plan against the host
@@ -166,6 +167,33 @@ and no network. Phases (any failure exits non-zero):
    262,144 and the extras (upsample_feature, ShapeContext,
    MultiscaleShapeContext, sparse_to_dense, sparsify_coords,
    compare_sparse) card against CPU.
+12. legacy (after families): the sparseconvnet facade
+   (`occuseg_tpu_torch/legacy.py`): (a) the reference UNet docstring's
+   model at m=64 (a submanifold convolution, a residual UNet of 2 blocks
+   a level and side, BN-ReLU) between the facade's InputLayer and
+   OutputLayer, bf16 forward and backward on the bench scene's chunked
+   host plan: bit for bit the same modules composed directly, the
+   launches of #1, #3-#5 and #2 as the plan predicts, both timed in
+   turns; then f32 on the mid scene, card against CPU with the card's
+   BN-ReLU branches imposed on the CPU; (b) UNet(leakiness=0.333) card
+   against CPU alike; (c) ConcatTable / AddTable / JoinTable card against
+   CPU, and append_tensors of two scenes on the card (#9 over the merged
+   plan against each scene's own and the CPU).
+13. gates: (a) the checkpoint-parity gate
+   (`occuseg_tpu_torch/scripts/checkpoint_parity.py`) on an m=64 `.pth`
+   made by tests/torch_oracle.py: exit 0 with every head within its TOL,
+   non-zero with a key removed, 1 with the imported model perturbed by
+   1e-2 in one weight; (b) train_semantic at m=64 for 2 f32 steps, its
+   checkpoint and eval; (c) test_semantic from that checkpoint over the
+   synthetic val scenes and fake_judge on its files, against a confusion
+   rebuilt from them.
+14. dp: two spawned ranks on the one card over gloo (NCCL refuses two
+   ranks on one device), [loop]'s model and scenes, 4 scenes a rank, 3
+   steps with OCC_PALLAS_BCE=1: step 1 against the two ranks' batches
+   stepped in one process, their gradients, statistics and loss parts
+   averaged, then Adam (the parameters held to Adam of the reduced
+   gradients); the remainder group (rank 1 a weight-0 copy) against rank
+   0's single-process step; the DP step beside [loop]'s.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON summary.
@@ -177,6 +205,7 @@ import collections
 import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -276,11 +305,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def conv_calls(plan, n_planes, in_features=3):
-    """The chunk convolutions of one m=64 UNet forward, in order, each with
-    its forward and transpose chunk plans, input and output rows (cap and
-    active) and channels. Cin is as the kernel sees it (the first conv's
-    3 padded to 16)."""
+def conv_calls(plan, n_planes, in_features=3, reps=1):
+    """The chunk convolutions of one m=64 UNet forward (`reps` blocks a
+    level and side), in order, each with its forward and transpose chunk
+    plans, input and output rows (cap and active) and channels. Cin is as
+    the kernel sees it (the first conv's 3 padded to 16)."""
     caps = [l.cap for l in plan.levels]
     act = [l.num_active for l in plan.levels]
     lv = plan.levels
@@ -294,8 +323,9 @@ def conv_calls(plan, n_planes, in_features=3):
 
     def level(l):
         p = n_planes[l]
-        for name in ("enc0.conv1", "enc0.conv2"):
-            sub(f"{name} L{l}", l, p, p)
+        for i in range(reps):
+            for name in (f"enc{i}.conv1", f"enc{i}.conv2"):
+                sub(f"{name} L{l}", l, p, p)
         if l + 1 == len(n_planes):
             return
         tr = plan.transitions[l]
@@ -306,8 +336,9 @@ def conv_calls(plan, n_planes, in_features=3):
         calls.append(Conv(f"up_conv L{l + 1}->L{l}", tr.up_chunks,
                           tr.child_chunks, caps[l + 1], act[l + 1],
                           n_planes[l + 1], p, caps[l], act[l], ("up", l)))
-        sub(f"dec0.conv1 L{l}", l, 2 * p, p)
-        sub(f"dec0.conv2 L{l}", l, p, p)
+        for i in range(reps):
+            sub(f"dec{i}.conv1 L{l}", l, 2 * p if i == 0 else p, p)
+            sub(f"dec{i}.conv2 L{l}", l, p, p)
 
     level(0)
     return calls
@@ -4372,6 +4403,15 @@ def phase_ap_gate(dev):
           f"{ap_gate.MEAN_AP_FLOOR}), min {min(aps):.4f} (> "
           f"{ap_gate.SEED_AP_FLOOR}), contraction {rep['contraction']:.4f}"
           f" (< {ap_gate.CONTRACTION_CEIL}); {wall:.1f} s")
+    fl = rep["floor"]
+    print(f"[ap_gate] accuracy floor (tests/test_accuracy_floor.py), seed "
+          f"{ap_gate.SEEDS[0]} after {ap_gate.FLOOR_STEPS} steps: total "
+          f"{fl['first']['total']:.4f} -> {fl['last']['total']:.4f}, "
+          f"regression {fl['first']['regression_loss']:.4f} -> "
+          f"{fl['last']['regression_loss']:.4f}, instance IoU "
+          f"{fl['first']['instance_iou']:.4f} -> "
+          f"{fl['last']['instance_iou']:.4f}; {fl['checks']}")
+    check(fl["passed"], f"[ap_gate] the accuracy floor failed: {fl}")
     check(rep["passed"], f"[ap_gate] a threshold failed: {rep}")
     s = ap_gate.soak(ap_gate.SEEDS[0], dev, steps=3)
     busy = profile_step(lambda: s.trainer.step(s.laid, s.plan), "ap_gate")
@@ -4379,6 +4419,694 @@ def phase_ap_gate(dev):
     print(f"[ap_gate] device busy {busy:.2f} ms of the median step "
           f"{med:.2f} ms ({100 * busy / med:.1f}%)")
     return dict(report=rep, launches_per_step=pred, busy_ms=busy)
+
+
+def legacy_docstring_model(scn, seed):
+    """The reference UNet docstring's model at m=64
+    (`networkArchitectures.py:207-213`), built with the facade's calls,
+    between the facade's InputLayer (mode 4, the mean) and OutputLayer."""
+    g, m = torch.Generator().manual_seed(seed), N_PLANES[0]
+    model = scn.Sequential().add(
+        scn.SubmanifoldConvolution(3, 3, m, 3, False, generator=g)).add(
+        scn.UNet(3, 2, list(N_PLANES), residual_blocks=True,
+                 generator=g)).add(
+        scn.BatchNormReLU(m))
+    return scn.Sequential().add(scn.InputLayer(3, 4096, mode=4)).add(
+        model).add(scn.OutputLayer(3))
+
+
+def legacy_direct_model(facade):
+    """The same modules composed directly (no facade), with `facade`'s
+    weights."""
+    from occuseg_tpu_torch.nn.modules import (
+        BatchNormReLU, InputLayer, OutputLayer, SubmanifoldConvolution,
+    )
+    from occuseg_tpu_torch.nn.unet import UNet
+
+    class Direct(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.input = InputLayer()
+            self.sub = SubmanifoldConvolution(3, N_PLANES[0])
+            self.unet = UNet(2, N_PLANES, residual_blocks=True)
+            self.bn = BatchNormReLU(N_PLANES[0])
+            self.output = OutputLayer()
+
+        def forward(self, feats, plan):
+            x = self.sub(self.input(feats, plan), plan)
+            return self.output(self.bn(self.unet(x, plan), plan), plan)
+    direct = Direct()
+    src, dst = facade.state_dict(), direct.state_dict()
+    check([k.rsplit(".", 1)[-1] for k in src] ==
+          [k.rsplit(".", 1)[-1] for k in dst]
+          and all(src[a].shape == dst[b].shape for a, b in zip(src, dst)),
+          "[legacy] the facade's and the direct model's parameters differ")
+    direct.load_state_dict(dict(zip(dst, src.values())))
+    return direct
+
+
+def _fwd_bwd(model, feats, plan, ct):
+    """A training-mode forward and backward against cotangent `ct`: the
+    output and every parameter's gradient."""
+    model.zero_grad(set_to_none=True)
+    out = model.train()(feats, plan)
+    (out.float() * ct).sum().backward()
+    return out.detach(), [p.grad.detach().clone()
+                          for p in model.parameters()]
+
+
+class _Features(torch.nn.Module):
+    """A sparse network on a level-0 tensor of `num_active` rows, taking
+    and returning the features alone."""
+
+    def __init__(self, net, num_active):
+        super().__init__()
+        self.net, self.num_active = net, num_active
+
+    def forward(self, feats, plan):
+        from occuseg_tpu_torch.core.sparse_tensor import SparseTensor
+        return self.net(SparseTensor(features=feats,
+                                     num_active=self.num_active), plan).features
+
+
+def _card_vs_cpu(label, model, feats, plan, ct, dev):
+    """An f32 training-mode forward and backward of copies of `model` on
+    the card and on the CPU, the CPU taking the card's BN-(leaky)ReLU
+    branches (`choices`: rounding flips the few near 0, and one flip
+    moves a gradient tensor past GRAD_TOL; C item 8): the output within
+    PARITY_TOL, the gradients within [parity]'s gradient tolerances and
+    the new BN statistics within PARITY_TOL. Returns the errors."""
+    from occuseg_tpu_torch.ops import norm as norm_ops
+    res, masks = {}, []
+    for d, replay in ((dev, False), ("cpu", True)):
+        m = copy.deepcopy(model).to(d)
+        with choices(masks, replay, (norm_ops, "_affine", bn_branches)):
+            out, grads = _fwd_bwd(m, feats.to(d), plan.to(d), ct.to(d))
+        res[str(d)] = (out.cpu(), [g.cpu() for g in grads],
+                       [b.detach().cpu() for b in m.buffers()])
+    (oc, gc_, bc), (og, gg, bg) = res["cpu"], res[str(dev)]
+    err, scale = check_close(f"{label} output", og, oc, PARITY_TOL)
+    names = [n for n, _ in model.named_parameters()]
+    g_glob, worst = _grad_check(label, gg, gc_, names)
+    for a, b in zip(bg, bc):
+        check((a - b).abs().max().item() <= PARITY_TOL * b.abs().max().item()
+              + 1e-6, f"{label} BN statistic")
+    print(f"{label}, card against CPU with the card's {len(masks)} "
+          f"BN-ReLU branch masks imposed: output {err:.3e} of max "
+          f"{scale:.3e}; gradients {g_glob:.3e} of the norm, worst tensor "
+          f"{worst:.3e} of its max; new BN statistics agree")
+    return dict(out=err / scale, grad_global=g_glob, grad_worst=worst)
+
+
+def legacy_docstring(dev):
+    """[legacy] (a): the docstring model in bf16 (as [families]) on bench
+    scene 0's chunked host plan, forward and backward: bit for bit the
+    directly composed modules' with the same weights, its launches as the
+    plan predicts (#1, #3-#5 from the 57 convolutions' routes, #2 twice),
+    timed beside them; then in f32 on the mid scene, card against CPU with
+    [parity]'s tolerances."""
+    import occuseg_tpu_torch.legacy as scn
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.train.state import prepare_batch
+
+    laid, plan = prepare_batch(bench_scene(0), PlanSpec(caps=BENCH_CAPS))
+    calls = conv_calls(plan, N_PLANES, reps=2)
+    pred = predicted_launches(plan, esize=2, calls=calls)
+    print(f"[legacy] (a) {len(calls)} convolutions; predicted launches of "
+          f"one bf16 forward and backward {pred}")
+    facade = legacy_docstring_model(scn, 81)
+    direct = legacy_direct_model(facade)
+    dplan = plan.to(dev)
+    feats = torch.as_tensor(laid["features"]).to(dev, torch.bfloat16)
+    ct = torch.randn(feats.shape[0], N_PLANES[0],
+                     generator=torch.Generator().manual_seed(82)).to(dev)
+    facade.to(dev)
+    direct.to(dev)
+    _fwd_bwd(facade, feats, dplan, ct)        # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    out_f, g_f = _fwd_bwd(facade, feats, dplan, ct)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    out_d, g_d = _fwd_bwd(direct, feats, dplan, ct)
+    same = torch.equal(out_f, out_d) and all(
+        torch.equal(a, b) for a, b in zip(g_f, g_d))
+    print(f"[legacy] (a) launches {launches}; facade and direct bit for "
+          f"bit: {same}; output finite: "
+          f"{bool(torch.isfinite(out_f.float()).all())}")
+    check(launches == pred, f"[legacy] (a) launches {launches}, predicted "
+          f"{pred}")
+    check(same, "[legacy] (a) the facade's output or gradients differ from "
+          "the directly composed modules'")
+    ms = {}
+    for name, m in (("facade", facade), ("direct", direct)) * 2:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _fwd_bwd(m, feats, dplan, ct)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms.setdefault(name, []).extend(times)
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    print(f"[legacy] (a) bf16 forward+backward, bench scene 0 "
+          f"({plan.levels[0].num_active} voxels): facade median "
+          f"{med['facade']:.2f} ms, direct {med['direct']:.2f} ms (6 each, "
+          f"in turns)")
+    del facade, direct, dplan
+    torch.cuda.empty_cache()
+
+    laid, plan = prepare_batch(_mid_scene(), PlanSpec(caps=MID_CAPS))
+    m32 = legacy_docstring_model(scn, 83)
+    randomize_bn_stats(m32, torch.Generator().manual_seed(84))
+    ct = torch.randn(laid["features"].shape[0], N_PLANES[0],
+                     generator=torch.Generator().manual_seed(85))
+    f32 = _card_vs_cpu("[legacy] (a) f32 mid scene", m32,
+                       torch.as_tensor(laid["features"]), plan, ct, dev)
+    return dict(launches=launches, ms=med, f32_vs_cpu=f32)
+
+
+def _mid_sparse(dev, cin, seed):
+    """Seeded features of width `cin` on the active rows of the mid
+    scene's level 0 (host plan without chunks, on `dev`): (plan, tensor
+    factory of a feature tensor)."""
+    from occuseg_tpu_torch.core.sparse_tensor import SparseTensor
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.native.plan import build_plan_host
+    plan = build_plan_host(_mid_scene()["coords"], PlanSpec(caps=MID_CAPS))
+    n = plan.levels[0].num_active
+    f = torch.zeros(plan.levels[0].cap, cin)
+    f[:n] = torch.randn(n, cin, generator=torch.Generator().manual_seed(seed))
+    return plan, f, lambda feats: SparseTensor(features=feats, num_active=n)
+
+
+def legacy_leaky_and_tables(dev):
+    """[legacy] (b) a leaky UNet (leakiness 0.333) at N_PLANES, f32,
+    training mode, forward and backward card against CPU on the mid scene
+    ([parity]'s tolerances); (c) ConcatTable / AddTable / JoinTable card
+    against CPU, and `append_tensors` of two scenes on the card: a
+    convolution over the merged plan (#9, no rulebooks) against each
+    scene's own, and against the CPU."""
+    import occuseg_tpu_torch.legacy as scn
+    from occuseg_tpu_torch.core.sparse_tensor import SparseTensor
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.native.plan import build_plan_host
+    out, m = {}, N_PLANES[0]
+    plan, f, sparse = _mid_sparse(dev, m, 91)
+    unet = scn.UNet(3, 1, list(N_PLANES), True, leakiness=0.333,
+                    generator=torch.Generator().manual_seed(92))
+    randomize_bn_stats(unet, torch.Generator().manual_seed(93))
+    ct = torch.randn(f.shape[0], m, generator=torch.Generator()
+                     .manual_seed(94))
+    out["leaky"] = _card_vs_cpu(
+        "[legacy] (b) UNet(leakiness=0.333) f32",
+        _Features(unet, plan.levels[0].num_active), f, plan, ct, dev)
+
+    gen = torch.Generator().manual_seed(95)
+    nin = scn.NetworkInNetwork(m, m, True, generator=gen)
+    for join in (scn.AddTable, scn.JoinTable):
+        model = scn.Sequential().add(scn.ConcatTable().add(
+            scn.Identity()).add(nin)).add(join())
+        y = {str(d): model.to(d)(sparse(f.to(d)), plan.to(d)).features
+             .detach().cpu() for d in ("cpu", dev)}
+        err, scale = check_close(f"[legacy] (c) {join.__name__}",
+                                 y[str(dev)], y["cpu"], F32_TOL)
+        print(f"[legacy] (c) ConcatTable(Identity, NIN) + {join.__name__}: "
+              f"{tuple(y['cpu'].shape)}, card against CPU {err:.3e} of "
+              f"max {scale:.3e}")
+
+    from occuseg_tpu_torch.data.synthetic import SceneConfig, make_batch
+    conv = scn.SubmanifoldConvolution(3, m, m, 3,
+                                      generator=torch.Generator()
+                                      .manual_seed(96))
+    entries, per_scene = [], []
+    for seed in (1, 2):
+        coords = make_batch(SceneConfig(num_points=20_000, extent=128,
+                                        num_objects=8), 1, MID_P_CAP, 16,
+                            seed=seed)["coords"]
+        p = build_plan_host(coords, PlanSpec(caps=MID_CAPS))
+        n = p.levels[0].num_active
+        x = torch.zeros(p.levels[0].cap, m)
+        x[:n] = torch.randn(n, m, generator=torch.Generator()
+                            .manual_seed(97 + seed))
+        entries.append((SparseTensor(features=x.to(dev), num_active=n), p))
+        per_scene.append((x, p))
+    merged_x, merged = scn.append_tensors(entries)
+    conv.to(dev)
+    zero_launches()
+    with torch.no_grad():
+        y = conv(merged_x, merged).features
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check(launches["gather_conv"] == 1, f"[legacy] (c) launches "
+              f"{launches}")
+        cap = MID_CAPS[0]
+        bitwise = True
+        for s, (x, p) in enumerate(per_scene):
+            ref = conv(SparseTensor(x.to(dev), p.levels[0].num_active),
+                       p).features
+            bitwise &= torch.equal(y[s * cap:(s + 1) * cap], ref)
+            check_close(f"[legacy] (c) append_tensors scene {s}",
+                        y[s * cap:(s + 1) * cap], ref, F32_TOL)
+        # a plan object keeps the maps it uploaded for one device: the
+        # CPU's run merges the scenes anew
+        cpu_x, cpu_merged = scn.append_tensors(
+            [(SparseTensor(x, p.levels[0].num_active), p)
+             for x, p in per_scene])
+        y_cpu = copy.deepcopy(conv).cpu()(cpu_x, cpu_merged).features
+        err, scale = check_close("[legacy] (c) append_tensors card vs CPU",
+                                 y, y_cpu, F32_TOL)
+    print(f"[legacy] (c) append_tensors: 2 scenes of {MID_CAPS[0]} rows, "
+          f"counts {merged_x.num_active}; the convolution over the merged "
+          f"plan (#9 launched {launches['gather_conv']} time) equals each "
+          f"scene's own (bit for bit: {bitwise}), card against CPU "
+          f"{err:.3e} of max {scale:.3e}")
+    out["append_launches"] = launches
+    return out
+
+
+def phase_legacy(dev):
+    """[legacy]: the sparseconvnet facade (`occuseg_tpu_torch/legacy.py`)
+    at full width: (a) `legacy_docstring`, (b) and (c)
+    `legacy_leaky_and_tables`."""
+    t0 = time.perf_counter()
+    out = dict(docstring=legacy_docstring(dev))
+    out.update(legacy_leaky_and_tables(dev))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[legacy] all parts passed in {out['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
+def gates_checkpoint(dev, tmp):
+    """[gates] (a): the checkpoint-parity gate (`scripts/
+    checkpoint_parity.py`) on a reference-format m=64 `.pth` made by the
+    torch oracle with seeded weights: exit 0 with all seven heads under its
+    TOL (the port's model on the card: 33 chunk forwards and one segment
+    sum); not 0 with one key removed from the file; 1 when the imported
+    model differs from the file by 1e-2 in one weight (the semantic head's
+    first bias)."""
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from occuseg_tpu_torch.native.plan import build_plan_host
+    from occuseg_tpu_torch.infer import plan_scene
+    from occuseg_tpu_torch.scripts import checkpoint_parity as gate
+    probe = make_batch(SceneConfig(num_points=6000, extent=96,
+                                   num_objects=8), 1, gate.P_CAP, 16, seed=11)
+    plan = build_plan_host(probe["coords"], PlanSpec(caps=gate.PROBE_CAPS))
+    m = N_PLANES[0]
+    torch.manual_seed(0)
+    oracle = gate.load_oracle()(tuple(m * i for i in range(1, 7)), 20, plan,
+                                in_ch=3, reps=1)
+    pth = os.path.join(tmp, f"oracle_m{m}.pth")
+    torch.save(oracle.state_dict(), pth)
+    argv = ["--m", str(m), "--residual_blocks", "--use_dense_model",
+            "--skip_eval"]
+    seen = {}
+    real_diff, real_load = gate.activation_diff, gate.load_baseline_checkpoint
+
+    def recorded(*a):
+        seen.update(real_diff(*a))
+        return seen
+
+    def perturbed(path, model, *a):
+        out = real_load(path, model, *a)
+        with torch.no_grad():
+            model.backbone.linear.bias[0] += 1e-2
+        return out
+    gate.activation_diff = recorded
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        code = gate.main(["--checkpoint_file", pth, *argv], device=dev)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        print(f"[gates] (a) oracle m={m} .pth: exit {code} in {seconds:.1f} "
+              f"s; max|diff| per head " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in seen.items())
+              + f" (TOL {gate.TOL}); launches {launches}")
+        check(code == 0 and len(seen) == 7
+              and max(seen.values()) < gate.TOL, f"[gates] (a) exit {code}, "
+              f"differences {seen}")
+        layout = plan_scene(probe["coords"], PlanSpec(
+            caps=gate.PROBE_CAPS)).vox_seg is not None
+        check(launches["chunk_conv"] == 33
+              and launches["blocked_segment_sum"] == int(layout),
+              f"[gates] (a) launches {launches}")
+        sd = torch.load(pth)
+        del sd["backbone.sub.weight"]
+        missing = os.path.join(tmp, "missing.pth")
+        torch.save(sd, missing)
+        code_missing = gate.main(["--checkpoint_file", missing, *argv],
+                                 device=dev)
+        gate.load_baseline_checkpoint = perturbed
+        seen.clear()
+        code_perturbed = gate.main(["--checkpoint_file", pth, *argv],
+                                   device=dev)
+    finally:
+        gate.activation_diff = real_diff
+        gate.load_baseline_checkpoint = real_load
+    print(f"[gates] (a) one key removed: exit {code_missing}; one weight "
+          f"perturbed by 1e-2: exit {code_perturbed} (semantics max|diff| "
+          f"{seen.get('semantics', float('nan')):.2e})")
+    check(code_missing != 0, "[gates] (a) a missing key passed the gate")
+    check(code_perturbed == 1, f"[gates] (a) a perturbed weight: exit "
+          f"{code_perturbed}")
+    return dict(seconds=seconds, max_diff=seen and max(seen.values()),
+                launches=launches)
+
+
+SEMANTIC_FLAGS = ("--m", "64", "--residual_blocks", "--batch_size", "4",
+                  "--plan_workers", "4", "--max_epoch", "1")
+
+
+def gates_semantic(dev, tmp):
+    """[gates] (b) `train_semantic` at m=64, f32, 2 steps of 4 synthetic
+    scenes, checkpoint and eval; (c) `test_semantic` from its checkpoint
+    writes one file of NYU40 ids per synthetic val scene, and
+    `fake_judge` scores them against the scenes' labels: its confusion
+    equal to one rebuilt here from the same files."""
+    import numpy as np
+    from occuseg_tpu_torch.scripts import fake_judge, test_semantic
+    from occuseg_tpu_torch.scripts import train_semantic
+    from occuseg_tpu_torch.train import loop
+    from occuseg_tpu_torch.train.config import args_to_config, get_parser
+    argv = [*SEMANTIC_FLAGS, "--data_dir", os.path.join(tmp, "no_scenes"),
+            "--checkpoints_dir", os.path.join(tmp, "sem_ckpts"),
+            "--taskname", "sem"]
+    zero_launches()
+    t0 = time.perf_counter()
+    result = train_semantic.main(argv, device=dev, max_steps=2)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    tm = result["timings"]
+    print(f"[gates] (b) train_semantic: {result['steps']} steps (ms "
+          f"{', '.join(f'{t:.1f}' for t in tm['step_ms'])}) and the eval in "
+          f"{train_s:.1f} s; losses {result['losses']}; val mean IoU "
+          f"{result['metrics']['mean_iou']:.4f}; launches {launches}")
+    check(result["steps"] == 2 and all(
+        v == v and abs(v) != float("inf") for v in result["losses"].values()),
+        f"[gates] (b) {result['steps']} steps, losses {result['losses']}")
+    check(type(result["model"]).__name__ == "InstanceDenseUNet",
+          "[gates] (b) not the InstanceDenseUNet")
+    # (the synthetic 4-scene batches' plans have no sorted point layout,
+    # as [loop]'s: the InputLayer scatters, no #2)
+    check(launches["chunk_conv"] > 0 and launches["chunk_conv_bwd_fused"] > 0,
+          f"[gates] (b) launches {launches}")
+
+    out_dir = os.path.join(tmp, "submission")
+    t0 = time.perf_counter()
+    files = test_semantic.main([*argv, "--checkpoint_file",
+                                result["ckpt_dir"], "--out_dir", out_dir,
+                                "--val_reps", "1"], device=dev)
+    test_s = time.perf_counter() - t0
+    config = args_to_config(get_parser().parse_args(argv))
+    gt_dir = os.path.join(tmp, "gt")
+    os.makedirs(gt_dir)
+    rebuilt = np.zeros((20, 20), np.int64)
+    vals = loop._synthetic_dataset(config).val_batches(
+        config["point_cap"], config["instance_cap"], 1)
+    for fn, raw in zip(files, vals):
+        valid = raw["coords"][:, 0] >= 0
+        gt = raw["labels"][valid].astype(np.int64)
+        np.savetxt(os.path.join(gt_dir, os.path.basename(fn)), gt, fmt="%d")
+        pred = np.loadtxt(fn, dtype=np.int64)
+        check(pred.shape == gt.shape and set(np.unique(pred)) <= set(
+            test_semantic.SELECTED_LABEL_IDS), f"[gates] (c) {fn}")
+        keep = (gt >= 0) & (gt < 20)
+        rebuilt += np.bincount(gt[keep] * 20 + np.clip(pred[keep], 0, 19),
+                               minlength=400).reshape(20, 20)
+    judged = fake_judge.main(["--pred_dir", out_dir, "--gt_dir", gt_dir])
+    print(f"[gates] (c) test_semantic wrote {len(files)} files in "
+          f"{test_s:.1f} s; fake_judge mean IoU {judged['mean_iou']:.4f} "
+          f"over {int(judged['confusion'].sum())} points (NYU40 ids scored "
+          f"as class indices, as the JAX scripts do: ROADMAP C item 4)")
+    check(len(files) == len(loop._synthetic_dataset(config).val),
+          f"[gates] (c) {len(files)} files")
+    check(np.array_equal(judged["confusion"], rebuilt),
+          "[gates] (c) fake_judge's confusion differs from the rebuilt one")
+    return dict(train_s=train_s, step_ms=tm["step_ms"], test_s=test_s,
+                launches=launches)
+
+
+def phase_gates(dev, tmp):
+    """[gates]: (a) `gates_checkpoint`, (b) and (c) `gates_semantic`; (d),
+    the accuracy floor, runs inside [ap_gate]."""
+    t0 = time.perf_counter()
+    out = dict(checkpoint=gates_checkpoint(dev, tmp),
+               semantic=gates_semantic(dev, tmp))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[gates] all parts passed in {out['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
+DP_FLAGS = ("--m", "64", "--use_dense_model", "--residual_blocks",
+            "--batch_size", "8", "--num_devices", "2", "--plan_workers", "2")
+DP_STEPS = 3
+
+
+def _dp_setup(tmp, flags, n_groups):
+    """(config, spec, the first `n_groups` groups of [loop]'s synthetic
+    epoch at 4 scenes a rank) for the command line `flags`, checkpoints
+    under `tmp`."""
+    import itertools
+
+    import numpy as np
+    from occuseg_tpu_torch.parallel.data_parallel import dp_groups
+    from occuseg_tpu_torch.train import loop
+    from occuseg_tpu_torch.train.config import args_to_config, get_parser
+    config = args_to_config(get_parser().parse_args(
+        [*flags, "--data_dir", os.path.join(tmp, "no_scenes"),
+         "--checkpoints_dir", os.path.join(tmp, "dp_ckpts")]))
+    ds = loop._synthetic_dataset(config)
+    batches = ds.train_batches(np.random.default_rng(100),
+                               config["point_cap"], config["instance_cap"],
+                               config["batch_size"] // 2)
+    groups = [g for g, _ in itertools.islice(dp_groups(batches, 2),
+                                             n_groups)]
+    return config, loop.build_spec(config), groups
+
+
+def _host_copy(t):
+    """A copy on the host, never a view (as `.cpu()` of a CPU tensor)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _snapshot(trainer, parts):
+    m = trainer.model
+    return dict(parts={k: float(v) for k, v in parts.items()},
+                params=[_host_copy(p) for p in m.parameters()],
+                grads=[_host_copy(p.grad) for p in m.parameters()],
+                stats=[_host_copy(b) for b in m.buffers()])
+
+
+def _dp_rank(rank, world, tmp, flags, dev):
+    """One [dp] rank on `dev` (spawned): the training loop itself,
+    `loop.train`, for DP_STEPS steps of the rank's member of each group
+    (its pinned plan from the loop's PlanPool, its loss weight passed
+    beside it), rank 0 checkpointing at the end; the state after the
+    first step saved through `on_start`'s hook on `Trainer.step`. Then,
+    from the initial weights, the remainder group (rank 1 a weight-0 copy
+    of rank 0's batch) through `Trainer.step`. Returns rank 0's step ms,
+    launches and losses."""
+    from occuseg_tpu_torch.train import loop
+    from occuseg_tpu_torch.train.state import prepare_batch
+    config, spec, groups = _dp_setup(tmp, flags, 1)
+    ns = config["batch_size"] // 2
+    first = {}
+
+    def on_start(trainer):
+        step = trainer.step
+
+        def step_and_keep_the_first(raw, plan, weight=None, group=None):
+            parts = step(raw, plan, weight=weight, group=group)
+            if not first:
+                first.update(_snapshot(trainer, parts), weight=weight)
+            return parts
+        trainer.step = step_and_keep_the_first
+        zero_launches()
+    result = loop.train(config, max_steps=DP_STEPS, device=dev,
+                        on_start=on_start)
+    launches = read_launches()
+    check(result["steps"] == DP_STEPS and first["weight"] == 1.0,
+          f"[dp] rank {rank}: {result['steps']} steps, the first at weight "
+          f"{first.get('weight')}")
+    trainer = loop.build_trainer(config, dev, ns)
+    laid, plan = prepare_batch(groups[0][0], spec, ns)
+    parts = trainer.step(laid, plan, weight=1.0 if rank == 0 else 0.0)
+    if rank != 0:
+        return None
+    torch.save(first, os.path.join(tmp, "dp_step1.pt"))
+    torch.save(_snapshot(trainer, parts),
+               os.path.join(tmp, "dp_remainder.pt"))
+    return dict(step_ms=result["timings"]["step_ms"], launches=launches,
+                losses=result["losses"],
+                ckpt=os.path.exists(os.path.join(result["ckpt_dir"],
+                                                 "step_1.pth")))
+
+
+def _adam_from(trainer, init, grads, config):
+    """The parameters one Adam update of the loop's optimizer makes from
+    the state dict `init` with `grads`, on the trainer's device."""
+    from occuseg_tpu_torch.train.state import TrainConfig, make_optimizer
+    model = trainer.model
+    model.load_state_dict(init)
+    params = list(model.parameters())
+    for p, g in zip(params, grads):
+        p.grad = g.to(p.device)
+    opt, _ = make_optimizer(params, TrainConfig(lr=config["lr"]))
+    opt.step()
+    return [_host_copy(p) for p in params]
+
+
+def _close_states(label, got, ref, names, adam):
+    """A data-parallel step's loss parts and BN statistics within
+    PARITY_TOL of `ref`'s, its gradients within [parity]'s gradient
+    tolerances of them, and its parameters within PARITY_TOL of `adam`,
+    Adam's update from its own gradients: Adam's first update, lr * g /
+    (|g| + 1e-8), turns a gradient's rounding near 0 into a step of up to
+    lr, so the parameters are held to the update of the gradient and the
+    gradient to the reference. Returns the gradients' norm share and
+    worst tensor, whether every tensor equals `ref`'s bit for bit, and
+    how many parameter entries differ from `ref`'s by more than
+    PARITY_TOL of their tensor's max."""
+    for k, c in ref["parts"].items():
+        g = got["parts"][k]
+        tol = 1e-2 if k == "instance_iou" else PARITY_TOL * abs(c) + 1e-6
+        check(abs(g - c) <= tol, f"{label} {k}: {g} vs {c}")
+    g_glob, worst = _grad_check(label, got["grads"], ref["grads"], names)
+    for key, want in (("stats", ref["stats"]), ("params", adam)):
+        for a, b in zip(got[key], want):
+            check((a - b).abs().max().item()
+                  <= PARITY_TOL * b.abs().max().item() + 1e-6,
+                  f"{label} {key}")
+    apart = sum(int(((a - b).abs() > PARITY_TOL * b.abs().max()).sum())
+                for a, b in zip(got["params"], ref["params"]))
+    bitwise = got["parts"] == ref["parts"] and all(
+        torch.equal(a, b) for k in ("params", "grads", "stats")
+        for a, b in zip(got[k], ref[k]))
+    return g_glob, worst, bitwise, apart
+
+
+def phase_dp(dev, tmp, loop_med):
+    """[dp]: data parallelism on one card: two spawned ranks on cuda:0
+    joined over gloo (NCCL refuses two ranks on one device), each running
+    the training loop (`loop.train`) on its 4 synthetic 20k-point scenes
+    of [loop]'s epoch (m=64, f32, OCC_PALLAS_BCE=1) for DP_STEPS steps.
+    Held against one process on the same card: after step 1, the two
+    ranks' single-process gradients' mean (and the BN statistics' and
+    loss parts' means), then Adam; the remainder group (rank 1 a weight-0
+    copy) against rank 0's single-process step, with the single-process
+    step against itself beside it. The DP step's median beside
+    [loop]'s."""
+    from occuseg_tpu_torch.losses.instance import occuseg_total_loss
+    from occuseg_tpu_torch.parallel import data_parallel
+    from occuseg_tpu_torch.train import loop
+    from occuseg_tpu_torch.train.state import (
+        _BATCH_KEYS, TrainConfig, make_optimizer, prepare_batch,
+    )
+    os.environ["OCC_PALLAS_BCE"] = "1"
+    t0 = time.perf_counter()
+    rank0 = data_parallel.spawn(_dp_rank, 2, dev, tmp, DP_FLAGS, dev,
+                                backend="gloo")[0]
+    spawn_s = time.perf_counter() - t0
+    config, spec, groups = _dp_setup(tmp, DP_FLAGS, 1)
+    ns = config["batch_size"] // 2
+
+    # the reference: each rank's batch stepped alone from the initial
+    # weights, gradients, statistics and parts averaged, then Adam
+    trainer = loop.build_trainer(config, dev, ns)
+    model = trainer.model
+    init = copy.deepcopy(model.state_dict())
+    params = list(model.parameters())
+    sums = None
+    for member in groups[0]:
+        model.load_state_dict(init)
+        laid, plan = prepare_batch(member, spec, ns)
+        b = {k: torch.as_tensor(laid[k]).to(dev) for k in _BATCH_KEYS}
+        out = model.train()(b["features"], plan.to(dev))
+        total, parts = occuseg_total_loss(out, b, ns,
+                                          config["instance_cap"],
+                                          trainer.loss_cfg)
+        grads = torch.autograd.grad(total, params)
+        this = ([g.detach() for g in grads],
+                [s.detach().clone() for s in model.buffers()],
+                {k: float(v.detach()) for k, v in parts.items()})
+        sums = this if sums is None else (
+            [a + c for a, c in zip(sums[0], this[0])],
+            [a + c for a, c in zip(sums[1], this[1])],
+            {k: sums[2][k] + v for k, v in this[2].items()})
+    model.load_state_dict(init)
+    with torch.no_grad():
+        for s, m in zip(model.buffers(), sums[1]):
+            s.copy_(m / 2)
+    for p, g in zip(params, sums[0]):
+        p.grad = g / 2
+    opt, _ = make_optimizer(params, TrainConfig(lr=config["lr"]))
+    opt.step()
+    ref = dict(parts={k: v / 2 for k, v in sums[2].items()},
+               params=[_host_copy(p) for p in params],
+               grads=[_host_copy(p.grad) for p in params],
+               stats=[_host_copy(b) for b in model.buffers()])
+    names = [n for n, _ in model.named_parameters()]
+    n_entries = sum(p.numel() for p in params)
+    got = torch.load(os.path.join(tmp, "dp_step1.pt"))
+    g_glob, worst, bitwise, apart = _close_states(
+        "[dp] step 1", got, ref, names,
+        _adam_from(trainer, init, got["grads"], config))
+    print(f"[dp] 2 ranks on {dev} over gloo, loop.train for {DP_STEPS} "
+          f"steps of {ns} scenes each ({spawn_s:.1f} s with the spawn; "
+          f"rank 0's losses {rank0['losses']}, its checkpoint written: "
+          f"{rank0['ckpt']}); after step 1 "
+          f"against the one-process mean then Adam: loss parts "
+          f"{got['parts']} vs {ref['parts']}; gradients {g_glob:.3e} of "
+          f"the norm, worst tensor {worst:.3e}; statistics within "
+          f"{PARITY_TOL}, parameters within it of Adam on the reduced "
+          f"gradients ({apart} of {n_entries} entries past it from the "
+          f"reference's Adam, a gradient within rounding of 0); bit for "
+          f"bit: {bitwise}")
+
+    laid, plan = prepare_batch(groups[0][0], spec, ns)
+    singles = []
+    for _ in range(3):   # the step's own run-to-run spread
+        single = loop.build_trainer(config, dev, ns)
+        singles.append(_snapshot(single, single.step(laid, plan)))
+    rem = torch.load(os.path.join(tmp, "dp_remainder.pt"))
+    r_glob, r_worst, r_bitwise, r_apart = _close_states(
+        "[dp] remainder", rem, singles[0], names,
+        _adam_from(trainer, init, rem["grads"], config))
+    s_globs = [_glob(other["grads"], singles[0]["grads"])
+               for other in singles[1:]]
+    s_bitwise = all(torch.equal(a, b) for other in singles[1:]
+                    for k in ("params", "grads", "stats")
+                    for a, b in zip(singles[0][k], other[k]))
+    print(f"[dp] remainder group (rank 1 at weight 0) against rank 0's "
+          f"single-process step: gradients {r_glob:.3e} of the norm, "
+          f"{r_apart} parameter entries apart; bit for bit: {r_bitwise} "
+          f"(the single-process step run again against its first run: "
+          f"gradients {', '.join(f'{g:.3e}' for g in s_globs)} of the "
+          f"norm, bit for bit: {s_bitwise})")
+    ms = rank0["step_ms"]
+    med = sorted(ms)[len(ms) // 2]
+    print(f"[dp] rank 0's step ms {', '.join(f'{t:.1f}' for t in ms)} "
+          f"(median {med:.1f}, the first a warm-up) beside [loop]'s median "
+          f"{loop_med:.1f} (one process); rank 0's launches {rank0['launches']}")
+    launches = rank0["launches"]
+    for k in ("chunk_conv", "chunk_conv_bwd_fused", "bce_radius", "bce_fwd",
+              "bce_bwd"):
+        check(launches[k] > 0, f"[dp] {k} was not launched on a rank")
+    check(rank0["ckpt"] and all(math.isfinite(v)
+                                for v in rank0["losses"].values()),
+          "[dp] rank 0's checkpoint or losses")
+    os.environ.pop("OCC_PALLAS_BCE")
+    torch.cuda.empty_cache()
+    return dict(step_ms=ms, median_ms=med, loop_ms=loop_med,
+                launches=launches, grad_global=g_glob, bitwise=bitwise,
+                params_apart=apart, remainder_global=r_glob,
+                remainder_bitwise=r_bitwise, single_globals=s_globs,
+                single_bitwise=s_bitwise, seconds=spawn_s)
 
 
 def main() -> int:
@@ -4412,6 +5140,12 @@ def main() -> int:
         phase_gather(dev, tmp, tot, loop_med, loop_plan)
     planner = phase_planner(dev, tot, train_med)
     families = phase_families(dev, train_med)
+    legacy = phase_legacy(dev)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=os.path.dirname(
+                                         os.path.abspath(__file__))) as tmp:
+        gates = phase_gates(dev, tmp)
+        dp = phase_dp(dev, tmp, loop_med)
     gate = phase_ap_gate(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
@@ -4429,32 +5163,51 @@ def main() -> int:
 
     fused = launches["chunk_conv_bwd_fused"]
     grouped = launches["chunk_conv_bwd_fused_kgrouped"]
+    # this slice's paths, each counted from 0 around its own run: the
+    # facade's bf16 step, the checkpoint gate's forward, two
+    # train_semantic steps and its eval, a [dp] rank's 3 steps
+    slice_runs = dict(legacy=legacy["docstring"]["launches"],
+                      checkpoint_gate=gates["checkpoint"]["launches"],
+                      train_semantic=gates["semantic"]["launches"],
+                      dp_rank0=dp["launches"])
+
+    def paths(name, less=None):
+        return {k: v[name] - (v[less] if less else 0)
+                for k, v in slice_runs.items()}
     # the DenseUNet_BN step of [families] (b): the launches counted in
     # its first timed step (seed 0)
     dense = dict(dense_unet_bn_launches_per_step=families["dense_unet_bn"][
         "launches_per_step"])
     print(json.dumps({"kernels": [
         entry("chunk_conv_fwd", "chunk_conv", "chunk_conv.cu",
-              "chunk_conv.py:671", launches["chunk_conv"], families=dense),
+              "chunk_conv.py:671", launches["chunk_conv"], families=dense,
+              legacy_gates_dp=paths("chunk_conv")),
         entry("blocked_segment_sum", "blocked_segment_sum", "segsum.cu",
               "segsum.py:67", launches["blocked_segment_sum"],
-              shapes=tot.segsum_shapes, families=dense),
+              shapes=tot.segsum_shapes, families=dense,
+              legacy_gates_dp=paths("blocked_segment_sum")),
         entry("chunk_conv_bwd_fused (#3 shapes)", "#3", "chunk_conv_bwd.cu",
-              "chunk_conv.py:442", fused - grouped, families=dense),
+              "chunk_conv.py:442", fused - grouped, families=dense,
+              legacy_gates_dp=paths("chunk_conv_bwd_fused",
+                                    "chunk_conv_bwd_fused_kgrouped")),
         entry("chunk_conv_bwd_fused (#4 shapes)", "#4", "chunk_conv_bwd.cu",
-              "chunk_conv.py:568", grouped, families=dense),
+              "chunk_conv.py:568", grouped, families=dense,
+              legacy_gates_dp=paths("chunk_conv_bwd_fused_kgrouped")),
         entry("chunk_conv_dw", "chunk_conv_dw", "chunk_conv_bwd.cu",
               "chunk_conv.py:720", launches["chunk_conv_dw"],
-              families=dense),
+              families=dense, legacy_gates_dp=paths("chunk_conv_dw")),
         # the training CLI's path: once each per step; beside them the
         # port's [P, I] chain, forward and backward (not a library call)
         entry("bce_radius", "bce_radius", "bce_loss.cu", "bce_loss.py:227",
-              loop_launches["bce_radius"], cases=tot.radius_cases),
+              loop_launches["bce_radius"], cases=tot.radius_cases,
+              legacy_gates_dp=paths("bce_radius")),
         entry("bce_fwd", "bce_fwd", "bce_loss.cu", "bce_loss.py:258",
-              loop_launches["bce_fwd"], chain_ms=tot.chain_ms[0]),
+              loop_launches["bce_fwd"], chain_ms=tot.chain_ms[0],
+              legacy_gates_dp=paths("bce_fwd")),
         entry("bce_bwd", "bce_bwd", "bce_loss.cu", "bce_loss.py:289",
               loop_launches["bce_bwd"], max_abs_err_of=tot.bce_bwd_err_of,
-              chain_ms=tot.chain_ms[1] - tot.chain_ms[0]),
+              chain_ms=tot.chain_ms[1] - tot.chain_ms[0],
+              legacy_gates_dp=paths("bce_bwd")),
         # the normal-guided convolutions of the CLI at level 0, per step
         # (f32); beside them L3-L5 of the bench plan in bf16
         entry("gather_conv", "gather_conv_cli", "gather_conv.cu",
@@ -4470,6 +5223,8 @@ def main() -> int:
               # the device planner's path: #9's roles there, the launches
               # of a device-planned step and its times
               planner=planner,
+              legacy_gates_dp=dict(paths("gather_conv"), append_tensors=legacy[
+                  "append_launches"]["gather_conv"]),
               # [families]: #9 on a randomized plan's jittered maps, and
               # its launches in the builders, the randomized-stride net
               # and the classification harness

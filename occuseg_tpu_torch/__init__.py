@@ -10,9 +10,12 @@ the UNet), `models/` (the OccuSeg model family), `losses/` (the 6-term
 training loss), `train/` (optimizer, host batch preparation, the training
 step, the loop, checkpoints and the CLI), `utils/` (metrics, counters),
 `cluster/` (supervoxel aggregation, mean-shift, occupancy merge, joint
-refinement, proposals and the instance metrics), `convert.py` (flax
-weights to a state_dict), `infer.py` (host preparation and the predictor)
-and `evaluate_instance.py` (the instance-evaluation entry point).
+refinement, proposals and the instance metrics), `parallel/` (data
+parallelism over ranks), `convert.py` (flax weights to a state_dict),
+`infer.py` (host preparation and the predictor), `evaluate_instance.py`
+(the instance-evaluation entry point), `legacy.py` (the
+sparseconvnet-compatible facade) and `scripts/` (semantic training and
+test, the offline judge, the checkpoint-parity gate).
 
 This package imports torch and numpy only — never jax, flax or
 `occuseg_tpu`, whose import turns on jax's x64 mode.

@@ -3,7 +3,10 @@
 The JAX package's `params` and `batch_stats` trees (nested dicts of NumPy
 arrays, e.g. `jax.tree.map(np.asarray, variables["params"])`) map one to
 one onto module paths: `backbone/backbone/unet/enc0/conv1/weight` becomes
-`backbone.backbone.unet.enc0.conv1.weight`. Convolution, NIN and BN
+`backbone.backbone.unet.enc0.conv1.weight`, and a model of the
+sparseconvnet facade's `layers_0/branches_1/weight` becomes
+`layers_0.branches_1.weight` (`legacy.py` names its children as flax
+names a tuple's members). Convolution, NIN and BN
 parameters keep their shapes; a Dense `kernel` [in, out] becomes a Linear
 `weight` [out, in] (a SpectralDense's too).
 """

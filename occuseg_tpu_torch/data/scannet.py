@@ -22,6 +22,7 @@ scene file that cannot be read makes `load_data` raise and name it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import glob
 import math
 import os
@@ -275,10 +276,28 @@ class ScanNetData:
     def train_batches(self, rng: np.random.Generator, p_cap: int,
                       i_cap: int, batch_size: int):
         """Generator over one epoch of shuffled padded batches."""
+        for make in self.train_batch_makers(rng, p_cap, i_cap, batch_size):
+            yield make()
+
+    def train_batch_makers(self, rng: np.random.Generator, p_cap: int,
+                           i_cap: int, batch_size: int,
+                           own_rng: bool = False):
+        """One epoch's batches as calls that make them. Without `own_rng`
+        each call augments from `rng` and must be made before the next
+        is drawn (`train_batches`); with it, each draws from a generator
+        of its own, seeded from `rng` as it is yielded, so a call never
+        made (another data-parallel rank's batch) leaves `rng` as every
+        rank has it, and a call made twice makes the same batch."""
         order = rng.permutation(len(self.train))
         for start in range(0, len(order), batch_size):
-            ids = order[start:start + batch_size]
-            yield self._make_batch(ids, rng, True, p_cap, i_cap)
+            seed = int(rng.integers(1 << 62)) if own_rng else None
+            yield functools.partial(self._make_seeded,
+                                    order[start:start + batch_size], rng,
+                                    seed, p_cap, i_cap)
+
+    def _make_seeded(self, ids, rng, seed, p_cap, i_cap):
+        r = rng if seed is None else np.random.default_rng(seed)
+        return self._make_batch(ids, r, True, p_cap, i_cap)
 
     def val_batches(self, p_cap: int, i_cap: int, batch_size: int,
                     val_rep: int = 0):

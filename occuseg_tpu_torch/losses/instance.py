@@ -336,9 +336,13 @@ def occuseg_total_loss(outputs, batch: Dict[str, torch.Tensor],
                        cfg: LossConfig = LossConfig()
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The 6-term training loss: (total, parts). `outputs` is an
-    OccuSegOutputs with bw and occupancy; batch holds, per point (padding
-    rows label = instance = -1): labels, instance_id, point_scene, pose
-    [P, 3], offsets [P, 1], displacements [P, 3], occupancy [P, 1]."""
+    OccuSegOutputs; batch holds, per point (padding rows label = instance
+    = -1): labels, instance_id, point_scene, pose [P, 3], offsets [P, 1],
+    displacements [P, 3], occupancy [P, 1]. A model without bw heads (the
+    InstanceDenseUNet that `scripts/train_semantic.py` trains) has no
+    classification term (and an instance IoU of 0), and one without an
+    occupancy head no occupancy term: the JAX package's loss reads both
+    heads and fails on such a model."""
     labels = batch["labels"]
     iid = batch["instance_id"]
     pscene = batch["point_scene"]
@@ -357,16 +361,22 @@ def occuseg_total_loss(outputs, batch: Dict[str, torch.Tensor],
 
     disp_err = _safe_norm(acc(outputs.displacement)
                           - batch["displacements"], dim=1)
-    occ_err = _safe_norm(acc(outputs.occupancy) - batch["occupancy"],
-                         dim=1)
+    occ = (acc(outputs.occupancy) if outputs.occupancy is not None
+           else torch.zeros_like(batch["occupancy"]))
+    occ_err = _safe_norm(occ - batch["occupancy"], dim=1)
     displacement, occupancy = _cluster_losses(
-        disp_err, occ_err, acc(outputs.occupancy), iid, pscene, labels,
-        num_scenes, num_instances, cfg)
+        disp_err, occ_err, occ, iid, pscene, labels, num_scenes,
+        num_instances, cfg)
+    zero = torch.zeros((), dtype=sem.dtype, device=sem.device)
+    if outputs.occupancy is None:
+        occupancy = zero
 
     regressed_pose = batch["pose"] - acc(outputs.displacement)
-    classification, miou = classification_loss(
-        outputs.embedding, outputs.bw, regressed_pose, batch["pose"], iid,
-        pscene, labels, num_scenes, num_instances, cfg)
+    classification, miou = zero, zero
+    if outputs.bw is not None:
+        classification, miou = classification_loss(
+            outputs.embedding, outputs.bw, regressed_pose, batch["pose"],
+            iid, pscene, labels, num_scenes, num_instances, cfg)
 
     total = sem + regression + emb + displacement + classification + occupancy
     parts = {

@@ -33,7 +33,7 @@ from occuseg_tpu_torch.core.sparse_tensor import (
     total_active,
 )
 from occuseg_tpu_torch.core.topology import Topology
-from occuseg_tpu_torch.nn.modules import _he_weight
+from occuseg_tpu_torch.nn.modules import _add_bias, _bias, _he_weight
 from occuseg_tpu_torch.ops import acc
 from occuseg_tpu_torch.ops import conv as conv_ops
 from occuseg_tpu_torch.ops import pool as pool_ops
@@ -404,13 +404,15 @@ class PermutohedralSubmanifoldConvolution(nn.Module):
     reversed, as for the cubic stencil."""
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_bias: bool = False):
         super().__init__()
         offsets = permutohedral_offsets(3)
         self.neg = _negation(offsets)
         K = offsets.shape[0]
         self.weight = _he_weight((K, in_features, out_features), K,
                                  generator)
+        self.bias = _bias(out_features, use_bias)
 
     def _negated(self, lvl, nbr_kn: torch.Tensor) -> torch.Tensor:
         m = lvl.kn.get("nbr_neg")
@@ -427,4 +429,4 @@ class PermutohedralSubmanifoldConvolution(nn.Module):
         nbr = lvl.gather_map("nbr", f.device)
         out = conv_ops.gather_conv_kn(f, nbr, self.weight,
                                       self._negated(lvl, nbr), False)
-        return x.with_features(out)
+        return x.with_features(_add_bias(out, self.bias))

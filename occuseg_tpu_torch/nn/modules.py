@@ -62,6 +62,18 @@ def _he_weight(shape, volume: int, generator: Optional[torch.Generator]):
     return nn.Parameter(torch.randn(shape, generator=generator) * std)
 
 
+def _bias(out_features: int, use_bias: bool) -> Optional[nn.Parameter]:
+    """A zero-initialised bias of every output row, or None."""
+    return nn.Parameter(torch.zeros(out_features)) if use_bias else None
+
+
+def _add_bias(out: torch.Tensor, bias: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+    """out + bias on every row (padding rows too), as the JAX modules add
+    it after their convolution."""
+    return out if bias is None else out + bias.to(out.dtype)
+
+
 def chunk_route(chunks: Optional[ChunkPlan], cout: int) -> bool:
     """Whether a convolution with `cout` output channels over a map with
     chunk rulebook `chunks` (None: none) runs the chunk kernels; where it
@@ -93,12 +105,14 @@ class SubmanifoldConvolution(nn.Module):
 
     def __init__(self, in_features: int, out_features: int, kernel: int = 3,
                  normal_guided: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_bias: bool = False):
         super().__init__()
         K = kernel ** 3
         self.normal_guided = normal_guided
         self.weight = _he_weight((K, in_features, out_features), K,
                                  generator)
+        self.bias = _bias(out_features, use_bias)
 
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
         lvl = plan.levels[x.level]
@@ -114,7 +128,7 @@ class SubmanifoldConvolution(nn.Module):
         else:
             nbr = lvl.gather_map("nbr", f.device)
             out = conv_ops.gather_conv_kn(f, nbr, self.weight, nbr, True)
-        return x.with_features(out)
+        return x.with_features(_add_bias(out, self.bias))
 
 
 class _Transition(nn.Module):
@@ -122,12 +136,14 @@ class _Transition(nn.Module):
     weights (the reference's Convolution / Deconvolution)."""
 
     def __init__(self, in_features: int, out_features: int, size: int,
-                 stride: int, generator: Optional[torch.Generator]):
+                 stride: int, generator: Optional[torch.Generator],
+                 use_bias: bool = False):
         super().__init__()
         self.size, self.stride = size, stride
         K = size ** 3
         self.weight = _he_weight((K, in_features, out_features), K,
                                  generator)
+        self.bias = _bias(out_features, use_bias)
 
     def _transition(self, plan: Topology, t: int):
         tr = plan.transitions[t]
@@ -144,8 +160,10 @@ class Convolution(_Transition):
 
     def __init__(self, in_features: int, out_features: int, size: int = 2,
                  stride: int = 2,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(in_features, out_features, size, stride, generator)
+                 generator: Optional[torch.Generator] = None,
+                 use_bias: bool = False):
+        super().__init__(in_features, out_features, size, stride, generator,
+                         use_bias)
 
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
         tr = self._transition(plan, x.level)
@@ -157,7 +175,7 @@ class Convolution(_Transition):
             out = conv_ops.gather_conv_kn(
                 f, tr.gather_map("child", f.device), self.weight,
                 tr.gather_map("up", f.device), False)
-        return SparseTensor(features=out,
+        return SparseTensor(features=_add_bias(out, self.bias),
                             num_active=plan.levels[x.level + 1].num_active,
                             level=x.level + 1)
 
@@ -168,8 +186,10 @@ class Deconvolution(_Transition):
 
     def __init__(self, in_features: int, out_features: int, size: int = 2,
                  stride: int = 2,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(in_features, out_features, size, stride, generator)
+                 generator: Optional[torch.Generator] = None,
+                 use_bias: bool = False):
+        super().__init__(in_features, out_features, size, stride, generator,
+                         use_bias)
 
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
         if x.level == 0:
@@ -183,7 +203,7 @@ class Deconvolution(_Transition):
             out = conv_ops.gather_conv_kn(
                 f, tr.gather_map("up", f.device), self.weight,
                 tr.gather_map("child", f.device), False)
-        return SparseTensor(features=out,
+        return SparseTensor(features=_add_bias(out, self.bias),
                             num_active=plan.levels[x.level - 1].num_active,
                             level=x.level - 1)
 
@@ -205,13 +225,15 @@ class FullConvolution(nn.Module):
     def __init__(self, in_features: int, out_features: int, size: int = 2,
                  stride: int = 2, cap_out: Optional[int] = None,
                  build_nbr: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_bias: bool = False):
         super().__init__()
         self.size, self.stride = size, stride
         self.cap_out, self.build_nbr = cap_out, build_nbr
         K = size ** 3
         self.weight = _he_weight((K, in_features, out_features), K,
                                  generator)
+        self.bias = _bias(out_features, use_bias)
 
     def forward(self, x: SparseTensor, plan: Topology):
         from occuseg_tpu_torch.core.topology import full_conv_plan
@@ -227,8 +249,9 @@ class FullConvolution(nn.Module):
         new_plan = Topology(levels=(out_lvl,), transitions=(),
                             p2v=torch.full((1,), -1, dtype=torch.int32,
                                            device=f.device), num_points=0)
-        return (SparseTensor(features=out, num_active=out_lvl.num_active,
-                             level=0), new_plan)
+        return (SparseTensor(features=_add_bias(out, self.bias),
+                             num_active=out_lvl.num_active, level=0),
+                new_plan)
 
 
 class TransposeConvolution(FullConvolution):
@@ -243,8 +266,7 @@ class NetworkInNetwork(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.weight = _he_weight((in_features, out_features), 1, generator)
-        self.bias = (nn.Parameter(torch.zeros(out_features)) if use_bias
-                     else None)
+        self.bias = _bias(out_features, use_bias)
 
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
         return x.with_features(conv_ops.nin(x.features, self.weight,

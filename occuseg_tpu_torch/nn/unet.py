@@ -74,32 +74,35 @@ class UNet(nn.Module):
     """Recursive sparse UNet over widths n_planes (one per level);
     `normal_guided` applies to every submanifold convolution, and every
     level change is a convolution of `down_size` and `down_stride` (the
-    plan's transitions must match)."""
+    plan's transitions must match). `leakiness` is every batch norm's
+    activation (0: ReLU)."""
 
     def __init__(self, reps: int, n_planes: Sequence[int],
                  residual_blocks: bool = False, normal_guided: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 down_size: int = 2, down_stride: int = 2):
+                 down_size: int = 2, down_stride: int = 2,
+                 leakiness: float = 0.0):
         super().__init__()
         p = tuple(n_planes)
-        ng = normal_guided
+        ng, lk = normal_guided, leakiness
         self.reps = reps
         self.deep = len(p) > 1
         for i in range(reps):
             self.add_module(f"enc{i}", _Block(p[0], p[0], residual_blocks,
-                                              ng, generator))
+                                              ng, generator, lk))
         if not self.deep:
             return
-        self.down_bn = BatchNormReLU(p[0])
+        self.down_bn = BatchNormalization(p[0], leakiness=lk)
         ds = (down_size, down_stride)
         self.down_conv = Convolution(p[0], p[1], *ds, generator=generator)
-        self.inner = UNet(reps, p[1:], residual_blocks, ng, generator, *ds)
-        self.up_bn = BatchNormReLU(p[1])
+        self.inner = UNet(reps, p[1:], residual_blocks, ng, generator, *ds,
+                          leakiness=lk)
+        self.up_bn = BatchNormalization(p[1], leakiness=lk)
         self.up_conv = Deconvolution(p[1], p[0], *ds, generator=generator)
         for i in range(reps):
             cin = p[0] * (2 if i == 0 else 1)
             self.add_module(f"dec{i}", _Block(cin, p[0], residual_blocks,
-                                              ng, generator))
+                                              ng, generator, lk))
 
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
         for i in range(self.reps):

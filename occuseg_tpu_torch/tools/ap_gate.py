@@ -14,7 +14,11 @@ directly: the per-instance spread of the regressed poses over that of
 the raw poses (`contraction`) of the first seed.
 
 The thresholds are the JAX test's and do not move: mean AP over the seeds
-> 0.6, each seed > 0.35, contraction < 1.5.
+> 0.6, each seed > 0.35, contraction < 1.5. The same soak also holds the
+accuracy floor of `tests/test_accuracy_floor.py` (whose scene and model
+are these): after the first 50 steps of seed 7, the total loss under half
+its first value and under 30, the regression loss under half its first,
+and the instance IoU over 0.3 (`floor_report`).
 
 Widths 8 and 24 are not multiples of 16, so those convolutions take the
 gather path and the 16-wide ones the chunk kernels: one step runs both
@@ -65,6 +69,7 @@ CLASS_SIZES = np.full(20, 100.0, np.float32)
 MEAN_AP_FLOOR = 0.6
 SEED_AP_FLOOR = 0.35
 CONTRACTION_CEIL = 1.5
+FLOOR_STEPS = 50
 
 
 def soak_batch(seed: int) -> Dict[str, np.ndarray]:
@@ -186,12 +191,30 @@ def outputs(s: Soak) -> OccuSegOutputs:
                             for t in out))
 
 
+def floor_report(parts: List[Dict[str, float]]) -> Dict:
+    """The accuracy floor on the loss parts of a soak's first FLOOR_STEPS
+    steps: the first and the last step's parts, each threshold, and
+    whether all hold."""
+    first, last = parts[0], parts[FLOOR_STEPS - 1]
+    checks = dict(
+        total_halved=last["total"] < 0.5 * first["total"],
+        total_under_30=last["total"] < 30.0,
+        regression_halved=(last["regression_loss"]
+                           < 0.5 * first["regression_loss"]),
+        instance_iou_over_0_3=last["instance_iou"] > 0.3)
+    return dict(first=first, last=last, checks=checks,
+                passed=bool(np.isfinite(last["total"])
+                            and all(checks.values())))
+
+
 def run(device="cuda", steps: int = N_STEPS, init=None,
         on_step=None) -> Dict:
     """The gate: per seed its AP, final loss parts and median step ms; the
-    contraction of the first seed; the mean AP and whether every
-    threshold holds. `on_step(seed, i, parts)` runs after each step."""
-    per_seed, contr = {}, None
+    contraction of the first seed; the accuracy floor on the first seed's
+    first FLOOR_STEPS steps (when it runs that many); the mean AP and
+    whether every threshold holds. `on_step(seed, i, parts)` runs after
+    each step."""
+    per_seed, contr, floor = {}, None, None
     for seed in SEEDS:
         s = soak(seed, device, steps, init,
                  None if on_step is None
@@ -202,15 +225,19 @@ def run(device="cuda", steps: int = N_STEPS, init=None,
         if contr is None:
             contr = contraction(out.displacement.float().cpu().numpy(),
                                 s.batch)
+            if steps >= FLOOR_STEPS:
+                floor = floor_report(s.parts)
         per_seed[seed] = dict(ap=ap, parts=s.parts[-1] if s.parts else {},
                               step_ms=float(np.median(s.step_ms))
                               if s.step_ms else None)
     aps = [r["ap"] for r in per_seed.values()]
     mean_ap = float(np.mean(aps))
     return dict(seeds=per_seed, mean_ap=mean_ap, contraction=contr,
+                floor=floor,
                 passed=bool(mean_ap > MEAN_AP_FLOOR
                             and min(aps) > SEED_AP_FLOOR
-                            and contr < CONTRACTION_CEIL))
+                            and contr < CONTRACTION_CEIL
+                            and (floor is None or floor["passed"])))
 
 
 def main(argv=None) -> int:

@@ -1,4 +1,4 @@
-"""Training and evaluation loop on one card (counterpart of
+"""Training and evaluation loop (counterpart of
 `occuseg_tpu/train/loop.py`).
 
     python -m occuseg_tpu_torch.train.cli --data_dir DIR --m 64 \
@@ -23,22 +23,33 @@ retention, and the semantic eval. `--checkpoint_file` (config "load")
 resumes from a checkpoint of the port, or imports the weights and BN
 statistics of the reference's `.pth`/`.pt` file (`train/torch_import.py`).
 
-One card only: `--num_devices` > 1 and `--spatial_shards` > 1 raise
-(ROADMAP A9). The entry points run on "cuda" and raise where there is no
-card, unless the caller passes device="cpu". Unlike the JAX loop, a scene
-file that cannot be read and a failing snapshot eval are not caught: they
-stop the run.
+Called in a process that has joined an n-rank process group
+(`parallel/data_parallel.py`; `train.cli` spawns the ranks for
+`--num_devices`, or joins torchrun's), `train` is one rank of it: the
+epoch's batches of batch_size / n scenes go to the ranks in groups of n
+(the remainder group padded at loss weight 0), each rank makes, plans and
+steps only its own member, and one all-reduce a step averages the
+gradients, loss parts and BN statistics; rank 0 alone logs, checkpoints
+and evaluates, and the others wait for it at a barrier. Otherwise it
+trains on one device.
+`--spatial_shards` > 1 raises (not ported, ROADMAP A item 5). The entry
+points run on "cuda" and raise where there is no card, unless the caller
+passes device="cpu". Unlike the JAX loop, a scene file that cannot be
+read and a failing snapshot eval are not caught: they stop the run.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
+from collections import deque
 from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from occuseg_tpu_torch.core.topology import PlanSpec
 from occuseg_tpu_torch.data.scannet import ScanNetData
@@ -51,6 +62,7 @@ from occuseg_tpu_torch.losses.semantic import (
     STANFORD_CE_WEIGHTS,
 )
 from occuseg_tpu_torch.models import InstanceDenseUNet, LearningBWDenseUNet
+from occuseg_tpu_torch.parallel import data_parallel
 from occuseg_tpu_torch.train import checkpoint as ckpt
 from occuseg_tpu_torch.train.config import plan_caps
 from occuseg_tpu_torch.train.state import TrainConfig, Trainer
@@ -66,8 +78,6 @@ from occuseg_tpu_torch.utils.profiling import (
 )
 
 log = logging.getLogger("occuseg_tpu_torch")
-
-_NOT_PORTED = "not ported yet (ROADMAP {})"
 
 
 def _device(device) -> torch.device:
@@ -115,9 +125,17 @@ def _synthetic_dataset(config: Dict):
                                      scale=config["scale"])
 
         def train_batches(self, rng, p_cap, i_cap, batch_size):
+            for make in self.train_batch_makers(rng, p_cap, i_cap,
+                                                batch_size):
+                yield make()
+
+        def train_batch_makers(self, rng, p_cap, i_cap, batch_size,
+                               own_rng=False):
+            # each batch is made from its seed alone
             for _ in range(0, len(self.train), batch_size):
-                yield make_batch(self.scene, min(batch_size, 4), p_cap,
-                                 i_cap, seed=int(rng.integers(1 << 30)))
+                yield functools.partial(
+                    make_batch, self.scene, min(batch_size, 4), p_cap, i_cap,
+                    seed=int(rng.integers(1 << 30)))
 
         def val_batches(self, p_cap, i_cap, batch_size, val_rep=0):
             for s in range(0, len(self.val), batch_size):
@@ -179,32 +197,25 @@ def _restore(trainer: Trainer, path: str, config: Dict) -> str:
     return path
 
 
-def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
-          on_start: Optional[Callable[[Trainer], None]] = None) -> Dict:
-    """Train on one device. Returns dict(trainer, model, spec, steps,
-    losses (the last epoch's mean loss parts), timings, ckpt_dir):
-    timings["wait_ms"] is the time this thread waited for each
-    prepared batch, timings["step_ms"] each step's time to its loss values
-    on the host (the upload, the step and a synchronization).
-    `on_start(trainer)` runs once, after any restore, before the first
-    step."""
-    if int(config.get("num_devices") or 1) > 1:
-        raise NotImplementedError("--num_devices > 1: data parallelism is "
-                                  + _NOT_PORTED.format("A9"))
-    if int(config.get("spatial_shards", 0) or 0) > 1:
-        raise NotImplementedError("--spatial_shards > 1: spatial sharding "
-                                  "is " + _NOT_PORTED.format("A9"))
-    dev = _device(device)
-    rng = np.random.default_rng(100)  # the reference's seed
-    model = build_model(config, torch.Generator().manual_seed(0))
-    spec = build_spec(config)
-    dataset = get_dataset(config)
-    p_cap = config["point_cap"]
-    i_cap = config["instance_cap"]
-    batch_per_dev = max(int(config["batch_size"]), 1)
-    # multi-scene batches take the blocked layout (native/blocked.py)
-    blocked_ns = (batch_per_dev if batch_per_dev > 1
-                  and config.get("blocked_batch", True) else 1)
+def _ranks(config: Dict) -> Tuple[int, int]:
+    """(rank, ranks) of this process: its place in the process group it
+    has joined, (0, 1) when none. An explicit --num_devices n > 1 must be
+    that group's size (the launchers, `train.cli` and torchrun, start and
+    join the ranks; `train` does not)."""
+    rank, n = data_parallel.world()
+    requested = int(config.get("num_devices") or 0)
+    if requested > 1 and requested != n:
+        raise ValueError(f"--num_devices {requested}: train() is one rank "
+                         f"of a {requested}-rank process group, and this "
+                         f"process is in one of {n}; run it through "
+                         f"occuseg_tpu_torch.train.cli (which spawns the "
+                         f"ranks) or torchrun")
+    return rank, n
+
+
+def build_trainer(config: Dict, dev, num_scenes: int) -> Trainer:
+    """The config's model (`build_model`, seed 0), optimizer and loss for
+    steps of `num_scenes` scenes on `dev`."""
     tcfg = TrainConfig(
         lr=config["lr"],
         lr_decay_gamma=config["gamma"] if config["gamma"] > 0 else 1e-2,
@@ -219,14 +230,47 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
                     if config.get("dataset") == "stanford3d"
                     else SCANNET_CE_WEIGHTS),
         drift_weight=float(config.get("drift_weight", 0.0)))
-    trainer = Trainer(model, dev, tcfg, lcfg, num_instances=i_cap,
-                      num_scenes=batch_per_dev)
+    model = build_model(config, torch.Generator().manual_seed(0))
+    return Trainer(model, dev, tcfg, lcfg,
+                   num_instances=config["instance_cap"],
+                   num_scenes=num_scenes)
+
+
+def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
+          on_start: Optional[Callable[[Trainer], None]] = None) -> Dict:
+    """Train on one device, or as one rank of the joined process group
+    (`_ranks`). Returns dict(trainer, model, spec, steps, losses (the last
+    epoch's mean loss parts, the ranks' weighted means), timings, ckpt_dir):
+    timings["wait_ms"] is the time this thread waited for each prepared
+    batch, timings["step_ms"] each step's time to its loss values on the
+    host (the upload, the step, the all-reduce and a synchronization).
+    `on_start(trainer)` runs once, after any restore, before the first
+    step."""
+    if int(config.get("spatial_shards", 0) or 0) > 1:
+        raise NotImplementedError("--spatial_shards > 1: spatial sharding "
+                                  "is not ported yet (ROADMAP A item 5)")
+    rank, n_dev = _ranks(config)
+    dev = data_parallel.rank_device(_device(device), rank)
+    rng = np.random.default_rng(100)  # the reference's seed
+    spec = build_spec(config)
+    dataset = get_dataset(config)
+    p_cap = config["point_cap"]
+    i_cap = config["instance_cap"]
+    batch_per_dev = max(int(config["batch_size"]) // n_dev, 1)
+    # multi-scene batches take the blocked layout (native/blocked.py)
+    blocked_ns = (batch_per_dev if batch_per_dev > 1
+                  and config.get("blocked_batch", True) else 1)
+    trainer = build_trainer(config, dev, batch_per_dev)
+    model = trainer.model
 
     start_epoch = int(config.get("checkpoint", 0) or 0)
     if config.get("load"):
         path = _restore(trainer, str(config["load"]), config)
         log.info("resumed from %s (start epoch %d)", path, start_epoch)
 
+    # each rank plans its own member at its own cap bucket: the JAX loop's
+    # group-wide bucket (occuseg_tpu/train/loop.py:238-243) exists only
+    # because it stacks the group's plans into one array
     buckets = None
     if int(config.get("num_buckets", 1)) > 1:
         from occuseg_tpu_torch.train.bucketing import bucket_specs
@@ -238,11 +282,13 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
 
     ckpt_dir = os.path.join(config["checkpoints_dir"],
                             config.get("taskname", "default"))
+    lead = rank == 0   # logs, checkpoints and evaluates
     writer = None
     try:
-        from torch.utils.tensorboard import SummaryWriter
-        writer = SummaryWriter(os.path.join(ckpt_dir, "tb"))
-        writer.add_text("config", str(config))
+        if lead:
+            from torch.utils.tensorboard import SummaryWriter
+            writer = SummaryWriter(os.path.join(ckpt_dir, "tb"))
+            writer.add_text("config", str(config))
     except Exception:  # TensorBoard is optional
         writer = None
 
@@ -263,8 +309,24 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
             agg: Dict[str, float] = {}
             nb = 0
             counters = CounterState()
-            batches = dataset.train_batches(rng, p_cap, i_cap, batch_per_dev)
-            source = plan_pool.imap(batches)
+            weights: deque = deque()   # each queued batch's loss weight
+            if n_dev > 1:
+                # every rank draws the same groups, and makes only its
+                # member of each, at the member's loss weight
+                makers = dataset.train_batch_makers(
+                    rng, p_cap, i_cap, batch_per_dev, own_rng=True)
+                members = ((group[rank], ws[rank]) for group, ws in
+                           data_parallel.dp_groups(makers, n_dev))
+            else:
+                members = ((make, None) for make in
+                           dataset.train_batch_makers(rng, p_cap, i_cap,
+                                                      batch_per_dev))
+
+            def batches():
+                for make, w in members:
+                    weights.append(w)
+                    yield make()
+            source = plan_pool.imap(batches())
             while True:
                 tw = time.perf_counter()
                 item = next(source, None)
@@ -272,15 +334,19 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
                     break
                 raw, host_plan, _ = item
                 ts = time.perf_counter()
-                parts = trainer.step(raw, host_plan)
-                # host work while the card runs the queued step
-                counters.add(
-                    plan_muladd_count(host_plan, planes,
-                                      config.get("block_reps", 1),
-                                      config.get("residual_blocks", True),
-                                      config["input_feature_number"]),
-                    plan_hidden_count(host_plan, planes),
-                    scenes=batch_per_dev)
+                weight = weights.popleft()
+                parts = trainer.step(raw, host_plan, weight=weight)
+                # host work while the card runs the queued step; a rank
+                # counts its own member, a padding copy not at all
+                if weight is None or weight > 0:
+                    counters.add(
+                        plan_muladd_count(host_plan, planes,
+                                          config.get("block_reps", 1),
+                                          config.get("residual_blocks",
+                                                     True),
+                                          config["input_feature_number"]),
+                        plan_hidden_count(host_plan, planes),
+                        scenes=batch_per_dev)
                 for k, v in parts.items():
                     agg[k] = agg.get(k, 0.0) + float(v)
                 timings["wait_ms"].append(1e3 * (ts - tw))
@@ -291,14 +357,19 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
                     break
             dt = time.time() - t0
             losses = {k: v / max(nb, 1) for k, v in agg.items()}
+            if n_dev > 1:
+                counters = _all_ranks(counters, dev)
             msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items()))
-            log.info("epoch %d: %s (%.1fs, %d steps)", epoch, msg, dt, nb)
-            log.info("epoch %d: %s", epoch, counters.report())
+            if lead:
+                log.info("epoch %d: %s (%.1fs, %d steps)", epoch, msg, dt,
+                         nb)
+                log.info("epoch %d: %s", epoch, counters.report())
             if writer:
                 for k, v in losses.items():
                     writer.add_scalar(f"train/{k}", v, epoch)
                 writer.add_scalar("train/epoch_time", dt, epoch)
-            if (epoch + 1) % max(int(config.get("snapshot", 1)), 1) == 0:
+            if lead and (epoch + 1) % max(int(config.get("snapshot", 1)),
+                                          1) == 0:
                 ckpt.save_checkpoint(ckpt_dir, trainer.state_dict(),
                                      step=epoch + 1)
                 ckpt.gc_checkpoints(ckpt_dir)
@@ -311,11 +382,16 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
                     if writer:
                         writer.add_scalar("val/mean_iou",
                                           metrics["mean_iou"], epoch)
+            if n_dev > 1:
+                # the other ranks wait out rank 0's snapshot here, not in
+                # the next step's all-reduce (data_parallel.TIMEOUT)
+                dist.barrier()
             if max_steps is not None and step >= max_steps:
                 break
     except KeyboardInterrupt:
-        ckpt.save_checkpoint(os.path.join(ckpt_dir, "INTERRUPTED"),
-                             trainer.state_dict(), step=step)
+        if lead:
+            ckpt.save_checkpoint(os.path.join(ckpt_dir, "INTERRUPTED"),
+                                 trainer.state_dict(), step=step)
         raise
     finally:
         plan_pool.close()
@@ -323,6 +399,15 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
             writer.close()
     return {"trainer": trainer, "model": model, "spec": spec, "steps": step,
             "losses": losses, "timings": timings, "ckpt_dir": ckpt_dir}
+
+
+def _all_ranks(counters: CounterState, dev) -> CounterState:
+    """The epoch's counters summed over the ranks."""
+    t = torch.tensor([counters.muladd, counters.hidden, counters.scenes],
+                     dtype=torch.float64, device=dev)
+    dist.all_reduce(t)
+    muladd, hidden, scenes = t.tolist()
+    return CounterState(muladd, hidden, int(scenes))
 
 
 def evaluate_semantic(config: Dict, trainer: Trainer, spec: PlanSpec,

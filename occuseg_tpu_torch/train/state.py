@@ -27,9 +27,12 @@ build its plan on the device (`core/topology.build_plan`, with the batch's
 normals under `use_normals`): no chunk rulebook, so every convolution runs
 the gather path.
 
-Not ported: the data-parallel loss weight `_w` and the `axis_name`
-reductions (ROADMAP A9). `optax.flatten` needs no counterpart: it only
-fuses the elementwise update on the TPU.
+A data-parallel rank (`parallel/data_parallel.py`) passes its loss
+weight and process group to `step`: the gradients of weight * L, the loss
+parts and the BN running statistics are then averaged over the group's
+ranks with the weights (one all-reduce, the JAX step's `axis_name`
+reductions) before the update. `optax.flatten` needs no counterpart: it
+only fuses the elementwise update on the TPU.
 """
 
 from __future__ import annotations
@@ -39,12 +42,14 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from occuseg_tpu_torch.core.point_layout import apply_point_layout
 from occuseg_tpu_torch.core.topology import PlanSpec, Topology, build_plan, pin
 from occuseg_tpu_torch.infer import Predictor, plan_scene
 from occuseg_tpu_torch.losses.instance import LossConfig, occuseg_total_loss
 from occuseg_tpu_torch.models.occuseg import OccuSegOutputs
+from occuseg_tpu_torch.parallel import data_parallel
 
 # the batch arrays the forward and the loss read
 _BATCH_KEYS = ("features", "labels", "instance_id", "point_scene", "pose",
@@ -154,10 +159,18 @@ class Trainer:
         return b, plan
 
     def step(self, batch: Dict[str, np.ndarray],
-             plan: Optional[Topology] = None) -> Dict[str, torch.Tensor]:
+             plan: Optional[Topology] = None, weight: Optional[float] = None,
+             group=None) -> Dict[str, torch.Tensor]:
         """One call from a prepared batch and its host plan, or from a raw
         batch planned on the device (plan None); returns the loss parts
-        (and "total") as detached 0-d tensors on the device."""
+        (and "total") as detached 0-d tensors on the device. With
+        `weight`, a data-parallel rank's step over process group `group`
+        (None: the default group): the returned parts are the group's
+        weighted means. A rank of a group of several needs its weight."""
+        if weight is None and dist.is_initialized() \
+                and dist.get_world_size(group) > 1:
+            raise ValueError("Trainer.step: a data-parallel rank's step "
+                             "needs its loss weight")
         b, plan = self._inputs(batch, plan)
         self.model.train()
         out = self.model(b["features"], plan)
@@ -166,7 +179,10 @@ class Trainer:
         micro = self.steps % self.accum_steps
         if micro == 0:
             self.optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        if weight is None:
+            total.backward()
+        else:
+            parts = self._reduced_backward(total, parts, weight, group)
         if micro == self.accum_steps - 1:
             if self.accum_steps > 1:
                 for p in self.model.parameters():
@@ -176,6 +192,21 @@ class Trainer:
             self.scheduler.step()
         self.steps += 1
         return {k: v.detach() for k, v in parts.items()}
+
+    def _reduced_backward(self, total, parts, weight, group):
+        """The gradients of weight * total, averaged with the loss parts
+        and the BN statistics over the group's ranks, added to the
+        parameters' gradients; returns the averaged parts."""
+        params = list(self.model.parameters())
+        grads = torch.autograd.grad(total * weight, params,
+                                    allow_unused=True)
+        grads, parts = data_parallel.allreduce_step(
+            list(grads), {k: v.detach() for k, v in parts.items()},
+            data_parallel.bn_statistics(self.model), weight, group)
+        for p, g in zip(params, grads):
+            if g is not None:
+                p.grad = g if p.grad is None else p.grad + g
+        return parts
 
     def evaluate(self, batch: Dict[str, np.ndarray],
                  plan: Optional[Topology] = None) -> OccuSegOutputs:

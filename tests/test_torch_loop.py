@@ -333,10 +333,12 @@ def test_train_with_chunk_conv_0_matches_chunked(tmp_path, monkeypatch):
 
 
 def test_loop_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
+    # data parallelism is ported: train() is then one rank of a process
+    # group (tests/test_torch_dp.py), which it needs
+    with pytest.raises(ValueError, match="2-rank process group"):
         loop.train(_small_config(tmp_path, "--num_devices", "2"),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A item 5"):
         loop.train(_small_config(tmp_path, "--spatial_shards", "4"),
                    device="cpu")
     # scenes are loaded now (tests/test_torch_data.py), and one that
