@@ -194,6 +194,21 @@ and no network. Phases (any failure exits non-zero):
    averaged, then Adam (the parameters held to Adam of the reduced
    gradients); the remainder group (rank 1 a weight-0 copy) against rank
    0's single-process step; the DP step beside [loop]'s.
+15. spatial (after dp): spatial sharding, two spawned ranks on the one
+   card over gloo, each a shard: (a) serving bench scene 0 through `sharded_infer`'s path at
+   m=64, bf16, halo and pool 4096, per-shard rulebooks: the launches of
+   #1 and #9 against each rank's shard plan, forward ms and peak memory
+   beside the unsharded forward's, the rows each exchange carries, every
+   head against the unsharded forward of the same weights (jax's bf16
+   tolerance; in f32 [parity]'s), each per-shard role (submanifold over
+   the extended rows, strided, deconvolution, #9 and its transpose)
+   against its plain version; (c) with OCC_PALLAS_BCE=1 the radius
+   maximised over the shards equal to the scene's bit for bit and the
+   five sums to the scene's; (b) `loop.train` with --spatial_shards 2 at
+   [loop]'s flags for 3 steps, each rank's launches of #1, #3-#9 against
+   the prediction, step 1 against the single-process step on the same
+   batch (loss parts, gradient, statistics, parameters after Adam), the
+   step beside [loop]'s.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON summary.
@@ -5109,6 +5124,459 @@ def phase_dp(dev, tmp, loop_med):
                 single_bitwise=s_bitwise, seconds=spawn_s)
 
 
+SPATIAL_HALO = SPATIAL_POOL = 4096
+SPATIAL_STEPS = 3
+SPATIAL_FLAGS = (*LOOP_FLAGS, "--spatial_shards", "2")
+# jax's bf16 tolerance for a sharded forward against the unsharded one
+# (tests/test_spatial_model.py:211-214): rtol 5e-2, atol 5% of the max
+SPATIAL_BF16_RTOL = 5e-2
+SPATIAL_BF16_ATOL = 5e-2
+
+
+def spatial_calls(plan, n_planes=N_PLANES, in_features=3):
+    """`conv_calls` of a rank's slice of a sharded plan: each convolution
+    reads the extended rows of its map's exchange (n_in), its transpose
+    plan is the exchange's `chunks_t`, and it takes the chunk kernels only
+    where both rulebooks are there (`nn/modules._sharded_conv`)."""
+    out = []
+    for c in conv_calls(plan, n_planes, in_features):
+        kind, i = c.maps
+        ex = (plan.levels[i].halo_ex if kind == "level"
+              else getattr(plan.transitions[i], f"{kind}_ex"))
+        both = c.chunks is not None and ex.chunks_t is not None
+        out.append(c._replace(chunks=c.chunks if both else None,
+                              t_chunks=ex.chunks_t,
+                              n_in=ex.nbr_t.shape[0]))
+    return out
+
+
+def spatial_forward_launches(plan) -> dict:
+    calls = spatial_calls(plan)
+    n = sum(chunked(c) for c in calls)
+    return {"chunk_conv": n, "gather_conv": len(calls) - n}
+
+
+def spatial_exchanges(plan):
+    """{map: (rows of the left, right and publish lists any shard fills)}
+    of a rank's slice: what each exchange carries."""
+    out = {f"L{i}": lv.halo_ex.sent for i, lv in enumerate(plan.levels)}
+    for i, tr in enumerate(plan.transitions):
+        out[f"child{i}"] = tr.child_ex.sent
+        out[f"up{i}"] = tr.up_ex.sent
+    return out
+
+
+def _spatial_model(dev, dtype):
+    from occuseg_tpu_torch.models import LearningBWDenseUNet
+    model = LearningBWDenseUNet(N_PLANES, compute_dtype=dtype,
+                                generator=torch.Generator().manual_seed(4))
+    randomize_bn_stats(model, torch.Generator().manual_seed(5))
+    return model.to(dev).eval()
+
+
+def spatial_roles(dev, plan):
+    """Each per-shard role once against its plain version on the card:
+    the chunk kernels over the first submanifold map, strided map and
+    deconvolution map with per-shard rulebooks (S rows over the extended
+    rows; forward #1, both backward routes, #3/#4 and #5), and #9 over
+    that level's map with its transpose over the extended rows (forward
+    and d_ext), at the model's widths there. bf16, random inputs."""
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def first(items, what):
+        hit = [i for i, (ch, ex) in enumerate(items)
+               if ch is not None and ex.chunks_t is not None]
+        check(bool(hit), f"[spatial] no {what} has per-shard rulebooks")
+        return hit[0]
+    li = first([(lv.chunks, lv.halo_ex) for lv in plan.levels], "level")
+    ci = first([(t.child_chunks, t.child_ex) for t in plan.transitions],
+               "strided map")
+    ui = first([(t.up_chunks, t.up_ex) for t in plan.transitions],
+               "deconvolution map")
+    lv = plan.levels[li]
+    ctr, utr = plan.transitions[ci], plan.transitions[ui]
+    roles = ((f"sub L{li}", lv.chunks, lv.halo_ex, N_PLANES[li],
+              N_PLANES[li]),
+             (f"child {ci}", ctr.child_chunks, ctr.child_ex, N_PLANES[ci],
+              N_PLANES[ci + 1]),
+             (f"up {ui}", utr.up_chunks, utr.up_ex, N_PLANES[ui + 1],
+              N_PLANES[ui]))
+    errs = {}
+    for label, ch, ex, cin, cout in roles:
+        n_in, K = ex.nbr_t.shape[0], ch.lidx.shape[1]
+        x = torch.randn(n_in, cin, device=dev, generator=gen).bfloat16()
+        w = (torch.randn(K, cin, cout, device=dev, generator=gen)
+             * 0.05).bfloat16()
+        ct = torch.randn(ch.lidx.shape[0] * ch.lidx.shape[2], cout,
+                         device=dev, generator=gen).bfloat16()
+        out = cc.chunk_conv(x, ch.in_idx, ch.lidx, w)
+        e_f, _ = check_close(f"[spatial] {label} #1", out,
+                             cc.chunk_conv_plain(x, ch.in_idx, ch.lidx, w),
+                             BF16_TOL)
+        t = ex.chunks_t
+        w_t = w.transpose(1, 2).contiguous()
+        ref_d, ref_dw = cc.chunk_conv_bwd_fused_plain(ct, t.in_idx, t.lidx,
+                                                      w_t, x)
+        ref_w = cc.chunk_conv_dw_plain(x, ch.in_idx, ch.lidx, ct)
+        worst = [e_f]
+        for fused in (True, False):   # dW in f32 (the weight's dtype)
+            d, dw = cc.t_conv_backward(ct, x, ch.in_idx, ch.lidx, t.in_idx,
+                                       t.lidx, w.float(), fused)
+            worst.append(check_close(f"[spatial] {label} d_ext fused={fused}",
+                                     d, ref_d, BF16_TOL)[0])
+            worst.append(check_close(f"[spatial] {label} dW fused={fused}",
+                                     dw, ref_w, DW_TOL)[0])
+        check_close(f"[spatial] {label} dWt", ref_dw, ref_w, DW_TOL)
+        errs[label] = max(worst)
+    ex = lv.halo_ex
+    c = N_PLANES[li]
+    x = torch.randn(ex.nbr_t.shape[0], c, device=dev,
+                    generator=gen).bfloat16()
+    w = (torch.randn(27, c, c, device=dev, generator=gen) * 0.05).bfloat16()
+    nbr_kn, t_kn = lv.gather_map("nbr", dev), ex.gather_map("nbr_t", dev)
+    e1, _ = check_close(f"[spatial] #9 over the L{li} map", gc.gather_conv(
+        x, nbr_kn, w), gc.gather_conv_plain(x, nbr_kn, w), BF16_TOL)
+    ct = torch.randn(nbr_kn.shape[1], c, device=dev,
+                     generator=gen).bfloat16()
+    w_r = w.flip(0).transpose(1, 2).contiguous()
+    e2, _ = check_close("[spatial] #9 d_ext over its transpose",
+                        gc.gather_conv(ct, t_kn, w_r),
+                        gc.gather_conv_plain(ct, t_kn, w_r), BF16_TOL)
+    errs[f"#9 L{li}"] = max(e1, e2)
+    return errs
+
+
+def spatial_serve(dev, group, rank):
+    """(a) `sharded_infer`'s path, this rank's shard of bench scene 0:
+    launches against the shard plan's prediction, the forward ms (the
+    exchanges and the gathering of the outputs included), peak memory,
+    each exchange's rows; on rank 0 the unsharded forward of the same
+    model (bf16, then f32) against the sharded outputs, and the per-shard
+    roles against their plain versions."""
+    import numpy as np
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.infer import Predictor, prepare_scene
+    from occuseg_tpu_torch.native.plan import build_plan_host
+    from occuseg_tpu_torch.parallel import spatial_model as sm
+    batch = bench_scene(0)
+    spec = PlanSpec(caps=BENCH_CAPS)
+    model = _spatial_model(dev, torch.bfloat16)
+    t0 = time.perf_counter()
+    plan = build_plan_host(batch["coords"], spec)
+    t1 = time.perf_counter()
+    sa = sm.prepare_shard_args(plan, 2, SPATIAL_HALO, SPATIAL_POOL,
+                               rank=rank, group=group)
+    t2 = time.perf_counter()
+    sa_d = sa.to(dev)
+    feats = torch.from_numpy(batch["features"]).to(dev)
+
+    def forward(m):
+        with torch.inference_mode():
+            out = sm.sharded_apply(m, sa_d, feats, group, train=False)
+            return sm.gather_outputs(out, sa_d, group)
+    forward(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    out = forward(model)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = spatial_forward_launches(sa.plan)
+    check(launches["chunk_conv"] == want["chunk_conv"]
+          and launches["gather_conv"] == want["gather_conv"],
+          f"[spatial] rank {rank} forward launches {launches}, predicted "
+          f"{want}")
+    ms = cuda_ms(lambda: forward(model), 3)
+    res = dict(launches=launches, predicted=want, ms=ms, peak=peak,
+               host_plan_ms=1e3 * (t1 - t0), shard_ms=1e3 * (t2 - t1),
+               exchanges=spatial_exchanges(sa.plan),
+               active=[lv.num_active for lv in sa.plan.levels],
+               points=sa.plan.num_points)
+    if rank != 0:
+        forward(_spatial_model(dev, torch.float32))   # rank 0's f32 below
+        return res, sa, plan
+    valid = torch.from_numpy(np.asarray(plan.p2v) >= 0).to(dev)
+    scene = prepare_scene(batch["coords"], batch["features"], spec)
+    pred = Predictor(model, dev)
+    ref = pred(scene)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plan_d = scene.plan.to(dev)
+    f_laid = torch.from_numpy(scene.features).to(dev)
+
+    def unsharded():
+        with torch.inference_mode():
+            return model(f_laid, plan_d)
+    res["unsharded_ms"] = cuda_ms(unsharded, 3)
+    res["unsharded_peak"] = torch.cuda.max_memory_allocated()
+    errs = {}
+    for name in out._fields:
+        a, r = getattr(out, name)[valid], getattr(ref, name)[valid]
+        err = (a - r).abs()
+        top = r.abs().max().item()
+        errs[name] = (err.max().item(), top)
+        check(bool(torch.isfinite(a).all()), f"[spatial] {name} not finite")
+        check(bool((err <= SPATIAL_BF16_RTOL * r.abs()
+                    + SPATIAL_BF16_ATOL * top).all()),
+              f"[spatial] bf16 {name}: {err.max().item()} (max {top})")
+    res["bf16_errors"] = errs
+    m32 = _spatial_model(dev, torch.float32)
+    m32.load_state_dict(model.state_dict())
+    out32 = forward(m32)
+    ref32 = Predictor(m32, dev)(scene)
+    errs32 = {}
+    for name in out32._fields:
+        a, r = getattr(out32, name)[valid], getattr(ref32, name)[valid]
+        err, top = (a - r).abs().max().item(), r.abs().max().item()
+        errs32[name] = (err, top)
+        check(err <= PARITY_TOL * max(top, 1.0),
+              f"[spatial] f32 {name}: {err} > {PARITY_TOL} x {top}")
+    res["f32_errors"] = errs32
+    res["roles"] = spatial_roles(dev, sa_d.plan)
+    return res, sa, plan
+
+
+def spatial_radius(dev, group, rank, sa, plan):
+    """(c) With OCC_PALLAS_BCE=1, the BCE path of this rank's shard of
+    bench scene 0 (random embeddings, the scene's instances): the radius
+    maximised over the ranks equals the whole scene's bit for bit, and
+    the five sums equal the whole scene's (the counts exactly); the
+    instances whose radius this shard alone would have taken smaller."""
+    import numpy as np
+    import torch.nn.functional as F
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    from occuseg_tpu_torch.parallel.comm import all_max
+    batch = bench_scene(0)
+    I = BENCH_INSTANCES
+    rng = np.random.default_rng(7)
+    P = batch["pose"].shape[0]
+    e = rng.standard_normal((P, 64)).astype(np.float32) * 0.5
+    bw = rng.uniform(0.5, 1.5, (P, 2)).astype(np.float32)
+    rx = batch["pose"] + rng.standard_normal((P, 3)).astype(np.float32) * .05
+    # the instance statistics, on the host: the same bits on every rank
+    iid = torch.from_numpy(batch["instance_id"]).long()
+    valid = iid >= 0
+    idx = iid.clamp(min=0)
+    cnt = torch.zeros(I).index_add_(0, idx, valid.float())
+
+    def mean(v):
+        v = torch.from_numpy(np.ascontiguousarray(v))
+        s = torch.zeros(I, v.shape[1]).index_add_(
+            0, idx, torch.where(valid[:, None], v, 0.0))
+        return s / cnt.clamp(min=1)[:, None]
+    mu, mp, sig = mean(e), mean(batch["pose"]), mean(bw)
+    scene_i = torch.full((I,), -1, dtype=torch.long).scatter_reduce(
+        0, idx[valid], torch.from_numpy(batch["point_scene"]).long()[valid],
+        "amax")
+    use = cnt >= 30
+    stats = [t.to(dev) for t in (sig, mu, mp, scene_i, use)]
+
+    def rows(a, keep=None):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if keep is not None:
+            t = t[keep]
+        return t.to(dev)
+    mine = torch.from_numpy(sa.perm)
+    sv = torch.from_numpy(sa.slot_valid)
+    loc = {k: rows(v, mine) for k, v in dict(
+        e=e, rx=rx, x=batch["pose"], iid=batch["instance_id"],
+        scene=batch["point_scene"]).items()}
+    for k in ("iid", "scene"):
+        loc[k] = torch.where(sv.to(dev), loc[k], -1)
+    os.environ["OCC_PALLAS_BCE"] = "1"
+    check(bce_loss.supported(loc["e"].shape[0], I, 64),
+          "[spatial] the BCE kernels do not take the shard's shape")
+    mp4 = F.pad(stats[2].float(), (0, 1))
+    mp_sq = (mp4 * mp4).sum(1)
+    seg_l = loc["iid"].int().contiguous()
+    r_local = bce_loss.radius_sq(F.pad(loc["x"].float(), (0, 1)).contiguous(),
+                                 seg_l, mp4, mp_sq)
+    r_sharded = all_max(r_local, group)
+    sig_d, mu_d, mp_d, scene_d, use_d = stats
+    sums = torch.stack(bce_loss.bce_membership_sums(
+        loc["e"], loc["rx"], sig_d, mu_d, mp_d, loc["x"], loc["iid"],
+        loc["scene"], scene_d, use_d, group))
+    res = dict(smaller=int((r_local < r_sharded).sum()))
+    if rank == 0:
+        whole = {k: rows(v) for k, v in dict(
+            e=e, rx=rx, x=batch["pose"], iid=batch["instance_id"],
+            scene=batch["point_scene"]).items()}
+        r_whole = bce_loss.radius_sq(
+            F.pad(whole["x"].float(), (0, 1)).contiguous(),
+            whole["iid"].int().contiguous(), mp4, mp_sq)
+        ref = torch.stack(bce_loss.bce_membership_sums(
+            whole["e"], whole["rx"], sig_d, mu_d, mp_d, whole["x"],
+            whole["iid"], whole["scene"], scene_d, use_d))
+        check(torch.equal(r_sharded, r_whole),
+              "[spatial] the sharded radius is not the scene's")
+        check(torch.equal(sums[1:], ref[1:]),
+              f"[spatial] sharded sample / tp / fp / tot counts differ: "
+              f"{(sums[1:] - ref[1:]).abs().max().item()}")
+        err = (sums[0] - ref[0]).abs().max().item()
+        top = ref[0].abs().max().item()
+        check(err <= 1e-5 * top, f"[spatial] sharded bce sums {err} > "
+              f"1e-5 x {top}")
+        res.update(bce_sum_err=err, bce_sum_max=top,
+                   samples=int(ref[1].sum().item()))
+    os.environ.pop("OCC_PALLAS_BCE")
+    return res
+
+
+def spatial_train(dev, tmp, rank):
+    """(b) `loop.train` with --spatial_shards 2 at [loop]'s flags for
+    SPATIAL_STEPS steps: this rank's launches against the prediction
+    from each step's shard plan, its step ms and peak memory; rank 0
+    saves the state after step 1."""
+    from occuseg_tpu_torch.train import loop
+    from occuseg_tpu_torch.train.config import args_to_config, get_parser
+    os.environ["OCC_PALLAS_BCE"] = "1"
+    config = args_to_config(get_parser().parse_args(
+        [*SPATIAL_FLAGS, "--data_dir", os.path.join(tmp, "no_scenes"),
+         "--checkpoints_dir", os.path.join(tmp, "spatial_ckpts")]))
+    first, predicted = {}, collections.Counter()
+
+    def on_start(trainer):
+        step = trainer.step
+
+        def step_and_keep_the_first(raw, plan=None, weight=None, group=None,
+                                    shard_args=None):
+            predicted.update(predicted_launches(
+                shard_args.plan, esize=4, bce=True,
+                calls=spatial_calls(shard_args.plan)))
+            parts = step(raw, plan, weight=weight, group=group,
+                         shard_args=shard_args)
+            if not first:
+                first.update(_snapshot(trainer, parts))
+            return parts
+        trainer.step = step_and_keep_the_first
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+    result = loop.train(config, max_steps=SPATIAL_STEPS, device=dev,
+                        on_start=on_start)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    os.environ.pop("OCC_PALLAS_BCE")
+    check(result["steps"] == SPATIAL_STEPS,
+          f"[spatial] rank {rank}: {result['steps']} steps")
+    for k in ("chunk_conv", "chunk_conv_bwd_fused", "chunk_conv_dw",
+              "bce_radius", "bce_fwd", "bce_bwd", "gather_conv"):
+        check(launches[k] == predicted[k], f"[spatial] rank {rank} {k}: "
+              f"{launches[k]} launches, predicted {predicted[k]}")
+    if rank == 0:
+        torch.save(first, os.path.join(tmp, "spatial_step1.pt"))
+    return dict(step_ms=result["timings"]["step_ms"], launches=launches,
+                predicted=dict(predicted),
+                peak=torch.cuda.max_memory_allocated(),
+                losses=result["losses"])
+
+
+def _spatial_rank(rank, world, tmp, dev):
+    """One [spatial] rank (spawned): (a) serving, (c) the radius, (b)
+    training."""
+    import torch.distributed as dist
+    group = dist.group.WORLD
+    serve, sa, plan = spatial_serve(dev, group, rank)
+    radius = spatial_radius(dev, group, rank, sa, plan)
+    torch.cuda.empty_cache()
+    train = spatial_train(dev, tmp, rank)
+    return dict(serve=serve, radius=radius, train=train)
+
+
+def phase_spatial(dev, tmp, loop_med):
+    """[spatial]: spatial sharding at full width, two spawned ranks on the
+    one card over gloo (NCCL refuses two ranks on one device), each a
+    shard: (a) serving bench scene 0 (`sharded_infer`'s path, bf16, halo
+    and pool 4096, per-shard rulebooks) against the unsharded forward of
+    the same model on the card (jax's bf16 tolerance; in f32 [parity]'s),
+    each per-shard role against its plain version, the launches of #1
+    and #9 against the shard plan; (b) `loop.train` with --spatial_shards
+    2 at [loop]'s flags, f32, OCC_PALLAS_BCE=1, for 3 steps, step 1
+    against the single-process `Trainer.step` on the same batch and plan
+    (loss parts, gradient, statistics, parameters after Adam), the
+    launches of #1, #3-#9 against the prediction; (c) the BCE radius
+    maximised over the shards and the five sums against the whole
+    scene's. (`tools/collectives_probe.py` says which gloo collectives
+    take CUDA tensors; the exchanges use all-reduces alone.)"""
+    import numpy as np
+    from occuseg_tpu_torch.core.point_layout import apply_point_layout
+    from occuseg_tpu_torch.infer import augment_plan
+    from occuseg_tpu_torch.native.plan import build_plan_host
+    from occuseg_tpu_torch.parallel import data_parallel
+    from occuseg_tpu_torch.train import loop
+    from occuseg_tpu_torch.train.config import args_to_config, get_parser
+    t0 = time.perf_counter()
+    ranks = data_parallel.spawn(_spatial_rank, 2, dev, tmp, dev,
+                                backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        s = res["serve"]
+        print(f"[spatial] (a) rank {r}: {s['points']} points, active "
+              f"{s['active']}; host plan {s['host_plan_ms']:.1f} ms, shard "
+              f"{s['shard_ms']:.1f} ms; forward {s['ms']:.1f} ms (bf16, "
+              f"exchanges and output gather included), peak "
+              f"{s['peak'] / 2**30:.2f} GiB; launches {s['launches']}")
+        print(f"[spatial] (a) rank {r} rows exchanged (left, right, pool) "
+              f"{s['exchanges']}")
+    s0 = ranks[0]["serve"]
+    print(f"[spatial] (a) unsharded forward {s0['unsharded_ms']:.1f} ms, "
+          f"peak {s0['unsharded_peak'] / 2**30:.2f} GiB; sharded against "
+          f"it, bf16 {s0['bf16_errors']}; f32 {s0['f32_errors']}")
+    print(f"[spatial] (a) per-shard roles against their plain versions, "
+          f"max abs err {s0['roles']}")
+    rad = ranks[0]["radius"]
+    print(f"[spatial] (c) radius over the shards equal to the scene's; "
+          f"instances a shard alone would sample smaller: "
+          f"{[r['radius']['smaller'] for r in ranks]}; bce_sum error "
+          f"{rad['bce_sum_err']:.3e} (max {rad['bce_sum_max']:.3e}), "
+          f"{rad['samples']} sampled pairs, counts equal")
+    check(any(r["radius"]["smaller"] > 0 for r in ranks),
+          "[spatial] (c) no shard's own radius differs: the check is blind")
+
+    config = args_to_config(get_parser().parse_args(
+        [*SPATIAL_FLAGS, "--data_dir", os.path.join(tmp, "no_scenes"),
+         "--checkpoints_dir", os.path.join(tmp, "spatial_ckpts")]))
+    os.environ["OCC_PALLAS_BCE"] = "1"
+    batch = next(loop._synthetic_dataset(config).train_batches(
+        np.random.default_rng(100), config["point_cap"],
+        config["instance_cap"], config["batch_size"]))
+    plan = augment_plan(build_plan_host(batch["coords"],
+                                        loop.build_spec(config)))
+    laid = apply_point_layout(batch, plan, num_scenes=config["batch_size"])
+    trainer = loop.build_trainer(config, dev, config["batch_size"])
+    init = copy.deepcopy(trainer.model.state_dict())
+    ref = _snapshot(trainer, trainer.step(laid, plan))
+    os.environ.pop("OCC_PALLAS_BCE")
+    names = [n for n, _ in trainer.model.named_parameters()]
+    got = torch.load(os.path.join(tmp, "spatial_step1.pt"))
+    g_glob, worst, bitwise, apart = _close_states(
+        "[spatial] step 1", got, ref, names,
+        _adam_from(trainer, init, got["grads"], config))
+    print(f"[spatial] (b) step 1 against the single-process step: loss "
+          f"parts {got['parts']} vs {ref['parts']}; gradients {g_glob:.3e} "
+          f"of the norm, worst tensor {worst:.3e}; statistics within "
+          f"{PARITY_TOL}, parameters within it of Adam on the sharded "
+          f"gradients ({apart} entries past it from the reference's Adam)")
+    for r, res in enumerate(ranks):
+        t = res["train"]
+        ms = t["step_ms"]
+        med = sorted(ms)[len(ms) // 2]
+        print(f"[spatial] (b) rank {r}: step ms "
+              f"{', '.join(f'{x:.1f}' for x in ms)} (median {med:.1f}, the "
+              f"first a warm-up) beside [loop]'s median {loop_med:.1f}; peak "
+              f"{t['peak'] / 2**30:.2f} GiB; launches {t['launches']} "
+              f"(predicted {t['predicted']}); losses {t['losses']}")
+        check(all(math.isfinite(v) for v in t["losses"].values()),
+              f"[spatial] rank {r} losses")
+    print(f"[spatial] {spawn_s:.1f} s with the spawn")
+    torch.cuda.empty_cache()
+    return dict(serve=ranks[0]["serve"]["launches"],
+                train=ranks[0]["train"]["launches"], seconds=spawn_s,
+                grad_global=g_glob)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5146,6 +5614,7 @@ def main() -> int:
                                          os.path.abspath(__file__))) as tmp:
         gates = phase_gates(dev, tmp)
         dp = phase_dp(dev, tmp, loop_med)
+        spatial = phase_spatial(dev, tmp, loop_med)
     gate = phase_ap_gate(dev)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
@@ -5174,6 +5643,12 @@ def main() -> int:
     def paths(name, less=None):
         return {k: v[name] - (v[less] if less else 0)
                 for k, v in slice_runs.items()}
+    def spatial_path(name, less=None):
+        # [spatial]: rank 0's serving forward and its training run, each
+        # counted from 0 around its own run
+        return {k: spatial[k][name] - (spatial[k][less] if less else 0)
+                for k in ("serve", "train")}
+
     # the DenseUNet_BN step of [families] (b): the launches counted in
     # its first timed step (seed 0)
     dense = dict(dense_unet_bn_launches_per_step=families["dense_unet_bn"][
@@ -5181,33 +5656,42 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("chunk_conv_fwd", "chunk_conv", "chunk_conv.cu",
               "chunk_conv.py:671", launches["chunk_conv"], families=dense,
-              legacy_gates_dp=paths("chunk_conv")),
+              legacy_gates_dp=paths("chunk_conv"),
+              spatial=spatial_path("chunk_conv")),
         entry("blocked_segment_sum", "blocked_segment_sum", "segsum.cu",
               "segsum.py:67", launches["blocked_segment_sum"],
               shapes=tot.segsum_shapes, families=dense,
-              legacy_gates_dp=paths("blocked_segment_sum")),
+              legacy_gates_dp=paths("blocked_segment_sum"),
+              spatial=spatial_path("blocked_segment_sum")),
         entry("chunk_conv_bwd_fused (#3 shapes)", "#3", "chunk_conv_bwd.cu",
               "chunk_conv.py:442", fused - grouped, families=dense,
               legacy_gates_dp=paths("chunk_conv_bwd_fused",
-                                    "chunk_conv_bwd_fused_kgrouped")),
+                                    "chunk_conv_bwd_fused_kgrouped"),
+              spatial=spatial_path("chunk_conv_bwd_fused",
+                                   "chunk_conv_bwd_fused_kgrouped")),
         entry("chunk_conv_bwd_fused (#4 shapes)", "#4", "chunk_conv_bwd.cu",
               "chunk_conv.py:568", grouped, families=dense,
-              legacy_gates_dp=paths("chunk_conv_bwd_fused_kgrouped")),
+              legacy_gates_dp=paths("chunk_conv_bwd_fused_kgrouped"),
+              spatial=spatial_path("chunk_conv_bwd_fused_kgrouped")),
         entry("chunk_conv_dw", "chunk_conv_dw", "chunk_conv_bwd.cu",
               "chunk_conv.py:720", launches["chunk_conv_dw"],
-              families=dense, legacy_gates_dp=paths("chunk_conv_dw")),
+              families=dense, legacy_gates_dp=paths("chunk_conv_dw"),
+              spatial=spatial_path("chunk_conv_dw")),
         # the training CLI's path: once each per step; beside them the
         # port's [P, I] chain, forward and backward (not a library call)
         entry("bce_radius", "bce_radius", "bce_loss.cu", "bce_loss.py:227",
               loop_launches["bce_radius"], cases=tot.radius_cases,
-              legacy_gates_dp=paths("bce_radius")),
+              legacy_gates_dp=paths("bce_radius"),
+              spatial=spatial_path("bce_radius")),
         entry("bce_fwd", "bce_fwd", "bce_loss.cu", "bce_loss.py:258",
               loop_launches["bce_fwd"], chain_ms=tot.chain_ms[0],
-              legacy_gates_dp=paths("bce_fwd")),
+              legacy_gates_dp=paths("bce_fwd"),
+              spatial=spatial_path("bce_fwd")),
         entry("bce_bwd", "bce_bwd", "bce_loss.cu", "bce_loss.py:289",
               loop_launches["bce_bwd"], max_abs_err_of=tot.bce_bwd_err_of,
               chain_ms=tot.chain_ms[1] - tot.chain_ms[0],
-              legacy_gates_dp=paths("bce_bwd")),
+              legacy_gates_dp=paths("bce_bwd"),
+              spatial=spatial_path("bce_bwd")),
         # the normal-guided convolutions of the CLI at level 0, per step
         # (f32); beside them L3-L5 of the bench plan in bf16
         entry("gather_conv", "gather_conv_cli", "gather_conv.cu",
@@ -5225,6 +5709,7 @@ def main() -> int:
               planner=planner,
               legacy_gates_dp=dict(paths("gather_conv"), append_tensors=legacy[
                   "append_launches"]["gather_conv"]),
+              spatial=spatial_path("gather_conv"),
               # [families]: #9 on a randomized plan's jittered maps, and
               # its launches in the builders, the randomized-stride net
               # and the classification harness

@@ -47,6 +47,10 @@ def _compact3(v: torch.Tensor) -> torch.Tensor:
     return x
 
 
+# Not ported: `full_varying_like` (occuseg_tpu/core/coords.py:69), a
+# shard_map typing helper with no meaning in torch.
+
+
 def pack(coords: torch.Tensor) -> torch.Tensor:
     """Morton int64 keys of int coords [..., 4] (b, z, y, x). Rows with a
     negative batch or a spatial component outside [0, 4096) (the -1

@@ -181,6 +181,39 @@ class ChunkPlan(_DeviceArrays):
 
 
 @dataclasses.dataclass(frozen=True)
+class HaloExchange(_DeviceArrays, _GatherMaps):
+    """The spatial-sharding exchange of ONE map, on a rank's slice of a
+    sharded plan (`parallel/spatial_model.build_spatial_topology`): the
+    owning map's values then index the extended rows [local | left halo |
+    right halo | pool] that `parallel/comm.extend_features` builds from
+    these lists, and the convolution modules extend their features
+    before they convolve (`nn/modules._sharded_conv`). `nbr_t` is the
+    owning map's transpose over the extended rows, offsets flipped
+    (`parallel/spatial.transpose_ext_map`; the gather convolution's
+    backward map, read through `gather_map("nbr_t", device)`), and
+    `chunks_t` the chunk rulebook of its same-offset form `nbr_t[:, ::-1]`
+    (the chunk kernels' transpose plan), or None. `sent` is how many
+    leading entries of the left, right and publish lists any shard
+    fills: what an exchange carries."""
+
+    send_left: object    # int32 [H] local rows shipped to shard d-1
+    send_right: object   # int32 [H] local rows shipped to shard d+1
+    publish: object      # int32 [P] local rows published to the pool
+    nbr_t: object        # int32 [ext, K] offset-flipped transpose
+    halo: int = 0
+    chunks_t: Optional[ChunkPlan] = None
+    sent: Tuple[int, int, int] = (0, 0, 0)
+    kn: dict = _kn_cache()
+
+    def _map(self, fn) -> "HaloExchange":
+        return self._map_kn(dataclasses.replace(
+            self, send_left=fn(self.send_left),
+            send_right=fn(self.send_right), publish=fn(self.publish),
+            chunks_t=_map_each(self.chunks_t, fn)), fn,
+            ("nbr_t",) if self.chunks_t is None else ())
+
+
+@dataclasses.dataclass(frozen=True)
 class LevelTopology(_DeviceArrays, _GatherMaps):
     """Active-site set of one scale and its submanifold neighbor map.
 
@@ -199,6 +232,9 @@ class LevelTopology(_DeviceArrays, _GatherMaps):
     orient: object = None  # int32 [cap] orientation class, zeros = identity
     guided: bool = False
     chunks: Optional[ChunkPlan] = None
+    # set on a rank's slice of a spatially sharded plan: `nbr` then
+    # indexes the extended rows of this exchange
+    halo_ex: Optional[HaloExchange] = None
     kn: dict = _kn_cache()
     # (name, device) -> keys or coords copied there (`device_array`)
     arrays: dict = _kn_cache()
@@ -224,7 +260,8 @@ class LevelTopology(_DeviceArrays, _GatherMaps):
         guided = fn if self.guided else _keep
         return self._map_kn(dataclasses.replace(
             self, num_active=_counts(self.num_active), nbr=guided(self.nbr),
-            orient=guided(self.orient), chunks=_map_each(self.chunks, fn)),
+            orient=guided(self.orient), chunks=_map_each(self.chunks, fn),
+            halo_ex=_map_each(self.halo_ex, fn)),
             fn, ("nbr",) if self.chunks is None else ())
 
 
@@ -232,7 +269,9 @@ class LevelTopology(_DeviceArrays, _GatherMaps):
 class LevelTransition(_DeviceArrays, _GatherMaps):
     """Down/up maps of a size-s stride-t transition between level l
     (fine) and l+1 (coarse), K = s^3 offsets. The chunk rulebooks come in
-    pairs (each is the other's transpose plan): both or neither."""
+    pairs (each is the other's transpose plan): both or neither, except
+    on a rank's slice of a sharded plan, whose transpose plans are its
+    exchanges' `chunks_t`."""
 
     child: object  # int32 [cap_coarse, K] fine rows per coarse site
     up: object     # int32 [cap_fine, K] coarse rows per fine site
@@ -240,12 +279,17 @@ class LevelTransition(_DeviceArrays, _GatherMaps):
     stride: int = 2
     child_chunks: Optional[ChunkPlan] = None
     up_chunks: Optional[ChunkPlan] = None
+    # spatial sharding: the exchanges of the child and up maps
+    child_ex: Optional[HaloExchange] = None
+    up_ex: Optional[HaloExchange] = None
     kn: dict = _kn_cache()
 
     def _map(self, fn) -> "LevelTransition":
         return self._map_kn(dataclasses.replace(
             self, child_chunks=_map_each(self.child_chunks, fn),
-            up_chunks=_map_each(self.up_chunks, fn)), fn,
+            up_chunks=_map_each(self.up_chunks, fn),
+            child_ex=_map_each(self.child_ex, fn),
+            up_ex=_map_each(self.up_ex, fn)), fn,
             ("child", "up") if self.child_chunks is None else ())
 
 
@@ -263,6 +307,10 @@ class Topology(_DeviceArrays):
     point_perm: object = None  # int32 [P] slot -> original point (-1 pad)
     # U tier the chunk planner settled on (diagnostics only)
     chunk_tier: object = None
+    # the process group of a rank's slice of a spatially sharded plan (the
+    # JAX plan's `axis_name`): the exchanges and the BN and loss sums run
+    # over it
+    group: object = None
 
     def _map(self, fn) -> "Topology":
         return dataclasses.replace(

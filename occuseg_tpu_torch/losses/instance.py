@@ -15,8 +15,15 @@ quantity is one segment reduction. The classification term is the JAX
 package's default [P, I] chain or, with `OCC_PALLAS_BCE=1` at the shapes
 the JAX package's gate takes, the fused kernels of
 `ops/kernels/bce_loss.py`. `drift_loss` joins the total when
-`drift_weight` is set (off by default). Not ported: the `axis_name`
-reductions of spatial sharding.
+`drift_weight` is set (off by default).
+
+Under spatial sharding (`group`, the process group of a sharded plan) the
+point rows are split over the ranks, and every point-level reduction is
+summed (`parallel/comm.all_sum`) or maximised (`all_max`) over the group
+where the JAX package psums or pmaxes over its `axis_name`, so every rank
+returns the loss of the whole scene. The per-instance and per-scene work
+after those reductions is replicated. Only the cross-entropy semantic
+loss is sharded, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch.nn.functional as F
 
 from occuseg_tpu_torch.ops import acc, acc_dtype
 from occuseg_tpu_torch.ops.kernels import bce_loss
+from occuseg_tpu_torch.parallel.comm import all_max, all_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,13 +63,14 @@ def _safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.sqrt((x * x).sum(dim) + 1e-12)
 
 
-def _seg_sum(x: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
+def _seg_sum(x: torch.Tensor, seg: torch.Tensor, num: int,
+             group=None) -> torch.Tensor:
     """[num, ...] f32 sums of x's rows by segment id; ids outside [0, num)
-    are dropped. Returned in x's dtype. For the small segment counts of
-    the loss (instances, scenes: num <= 128) it is a one-hot [num, P] @
-    [P, C] product, as in the JAX package: deterministic, and its backward
-    is a product too, where an atomic index_add serialises on the P >> num
-    duplicate ids."""
+    are dropped; with `group`, summed over its ranks. Returned in x's
+    dtype. For the small segment counts of the loss (instances, scenes:
+    num <= 128) it is a one-hot [num, P] @ [P, C] product, as in the JAX
+    package: deterministic, and its backward is a product too, where an
+    atomic index_add serialises on the P >> num duplicate ids."""
     if num <= 128:
         oh = (seg[None, :] == torch.arange(num, dtype=seg.dtype,
                                            device=seg.device)[:, None])
@@ -73,24 +82,28 @@ def _seg_sum(x: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
         out = torch.zeros((num,) + x.shape[1:], dtype=acc_dtype(x),
                           device=x.device)
         out = out.index_add(0, seg[keep].long(), acc(x[keep]))
+    if group is not None:
+        out = all_sum(out, group)
     return out.to(x.dtype)
 
 
 def _seg_max(x: torch.Tensor, seg: torch.Tensor, num: int,
-             fill) -> torch.Tensor:
+             fill, group=None) -> torch.Tensor:
     """[num] max of x by segment id, at least `fill` (the value of an
     empty segment); ids outside [0, num) are dropped (sent to a spare
-    row: boolean indexing would make the host wait for the card)."""
+    row: boolean indexing would make the host wait for the card); with
+    `group`, the max over its ranks (no gradient)."""
     keep = (seg >= 0) & (seg < num)
     out = torch.full((num + 1,), fill, dtype=x.dtype, device=x.device)
     ids = torch.where(keep, seg, num).long()
-    return out.scatter_reduce(0, ids, x, "amax", include_self=True)[:num]
+    out = out.scatter_reduce(0, ids, x, "amax", include_self=True)[:num]
+    return out if group is None else all_max(out, group)
 
 
-def _seg_mean(x: torch.Tensor, seg: torch.Tensor, num: int):
-    s = _seg_sum(x, seg, num)
+def _seg_mean(x: torch.Tensor, seg: torch.Tensor, num: int, group=None):
+    s = _seg_sum(x, seg, num, group)
     cnt = _seg_sum(torch.ones(x.shape[:1], dtype=x.dtype, device=x.device),
-                   seg, num)
+                   seg, num, group)
     den = torch.clamp(cnt[:, None] if x.dim() > 1 else cnt, min=1)
     return s / den, cnt
 
@@ -121,38 +134,43 @@ def _where0(cond: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                                             device=x.device))
 
 
-def semantic_cross_entropy(logits: torch.Tensor,
-                           labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over points with label >= 0."""
+def semantic_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                           group=None) -> torch.Tensor:
+    """Mean CE over points with label >= 0 (of every rank of `group`)."""
     valid = labels >= 0
     logp = F.log_softmax(acc(logits), dim=-1)
     nll = -logp.gather(1, torch.where(valid, labels, 0).long()[:, None])[:, 0]
-    return _where0(valid, nll).sum() / torch.clamp(valid.float().sum(),
-                                                   min=1)
+    num = _where0(valid, nll).sum()
+    den = valid.float().sum()
+    if group is not None:
+        num, den = all_sum(num, group), all_sum(den, group)
+    return num / torch.clamp(den, min=1)
 
 
 def _instance_stats(instance_id: torch.Tensor, point_scene: torch.Tensor,
-                    labels: torch.Tensor, num_instances: int):
+                    labels: torch.Tensor, num_instances: int, group=None):
     """Per-instance scene id, point count, (largest) GT class, exists."""
     I = num_instances
     seg = _sanitize_seg(instance_id, I)
     valid = instance_id >= 0
-    count = _seg_sum(valid.float(), seg, I + 1)[:I]
-    scene = _seg_max(torch.where(valid, point_scene, -1), seg, I + 1, -1)[:I]
+    count = _seg_sum(valid.float(), seg, I + 1, group)[:I]
+    scene = _seg_max(torch.where(valid, point_scene, -1), seg, I + 1, -1,
+                     group)[:I]
     cls = _seg_max(torch.where(valid, labels, -10000), seg, I + 1,
-                   -10000)[:I]
+                   -10000, group)[:I]
     return scene, count, cls, count > 0
 
 
 def discriminative_loss(embedding: torch.Tensor, instance_id: torch.Tensor,
                         point_scene: torch.Tensor, num_scenes: int,
                         num_instances: int,
-                        cfg: LossConfig = LossConfig()) -> torch.Tensor:
+                        cfg: LossConfig = LossConfig(),
+                        group=None) -> torch.Tensor:
     e = acc(embedding)
     I, S = num_instances, num_scenes
     seg = _sanitize_seg(instance_id, I)
     valid_pt = instance_id >= 0
-    mu, cnt = _seg_mean(_where0(valid_pt[:, None], e), seg, I + 1)
+    mu, cnt = _seg_mean(_where0(valid_pt[:, None], e), seg, I + 1, group)
     mu, cnt = mu[:I], cnt[:I]
     exists = cnt > 0
 
@@ -160,14 +178,15 @@ def discriminative_loss(embedding: torch.Tensor, instance_id: torch.Tensor,
     dev = _safe_norm(e - _seg_lookup(mu, seg, I), dim=1)
     dev = torch.clamp(dev - cfg.delta_v, min=0.0) ** 2
     pscene = torch.where(valid_pt, point_scene, S)
-    per_scene_sum = _seg_sum(_where0(valid_pt, dev), pscene, S + 1)
-    per_scene_cnt = _seg_sum(valid_pt.float(), pscene, S + 1)
+    per_scene_sum = _seg_sum(_where0(valid_pt, dev), pscene, S + 1, group)
+    per_scene_cnt = _seg_sum(valid_pt.float(), pscene, S + 1, group)
     scene_has = per_scene_cnt[:S] > 0
     l_v = (per_scene_sum[:S] / torch.clamp(per_scene_cnt[:S], min=1)).sum()
 
-    # push: same-scene centroid pairs, normalised per scene by n(n-1)
+    # push: same-scene centroid pairs, normalised per scene by n(n-1) (mu
+    # and iscene are the group's, so this is replicated work)
     iscene = _seg_max(torch.where(valid_pt, point_scene, -1), seg, I + 1,
-                      -1)[:I]
+                      -1, group)[:I]
     d = _safe_norm(mu[:, None, :] - mu[None, :, :], dim=-1)
     eye = torch.eye(I, dtype=torch.bool, device=e.device)
     pair_ok = ((iscene[:, None] == iscene[None, :]) & exists[:, None]
@@ -204,8 +223,8 @@ def classification_loss(embedding: torch.Tensor, bw: torch.Tensor,
                         regressed_pose: torch.Tensor, pose: torch.Tensor,
                         instance_id: torch.Tensor, point_scene: torch.Tensor,
                         labels: torch.Tensor, num_scenes: int,
-                        num_instances: int, cfg: LossConfig = LossConfig()
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        num_instances: int, cfg: LossConfig = LossConfig(),
+                        group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Soft-membership BCE (weight applied) and the mean instance IoU,
     over instances with at least `min_instance_points` points."""
     I = num_instances
@@ -215,12 +234,14 @@ def classification_loss(embedding: torch.Tensor, bw: torch.Tensor,
     seg = _sanitize_seg(instance_id, I)
     valid_pt = instance_id >= 0
 
-    mu, _ = _seg_mean(_where0(valid_pt[:, None], e), seg, I + 1)
-    mean_pose, _ = _seg_mean(_where0(valid_pt[:, None], x), seg, I + 1)
-    sig, _ = _seg_mean(_where0(valid_pt[:, None], acc(bw)), seg, I + 1)
+    mu, _ = _seg_mean(_where0(valid_pt[:, None], e), seg, I + 1, group)
+    mean_pose, _ = _seg_mean(_where0(valid_pt[:, None], x), seg, I + 1,
+                             group)
+    sig, _ = _seg_mean(_where0(valid_pt[:, None], acc(bw)), seg, I + 1,
+                       group)
     mu, mean_pose, sig = mu[:I], mean_pose[:I], sig[:I]
     scene_i, count_i, _, exists = _instance_stats(instance_id, point_scene,
-                                                  labels, I)
+                                                  labels, I, group)
     use = exists & (count_i >= cfg.min_instance_points)
     n_inst = torch.clamp(use.float().sum(), min=1.0)
 
@@ -228,7 +249,7 @@ def classification_loss(embedding: torch.Tensor, bw: torch.Tensor,
     if bce_loss.supported(e.shape[0], I, e.shape[1]):
         bce_sum, n_samp, tp, fp, tot = bce_loss.bce_membership_sums(
             e, rx, sig, mu, mean_pose, x, instance_id, point_scene, scene_i,
-            use)
+            use, group)
         per_inst = bce_sum / torch.clamp(n_samp, min=1)
         loss = (_where0(use, per_inst).sum() / n_inst
                 * cfg.classification_weight)
@@ -243,6 +264,8 @@ def classification_loss(embedding: torch.Tensor, bw: torch.Tensor,
     member = ((seg[:, None] == torch.arange(I, device=seg.device)[None, :])
               & valid_pt[:, None])
     radius = _where0(member, d_spat).amax(0)
+    if group is not None:
+        radius = all_max(radius, group)
     same_scene = point_scene[:, None] == scene_i[None, :]
     sample = (d_spat < 4.0 * radius[None, :]) & same_scene & use[None, :]
 
@@ -254,7 +277,10 @@ def classification_loss(embedding: torch.Tensor, bw: torch.Tensor,
     bce = torch.where(member, s, -torch.log(-torch.expm1(-s)))
     bce = _where0(sample, bce)
     n_samp = sample.sum(0)
-    per_inst = bce.sum(0) / torch.clamp(n_samp, min=1)
+    bce_sum = bce.sum(0)
+    if group is not None:
+        n_samp, bce_sum = all_sum(n_samp, group), all_sum(bce_sum, group)
+    per_inst = bce_sum / torch.clamp(n_samp, min=1)
     loss = (_where0(use, per_inst).sum() / n_inst
             * cfg.classification_weight)
 
@@ -263,6 +289,8 @@ def classification_loss(embedding: torch.Tensor, bw: torch.Tensor,
     tp = (pred & gt).sum(0).float()
     fp = (pred & ~gt).sum(0).float()
     tot = gt.sum(0).float()
+    if group is not None:
+        tp, fp, tot = all_sum(torch.stack([tp, fp, tot]), group)
     iou = tp / torch.clamp(tot + fp, min=1.0)
     miou = _where0(use, iou).sum() / n_inst
     return loss, miou
@@ -271,19 +299,20 @@ def classification_loss(embedding: torch.Tensor, bw: torch.Tensor,
 def _cluster_losses(disp_err: torch.Tensor, occ_err: torch.Tensor,
                     occ: torch.Tensor, instance_id: torch.Tensor,
                     point_scene: torch.Tensor, labels: torch.Tensor,
-                    num_scenes: int, num_instances: int, cfg: LossConfig):
+                    num_scenes: int, num_instances: int, cfg: LossConfig,
+                    group=None):
     """Displacement and occupancy terms: per-instance mean errors (and the
     occ prediction's unbiased std), over GT class > 1, averaged over the
     instances of a scene and then over scenes."""
     I, S = num_instances, num_scenes
     seg = _sanitize_seg(instance_id, I)
     valid_pt = instance_id >= 0
-    scene_i, count_i, cls_i, exists = _instance_stats(instance_id,
-                                                      point_scene, labels, I)
+    scene_i, count_i, cls_i, exists = _instance_stats(
+        instance_id, point_scene, labels, I, group)
     fg = exists & (cls_i >= cfg.foreground_class_threshold)
 
     def inst_mean(v):
-        m, _ = _seg_mean(_where0(valid_pt, v)[:, None], seg, I + 1)
+        m, _ = _seg_mean(_where0(valid_pt, v)[:, None], seg, I + 1, group)
         return m[:I, 0]
 
     disp_mean = inst_mean(disp_err)
@@ -291,7 +320,8 @@ def _cluster_losses(disp_err: torch.Tensor, occ_err: torch.Tensor,
     occ_mean = inst_mean(occ[:, 0])
     # centred two-pass variance (E[x^2] - E[x]^2 cancels catastrophically)
     centered = occ[:, 0] - _seg_lookup(occ_mean, seg, I)
-    sq_sum = _seg_sum(_where0(valid_pt, centered * centered), seg, I + 1)
+    sq_sum = _seg_sum(_where0(valid_pt, centered * centered), seg, I + 1,
+                      group)
     n = torch.clamp(count_i, min=1.0)
     occ_std = torch.sqrt(torch.clamp(sq_sum[:I] / torch.clamp(n - 1, min=1),
                                      min=0) + 1e-12)
@@ -312,12 +342,18 @@ def _cluster_losses(disp_err: torch.Tensor, occ_err: torch.Tensor,
 
 
 def _semantic_term(logits: torch.Tensor, labels: torch.Tensor,
-                   cfg: LossConfig) -> torch.Tensor:
-    """Semantic loss by `cfg.semantic_loss`."""
+                   cfg: LossConfig, group=None) -> torch.Tensor:
+    """Semantic loss by `cfg.semantic_loss`; under spatial sharding only
+    the cross entropy (`occuseg_tpu/losses/instance.py:473-477`: Lovasz
+    needs a global sort, focal and weighted CE reduced means)."""
     from occuseg_tpu_torch.losses import semantic
     kind = cfg.semantic_loss
     if kind in ("cross_entropy", "nll"):
-        return semantic_cross_entropy(logits, labels)
+        return semantic_cross_entropy(logits, labels, group)
+    if group is not None:
+        raise NotImplementedError(
+            f"semantic loss {kind!r} under spatial sharding (use "
+            f"cross_entropy)")
     if kind == "lovasz":
         return semantic.lovasz_softmax(logits, labels)
     if kind == "focal":
@@ -333,7 +369,7 @@ def _semantic_term(logits: torch.Tensor, labels: torch.Tensor,
 
 def occuseg_total_loss(outputs, batch: Dict[str, torch.Tensor],
                        num_scenes: int, num_instances: int,
-                       cfg: LossConfig = LossConfig()
+                       cfg: LossConfig = LossConfig(), group=None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The 6-term training loss: (total, parts). `outputs` is an
     OccuSegOutputs; batch holds, per point (padding rows label = instance
@@ -342,20 +378,25 @@ def occuseg_total_loss(outputs, batch: Dict[str, torch.Tensor],
     InstanceDenseUNet that `scripts/train_semantic.py` trains) has no
     classification term (and an instance IoU of 0), and one without an
     occupancy head no occupancy term: the JAX package's loss reads both
-    heads and fails on such a model."""
+    heads and fails on such a model. With `group`, `batch` and `outputs`
+    are this rank's point rows of a spatially sharded batch (pad slots
+    label = instance = point_scene = -1), and the loss is the whole
+    scene's on every rank."""
     labels = batch["labels"]
     iid = batch["instance_id"]
     pscene = batch["point_scene"]
     fg_pt = labels >= cfg.foreground_class_threshold
 
-    sem = _semantic_term(outputs.semantics, labels, cfg)
+    sem = _semantic_term(outputs.semantics, labels, cfg, group)
     emb = discriminative_loss(outputs.embedding, iid, pscene, num_scenes,
-                              num_instances, cfg)
+                              num_instances, cfg, group)
 
     # offset (centredness) regression: L1 over foreground points * 100
     n_fg = fg_pt.float().sum()
     off_l1 = (acc(outputs.offset) - batch["offsets"]).abs()
     off_sum = _where0(fg_pt[:, None], off_l1).sum()
+    if group is not None:
+        n_fg, off_sum = all_sum(torch.stack([n_fg, off_sum]), group)
     regression = (off_sum / torch.clamp(n_fg, min=1.0) / off_l1.shape[1]
                   * cfg.regress_weight)
 
@@ -366,7 +407,7 @@ def occuseg_total_loss(outputs, batch: Dict[str, torch.Tensor],
     occ_err = _safe_norm(occ - batch["occupancy"], dim=1)
     displacement, occupancy = _cluster_losses(
         disp_err, occ_err, occ, iid, pscene, labels, num_scenes,
-        num_instances, cfg)
+        num_instances, cfg, group)
     zero = torch.zeros((), dtype=sem.dtype, device=sem.device)
     if outputs.occupancy is None:
         occupancy = zero
@@ -376,7 +417,7 @@ def occuseg_total_loss(outputs, batch: Dict[str, torch.Tensor],
     if outputs.bw is not None:
         classification, miou = classification_loss(
             outputs.embedding, outputs.bw, regressed_pose, batch["pose"],
-            iid, pscene, labels, num_scenes, num_instances, cfg)
+            iid, pscene, labels, num_scenes, num_instances, cfg, group)
 
     total = sem + regression + emb + displacement + classification + occupancy
     parts = {
@@ -388,7 +429,7 @@ def occuseg_total_loss(outputs, batch: Dict[str, torch.Tensor],
     if cfg.drift_weight:
         drift = drift_loss(outputs.embedding, regressed_pose, batch["pose"],
                            outputs.offset, iid, labels, pscene, num_scenes,
-                           num_instances, cfg)
+                           num_instances, cfg, group)
         total = total + cfg.drift_weight * drift
         parts["drift_loss"] = cfg.drift_weight * drift
     parts["total"] = total
@@ -399,8 +440,8 @@ def drift_loss(embedding: torch.Tensor, regressed_pose: torch.Tensor,
                pose: torch.Tensor, offset_pred: torch.Tensor,
                instance_id: torch.Tensor, labels: torch.Tensor,
                point_scene: torch.Tensor, num_scenes: int,
-               num_instances: int, cfg: LossConfig = LossConfig()
-               ) -> torch.Tensor:
+               num_instances: int, cfg: LossConfig = LossConfig(),
+               group=None) -> torch.Tensor:
     """DriftLoss: for foreground instances, the L1 between offset-weighted
     embeddings / regressed poses and the offset-weighted instance means,
     over points with offset > 0.01, averaged per instance and then over
@@ -412,15 +453,17 @@ def drift_loss(embedding: torch.Tensor, regressed_pose: torch.Tensor,
     e = acc(embedding)
     rp = acc(regressed_pose)
     w = acc(offset_pred.reshape(-1, 1))
-    mu_e, _ = _seg_mean(_where0(valid_pt[:, None], e), seg, I + 1)
-    mu_p, _ = _seg_mean(_where0(valid_pt[:, None], acc(pose)), seg, I + 1)
-    _, _, cls_i, exists = _instance_stats(instance_id, point_scene, labels, I)
+    mu_e, _ = _seg_mean(_where0(valid_pt[:, None], e), seg, I + 1, group)
+    mu_p, _ = _seg_mean(_where0(valid_pt[:, None], acc(pose)), seg, I + 1,
+                        group)
+    _, _, cls_i, exists = _instance_stats(instance_id, point_scene, labels, I,
+                                          group)
     fg = exists & (cls_i >= cfg.foreground_class_threshold)
     err = ((e * w - _seg_lookup(mu_e[:I], seg, I) * w).abs().mean(1)
            + (rp * w - _seg_lookup(mu_p[:I], seg, I) * w).abs().mean(1))
     use = valid & fg[torch.clamp(seg, 0, I - 1).long()]
-    per_inst = _seg_sum(_where0(use, err), seg, I + 1)[:I]
-    per_cnt = _seg_sum(use.float(), seg, I + 1)[:I]
+    per_inst = _seg_sum(_where0(use, err), seg, I + 1, group)[:I]
+    per_cnt = _seg_sum(use.float(), seg, I + 1, group)[:I]
     per_inst = _where0(per_cnt > 0, per_inst / torch.clamp(per_cnt, min=1))
     n_fg = torch.clamp((fg & (per_cnt > 0)).float().sum(), min=1.0)
     return per_inst.sum() / n_fg

@@ -13,7 +13,9 @@ uploads them to a device.
 
 Unlike the JAX pool, each batch also gets its sorted point layout and its
 per-point arrays permuted into it (`train.state.prepare_batch`): the
-port's InputLayer needs the layout.
+port's InputLayer needs the layout. Under spatial sharding a batch keeps
+its order and its plan is this rank's `ShardArgs` instead
+(`parallel/spatial_model.prepare_shard_args`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ class PlanPool:
     to `workers + 2` batches in flight."""
 
     def __init__(self, spec, workers: int, bucket_specs_list=None,
-                 ns: int = 1, pin: bool = False, chunks: bool = True):
+                 ns: int = 1, pin: bool = False, chunks: bool = True,
+                 spatial=None):
         self.workers = max(int(workers), 1)
         self.window = self.workers + 2
         self.spec = spec
@@ -37,6 +40,7 @@ class PlanPool:
         self.ns = ns
         self.pin = pin
         self.chunks = chunks
+        self.spatial = spatial
         self._pool = ThreadPoolExecutor(max_workers=self.workers,
                                         thread_name_prefix="plan")
 
@@ -45,9 +49,14 @@ class PlanPool:
         blocked layout for ns > 1, at the smallest cap bucket that fits
         with `bucket_specs_list`, chunk rulebooks with `chunks` (the
         training CLI's --chunk_conv), what the step uploads pinned with
-        `pin` (`train.state.pinned`). Runs in a worker thread."""
+        `pin` (`train.state.pinned`). With `spatial` (the keywords of
+        `prepare_shard_args` but the plan's), (the batch as it is, this
+        rank's ShardArgs of the plan of the whole batch, bucket index).
+        Runs in a worker thread."""
         from occuseg_tpu_torch.train.bucketing import prepare_bucketed
         from occuseg_tpu_torch.train.state import pinned, prepare_batch
+        if self.spatial is not None:
+            return self._build_sharded(batch)
         if self.buckets is not None:
             laid, plan, bi = prepare_bucketed(batch, self.buckets, self.ns,
                                               self.chunks)
@@ -55,6 +64,19 @@ class PlanPool:
             (laid, plan), bi = prepare_batch(batch, self.spec, self.ns,
                                              self.chunks), 0
         return (*pinned(laid, plan), bi) if self.pin else (laid, plan, bi)
+
+    def _build_sharded(self, batch: Dict) -> Tuple[Dict, object, int]:
+        from occuseg_tpu_torch.native.plan import build_plan_host
+        from occuseg_tpu_torch.parallel.spatial_model import (
+            prepare_shard_args,
+        )
+        from occuseg_tpu_torch.train.bucketing import plan_for_batch
+        if self.buckets is not None:
+            bi, plan = plan_for_batch(self.buckets, batch["coords"])
+        else:
+            bi, plan = 0, build_plan_host(batch["coords"], self.spec)
+        sa = prepare_shard_args(plan, chunks=self.chunks, **self.spatial)
+        return batch, (sa.pinned() if self.pin else sa), bi
 
     def imap(self, batches: Iterable[Dict]
              ) -> Iterator[Tuple[Dict, object, int]]:

@@ -7,6 +7,13 @@ Parameter shapes match the JAX package (conv weight [K, Cin, Cout], NIN
 from an explicit `torch.Generator`.
 
 Every convolution takes the first of these routes that applies:
+  * over a rank's slice of a spatially sharded plan (the map carries a
+    `HaloExchange`), `_sharded_conv`: the features are extended over the
+    plan's process group, then convolved over the extended rows by the
+    chunk kernels (with the exchange's transpose plan) or the gather
+    convolution; this route is checked first, so a normal-guided
+    convolution runs its identity filter there, as in the JAX package
+    (its sharded plan has no orientation classes);
   * a normal-guided submanifold convolution at a level whose plan carries
     normals (`LevelTopology.guided`) runs `ops/normal_guide.
     normal_guided_conv`, the gather-conv kernel over the neighbour map
@@ -42,7 +49,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from occuseg_tpu_torch.core.sparse_tensor import SparseTensor
-from occuseg_tpu_torch.core.topology import ChunkPlan, Topology
+from occuseg_tpu_torch.core.topology import ChunkPlan, HaloExchange, Topology
 from occuseg_tpu_torch.ops import conv as conv_ops
 from occuseg_tpu_torch.ops import norm as norm_ops
 from occuseg_tpu_torch.ops import normal_guide
@@ -98,6 +105,25 @@ def _run_chunked(feats: torch.Tensor, w: torch.Tensor, chunks: ChunkPlan,
                                t_chunks.in_idx, t_chunks.lidx, w)
 
 
+def _sharded_conv(feats: torch.Tensor, nbr_kn: torch.Tensor,
+                  ex: HaloExchange, w: torch.Tensor,
+                  chunks: Optional[ChunkPlan], group) -> torch.Tensor:
+    """A convolution over a spatially sharded map (`occuseg_tpu/nn/
+    modules.py:34-69`): this rank's features extended over `group`
+    (`parallel/comm.extend_features`), then the chunk kernels over the
+    map's rulebook with the exchange's transpose plan where both are
+    there and the width suits them, else the gather convolution over the
+    map (`nbr_kn`, the kernel's orientation: S output rows over the
+    extended rows) with its transpose `ex.nbr_t` as the backward map."""
+    from occuseg_tpu_torch.parallel import comm
+    ext = comm.extend_features(feats, ex.send_left, ex.send_right,
+                               ex.publish, ex.halo, group, ex.sent)
+    if ex.chunks_t is not None and chunk_route(chunks, w.shape[2]):
+        return _run_chunked(ext, w, chunks, t_chunks=ex.chunks_t)
+    return conv_ops.gather_conv_kn(ext, nbr_kn, w,
+                                   ex.gather_map("nbr_t", ext.device), True)
+
+
 class SubmanifoldConvolution(nn.Module):
     """Same-topology K^3 convolution over the level's neighbor map;
     `normal_guided` rotates each site's filter by its orientation class
@@ -120,7 +146,11 @@ class SubmanifoldConvolution(nn.Module):
             raise ValueError(f"plan kernel volume {lvl.nbr.shape[1]} != "
                              f"module's {self.weight.shape[0]}")
         f = x.features
-        if self.normal_guided and lvl.guided:
+        if lvl.halo_ex is not None:
+            out = _sharded_conv(f, lvl.gather_map("nbr", f.device),
+                                lvl.halo_ex, self.weight, lvl.chunks,
+                                plan.group)
+        elif self.normal_guided and lvl.guided:
             out = normal_guide.normal_guided_conv(f, lvl.nbr, lvl.orient,
                                                   self.weight)
         elif chunk_route(lvl.chunks, self.weight.shape[2]):
@@ -168,7 +198,11 @@ class Convolution(_Transition):
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
         tr = self._transition(plan, x.level)
         f = x.features
-        if chunk_route(tr.child_chunks, self.weight.shape[2]):
+        if tr.child_ex is not None:
+            out = _sharded_conv(f, tr.gather_map("child", f.device),
+                                tr.child_ex, self.weight, tr.child_chunks,
+                                plan.group)
+        elif chunk_route(tr.child_chunks, self.weight.shape[2]):
             out = _run_chunked(f, self.weight, tr.child_chunks,
                                t_chunks=tr.up_chunks)
         else:
@@ -196,7 +230,10 @@ class Deconvolution(_Transition):
             raise ValueError("Deconvolution needs a finer level")
         tr = self._transition(plan, x.level - 1)
         f = x.features
-        if chunk_route(tr.up_chunks, self.weight.shape[2]):
+        if tr.up_ex is not None:
+            out = _sharded_conv(f, tr.gather_map("up", f.device), tr.up_ex,
+                                self.weight, tr.up_chunks, plan.group)
+        elif chunk_route(tr.up_chunks, self.weight.shape[2]):
             out = _run_chunked(f, self.weight, tr.up_chunks,
                                t_chunks=tr.child_chunks)
         else:
@@ -278,7 +315,9 @@ class BatchNormalization(nn.Module):
     momentum 0.9 as a decay; leakiness 0 = ReLU, 1 = none; a subclass
     sets its default, an argument overrides it). Running statistics are
     buffers; in training mode the forward normalises with the batch
-    statistics and updates them in place."""
+    statistics and updates them in place. Over a rank's slice of a
+    spatially sharded plan the batch statistics are summed over the
+    plan's process group (`plan.group`)."""
 
     leakiness = 1.0
     momentum = 0.9
@@ -302,7 +341,8 @@ class BatchNormalization(nn.Module):
             return x.with_features(norm_ops.batch_norm_train(
                 x.features, x.num_active, self.weight, self.bias,
                 self.running_mean, self.running_var, eps=self.eps,
-                momentum=self.momentum, leakiness=self.leakiness))
+                momentum=self.momentum, leakiness=self.leakiness,
+                group=getattr(plan, "group", None)))
         return x.with_features(norm_ops.batch_norm_eval(
             x.features, x.num_active, self.weight, self.bias,
             self.running_mean, self.running_var, eps=self.eps,

@@ -465,11 +465,19 @@ class _BceSums(torch.autograd.Function):
 
 
 def bce_membership_sums(e, rx, sig, mu, mean_pose, x, instance_id,
-                        point_scene, scene_i, use):
+                        point_scene, scene_i, use, group=None):
     """Drop-in for the [P, I] BCE chain of `classification_loss`: (bce_sum,
     n_samp, tp, fp, tot), each [I] f32. e [P, E], rx / x [P, 3], sig
     [I, 2], mu [I, E], mean_pose [I, 3], instance_id / point_scene [P],
-    scene_i [I], use [I] bool. Gradients flow to e, rx, sig and mu only."""
+    scene_i [I], use [I] bool. Gradients flow to e, rx, sig and mu only.
+
+    With `group` (spatial sharding: this rank's point rows), the radius
+    is the maximum over the group's ranks before the sums read it, and
+    the five sums are summed over the ranks after (`occuseg_tpu/losses/
+    instance.py:274-277`). The JAX package's TPU kernel path takes its
+    radius over the local shard alone (`occuseg_tpu/ops/pallas/
+    bce_loss.py:336-338`), which samples another ball on every shard;
+    this follows the JAX chain (`instance.py:306-308`) instead."""
     I = mu.shape[0]
     dev = e.device
     e = e.float().contiguous()
@@ -482,9 +490,15 @@ def bce_membership_sums(e, rx, sig, mu, mean_pose, x, instance_id,
         mp4 = _pad4(mean_pose.detach())
         mp_sq = (mp4 * mp4).sum(1)
         r_sq = radius_sq(x4, seg, mp4, mp_sq)
+        if group is not None:
+            from occuseg_tpu_torch.parallel.comm import all_max
+            r_sq = all_max(r_sq, group)
         zero = torch.zeros(I, dtype=torch.float32, device=dev)
         cons = torch.stack([(mu * mu).sum(1), mp_sq, zero, zero, 16.0 * r_sq,
                             scene_i.float(), use.float(), zero]).contiguous()
     sig_sq = sig.float() ** 2
     out = _BceSums.apply(e, rx4, sig_sq, mu, mp4, x4, seg, scene, cons)
+    if group is not None:
+        from occuseg_tpu_torch.parallel.comm import all_sum
+        out = all_sum(out, group)
     return out[0], out[1], out[2], out[3], out[4]

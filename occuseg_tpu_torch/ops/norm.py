@@ -10,7 +10,11 @@ and the statistics run over the active rows of every scene. In
 training mode the biased batch variance normalises and the unbiased one
 enters the running variance, and momentum is a DECAY:
 r = momentum * r + (1 - momentum) * batch, the opposite of
-`torch.nn.BatchNorm`'s convention.
+`torch.nn.BatchNorm`'s convention. Over a rank's slice of a spatially
+sharded plan (`group` given), the count and the two sums are summed over
+the group's ranks first (`parallel/comm.all_sum`, one collective), so
+every rank normalises with the statistics of the whole scene, as the JAX
+package's `axis_name` psums do.
 """
 
 from __future__ import annotations
@@ -57,20 +61,31 @@ def batch_norm_train(feats: torch.Tensor, num_active: NumActive,
                      scale: torch.Tensor, bias: torch.Tensor,
                      running_mean: torch.Tensor, running_var: torch.Tensor,
                      *, eps: float = 1e-4, momentum: float = 0.9,
-                     leakiness: float = 1.0) -> torch.Tensor:
-    """Normalise with the batch statistics of the active rows, and update
-    `running_mean` / `running_var` IN PLACE under no_grad: the update is
-    not part of the graph (the JAX package returns new statistics
-    instead)."""
+                     leakiness: float = 1.0, group=None) -> torch.Tensor:
+    """Normalise with the batch statistics of the active rows (of every
+    rank of `group`), and update `running_mean` / `running_var` IN PLACE
+    under no_grad: the update is not part of the graph (the JAX package
+    returns new statistics instead)."""
     f = acc(feats)
     mask = active_mask(num_active, feats.shape[0], feats.device)[:, None]
-    n = float(max(total_active(num_active), 1))
     zero = torch.zeros((), dtype=f.dtype, device=feats.device)
     sum_f = torch.where(mask, f, zero).sum(0)
     sumsq = torch.where(mask, f * f, zero).sum(0)
+    if group is None:
+        n = float(max(total_active(num_active), 1))
+        n_less_1 = max(n - 1.0, 1.0)
+    else:
+        from occuseg_tpu_torch.parallel.comm import all_sum
+        C = sum_f.shape[0]
+        local_n = torch.full((1,), float(total_active(num_active)),
+                             dtype=f.dtype, device=feats.device)
+        stats = all_sum(torch.cat([sum_f, sumsq, local_n]), group)
+        sum_f, sumsq = stats[:C], stats[C:2 * C]
+        n = torch.clamp(stats[2 * C], min=1.0)
+        n_less_1 = torch.clamp(n - 1.0, min=1.0)
     mean = sum_f / n
     var_b = sumsq / n - mean * mean                    # biased
-    var_u = (sumsq - mean * mean * n) / max(n - 1.0, 1.0)
+    var_u = (sumsq - mean * mean * n) / n_less_1
     with torch.no_grad():
         running_mean.mul_(momentum).add_((1 - momentum) * mean)
         running_var.mul_(momentum).add_((1 - momentum) * var_u)

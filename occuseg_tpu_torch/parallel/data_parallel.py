@@ -72,16 +72,32 @@ def world() -> Tuple[int, int]:
 
 
 def rank_device(device, rank: int) -> torch.device:
-    """The rank's device: "cuda" without an index is card `rank`; a device
-    with an index (or the CPU) is taken as it is, for every rank."""
+    """The rank's device: "cuda" without an index is the card of the
+    rank's place on its host, torchrun's LOCAL_RANK where it is set (a
+    global rank names no card once the ranks span hosts), else `rank`; a
+    device with an index (or the CPU) is taken as it is, for every
+    rank."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        return torch.device("cuda", local % max(torch.cuda.device_count(), 1))
     return dev
 
 
 def default_backend(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def shared_card_backend(device, ranks_per_host: int) -> Optional[str]:
+    """"gloo" where `ranks_per_host` ranks on `device` would share a card
+    (a named card, or more ranks than cards; NCCL refuses two ranks on
+    one device), else None (the default backend)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and ranks_per_host > 1 and (
+            dev.index is not None
+            or ranks_per_host > torch.cuda.device_count()):
+        return "gloo"
+    return None
 
 
 def init(rank: int, world_size: int, init_method: str, device,

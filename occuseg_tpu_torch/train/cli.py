@@ -13,6 +13,14 @@ batch_size / n scenes a step. Launched by torchrun
 (WORLD_SIZE set), each process is one rank of torchrun's group instead:
 
     torchrun --nproc_per_node 4 -m occuseg_tpu_torch.train.cli --m 64 ...
+
+`--spatial_shards` D > 1 splits every batch's voxels over D ranks
+(`parallel/spatial_model.py`, `--spatial_halo` / `--spatial_pool` rows
+of halo and pool a shard, 4096 each by default): the CLI spawns D ranks,
+or joins torchrun's group when WORLD_SIZE is D (across hosts:
+`torchrun --nnodes N --nproc_per_node D/N ...`). Ranks that share a card
+(D ranks on one card, or a named card) join over gloo, as NCCL refuses
+two ranks on one device. It does not combine with --num_devices > 1.
 """
 
 from __future__ import annotations
@@ -64,17 +72,32 @@ def run(config: Dict, device="cuda", max_steps: Optional[int] = None
     --num_devices asks: under torchrun (WORLD_SIZE set) as this process's
     rank of torchrun's group; otherwise n = `data_parallel.num_devices`
     ranks, spawned when n > 1 (on "cuda" every visible card by default,
-    on a named card one rank). Returns the `train` result with the eval
-    metrics under "metrics"; with spawned ranks, rank 0's steps, losses,
-    timings, ckpt_dir and metrics."""
+    on a named card one rank); with --spatial_shards D > 1, D shard
+    ranks, spawned unless this process is in a group already. Returns the
+    `train` result with the eval metrics under "metrics"; with spawned
+    ranks, rank 0's steps, losses, timings, ckpt_dir and metrics."""
+    shards = int(config.get("spatial_shards") or 0)
+    if shards > 1 and int(config.get("num_devices") or 0) > 1:
+        raise ValueError("--spatial_shards with --num_devices > 1: spatial "
+                         "sharding and data parallelism do not combine")
     if "WORLD_SIZE" in os.environ and not dist.is_initialized():
         rank, n = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-        config = dict(config, num_devices=n)
-        data_parallel.init(rank, n, "env://", device)
+        if shards <= 1:
+            config = dict(config, num_devices=n)
+        per_host = int(os.environ.get("LOCAL_WORLD_SIZE", n))
+        data_parallel.init(rank, n, "env://", device,
+                           data_parallel.shared_card_backend(device,
+                                                             per_host))
         try:
             return _run(config, device, max_steps)
         finally:
             dist.destroy_process_group()
+    if shards > 1:
+        if dist.is_initialized():
+            return _run(config, device, max_steps)
+        return data_parallel.spawn(
+            _rank, shards, device, config, device, max_steps,
+            backend=data_parallel.shared_card_backend(device, shards))[0]
     n = data_parallel.num_devices(config.get("num_devices"), device)
     if n != int(config.get("num_devices") or n):
         log.warning("--num_devices %s on %s: %d rank(s)",

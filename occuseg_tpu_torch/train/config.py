@@ -3,9 +3,9 @@
 and defaults (the reference's flags, plus the caps, device count, plan
 workers, buckets and the blocked layout), and the same derived values (UNet
 widths [m..6m], input channels from the `use_feature` string l/c/n/d/h,
-class count, per-level caps). Flags the port does not take yet are parsed
-and then refused by `train.loop.train` (more than one card or spatial
-shards, ROADMAP A9; `--chunk_conv 0`, the gather path)."""
+class count, per-level caps). The port takes every flag: --num_devices
+trains data-parallel, --spatial_shards splits every batch's voxels over
+that many ranks (`train/cli.py`)."""
 
 from __future__ import annotations
 
@@ -89,7 +89,8 @@ def get_parser() -> argparse.ArgumentParser:
                         "buckets (cuts padding waste)")
     p.add_argument("--spatial_shards", type=int, default=0,
                    help=">1 splits each batch's voxels across this many "
-                        "cards (not ported, ROADMAP A9)")
+                        "ranks (spatial sharding: halo/pool exchanges, BN "
+                        "and loss summed over the shards)")
     p.add_argument("--spatial_halo", type=int, default=4096,
                    help="halo rows per shard side (spatial sharding)")
     p.add_argument("--spatial_pool", type=int, default=4096,

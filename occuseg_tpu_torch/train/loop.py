@@ -32,7 +32,20 @@ steps only its own member, and one all-reduce a step averages the
 gradients, loss parts and BN statistics; rank 0 alone logs, checkpoints
 and evaluates, and the others wait for it at a barrier. Otherwise it
 trains on one device.
-`--spatial_shards` > 1 raises (not ported, ROADMAP A item 5). The entry
+
+With `--spatial_shards` D > 1 the process group's D ranks are the shards
+of every batch instead (`parallel/spatial_model.py`): every rank draws
+the same batches and builds the same host plan of the whole batch (no
+blocked layout, no chunk rulebooks, no point layout, as the JAX loop,
+`occuseg_tpu/train/loop.py:149-155`, `:300-304`), shards it
+(`--spatial_halo` / `--spatial_pool` rows, per-shard chunk rulebooks
+unless --chunk_conv 0) and keeps its own slice; each step averages the
+gradients over the ranks. Rank 0 logs, checkpoints and evaluates (the
+eval unsharded), as under data parallelism. Spatial shards and more than
+one data-parallel device do not combine (the JAX package has no such
+mesh), and the normal-guided convolutions run their identity filters
+under sharding, as the JAX package's do (its sharded plan carries no
+orientation classes). The entry
 points run on "cuda" and raise where there is no card, unless the caller
 passes device="cpu". Unlike the JAX loop, a scene file that cannot be
 read and a failing snapshot eval are not caught: they stop the run.
@@ -246,20 +259,24 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
     host (the upload, the step, the all-reduce and a synchronization).
     `on_start(trainer)` runs once, after any restore, before the first
     step."""
-    if int(config.get("spatial_shards", 0) or 0) > 1:
-        raise NotImplementedError("--spatial_shards > 1: spatial sharding "
-                                  "is not ported yet (ROADMAP A item 5)")
     rank, n_dev = _ranks(config)
+    spatial = _spatial(config, rank, n_dev)
     dev = data_parallel.rank_device(_device(device), rank)
     rng = np.random.default_rng(100)  # the reference's seed
     spec = build_spec(config)
     dataset = get_dataset(config)
     p_cap = config["point_cap"]
     i_cap = config["instance_cap"]
-    batch_per_dev = max(int(config["batch_size"]) // n_dev, 1)
-    # multi-scene batches take the blocked layout (native/blocked.py)
-    blocked_ns = (batch_per_dev if batch_per_dev > 1
+    # the JAX loop's arithmetic (occuseg_tpu/train/loop.py:293-295): a
+    # spatially sharded batch is divided by the data-parallel devices
+    batch_per_dev = max(int(config["batch_size"]) // (
+        n_dev if spatial is None else data_parallel.num_devices(
+            config.get("num_devices"), device)), 1)
+    # multi-scene batches take the blocked layout (native/blocked.py);
+    # sharded batches keep one layout over the concatenated scenes
+    blocked_ns = (batch_per_dev if batch_per_dev > 1 and spatial is None
                   and config.get("blocked_batch", True) else 1)
+    dp = n_dev > 1 and spatial is None
     trainer = build_trainer(config, dev, batch_per_dev)
     model = trainer.model
 
@@ -302,7 +319,8 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
     plan_pool = PlanPool(spec, int(config.get("plan_workers", 0) or 0),
                          bucket_specs_list=buckets, ns=blocked_ns,
                          pin=dev.type == "cuda",
-                         chunks=bool(config.get("chunk_conv", 1)))
+                         chunks=bool(config.get("chunk_conv", 1)),
+                         spatial=spatial)
     try:
         for epoch in range(start_epoch, int(config.get("max_epoch", 1))):
             t0 = time.time()
@@ -310,7 +328,7 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
             nb = 0
             counters = CounterState()
             weights: deque = deque()   # each queued batch's loss weight
-            if n_dev > 1:
+            if dp:
                 # every rank draws the same groups, and makes only its
                 # member of each, at the member's loss weight
                 makers = dataset.train_batch_makers(
@@ -335,10 +353,14 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
                 raw, host_plan, _ = item
                 ts = time.perf_counter()
                 weight = weights.popleft()
-                parts = trainer.step(raw, host_plan, weight=weight)
+                if spatial is not None:  # host_plan: this rank's ShardArgs
+                    parts = trainer.step(raw, shard_args=host_plan)
+                else:
+                    parts = trainer.step(raw, host_plan, weight=weight)
                 # host work while the card runs the queued step; a rank
-                # counts its own member, a padding copy not at all
-                if weight is None or weight > 0:
+                # counts its own member, a padding copy not at all (and,
+                # as the JAX loop, a sharded step not at all)
+                if spatial is None and (weight is None or weight > 0):
                     counters.add(
                         plan_muladd_count(host_plan, planes,
                                           config.get("block_reps", 1),
@@ -357,7 +379,7 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
                     break
             dt = time.time() - t0
             losses = {k: v / max(nb, 1) for k, v in agg.items()}
-            if n_dev > 1:
+            if dp:
                 counters = _all_ranks(counters, dev)
             msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items()))
             if lead:
@@ -399,6 +421,32 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
             writer.close()
     return {"trainer": trainer, "model": model, "spec": spec, "steps": step,
             "losses": losses, "timings": timings, "ckpt_dir": ckpt_dir}
+
+
+def _spatial(config: Dict, rank: int, n_dev: int) -> Optional[Dict]:
+    """The PlanPool's `spatial` options of --spatial_shards D > 1 (None
+    without): D must be the size of the process group this process has
+    joined, and --num_devices at most 1."""
+    D = int(config.get("spatial_shards", 0) or 0)
+    if D <= 1:
+        return None
+    if int(config.get("num_devices") or 0) > 1:
+        raise ValueError("--spatial_shards with --num_devices > 1: spatial "
+                         "sharding and data parallelism do not combine (the "
+                         "JAX package has no such mesh)")
+    if n_dev != D:
+        raise ValueError(f"--spatial_shards {D}: train() is one shard of a "
+                         f"{D}-rank process group, and this process is in "
+                         f"one of {n_dev}; run it through "
+                         f"occuseg_tpu_torch.train.cli (which spawns the "
+                         f"ranks) or torchrun")
+    if config.get("use_normal"):
+        log.warning("--use_normal with --spatial_shards: the sharded plan "
+                    "has no orientation classes, so the normal-guided "
+                    "convolutions run their identity filters (as in the "
+                    "JAX package)")
+    return dict(num_shards=D, halo=int(config.get("spatial_halo", 4096)),
+                pool=int(config.get("spatial_pool", 4096)), rank=rank)
 
 
 def _all_ranks(counters: CounterState, dev) -> CounterState:

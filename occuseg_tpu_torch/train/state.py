@@ -33,6 +33,14 @@ parts and the BN running statistics are then averaged over the group's
 ranks with the weights (one all-reduce, the JAX step's `axis_name`
 reductions) before the update. `optax.flatten` needs no counterpart: it
 only fuses the elementwise update on the TPU.
+
+A rank of a spatially sharded step (`parallel/spatial_model.py`, the JAX
+package's `make_spatial_train_step`) passes its `shard_args` instead of a
+plan: the step takes the rank's rows of the global batch, runs the
+forward over its slice of the sharded plan and the loss over the plan's
+process group, and averages the gradients over the group (each rank's
+backward runs the same replicated loss: `parallel/comm.py`) before every
+rank takes the same update.
 """
 
 from __future__ import annotations
@@ -160,22 +168,36 @@ class Trainer:
 
     def step(self, batch: Dict[str, np.ndarray],
              plan: Optional[Topology] = None, weight: Optional[float] = None,
-             group=None) -> Dict[str, torch.Tensor]:
+             group=None, shard_args=None) -> Dict[str, torch.Tensor]:
         """One call from a prepared batch and its host plan, or from a raw
         batch planned on the device (plan None); returns the loss parts
         (and "total") as detached 0-d tensors on the device. With
         `weight`, a data-parallel rank's step over process group `group`
         (None: the default group): the returned parts are the group's
-        weighted means. A rank of a group of several needs its weight."""
-        if weight is None and dist.is_initialized() \
+        weighted means. A rank of a group of several needs its weight.
+        With `shard_args` (`parallel/spatial_model.prepare_shard_args` of
+        the batch's host plan, this rank's), a rank's step of a spatially
+        sharded batch (`batch` the whole batch; `plan` is not read)."""
+        loss_group = None
+        if shard_args is not None:
+            from occuseg_tpu_torch.parallel.spatial_model import (
+                shard_points,
+            )
+            b = shard_points(batch, shard_args, self.device)
+            plan = shard_args.plan.to(self.device)
+            weight, group = 1.0, plan.group
+            loss_group = group
+        elif weight is None and dist.is_initialized() \
                 and dist.get_world_size(group) > 1:
             raise ValueError("Trainer.step: a data-parallel rank's step "
                              "needs its loss weight")
-        b, plan = self._inputs(batch, plan)
+        else:
+            b, plan = self._inputs(batch, plan)
         self.model.train()
         out = self.model(b["features"], plan)
         total, parts = occuseg_total_loss(out, b, self.num_scenes,
-                                          self.num_instances, self.loss_cfg)
+                                          self.num_instances, self.loss_cfg,
+                                          group=loss_group)
         micro = self.steps % self.accum_steps
         if micro == 0:
             self.optimizer.zero_grad(set_to_none=True)

@@ -338,7 +338,9 @@ def test_loop_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="2-rank process group"):
         loop.train(_small_config(tmp_path, "--num_devices", "2"),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 5"):
+    # so is spatial sharding: train() is then one shard of a process
+    # group of --spatial_shards ranks (tests/test_torch_spatial_model.py)
+    with pytest.raises(ValueError, match="4-rank process group"):
         loop.train(_small_config(tmp_path, "--spatial_shards", "4"),
                    device="cpu")
     # scenes are loaded now (tests/test_torch_data.py), and one that
