@@ -437,30 +437,14 @@ def forward_launches(plan, n_planes=N_PLANES) -> dict:
             "blocked_segment_sum": int(plan.vox_seg is not None)}
 
 
-def _counters():
-    """(name, wrapper, attribute) of every kernel launch counter."""
-    from occuseg_tpu_torch.ops.kernels import bce_loss
-    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
-    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
-    from occuseg_tpu_torch.ops.kernels import segsum
-    return (("chunk_conv", cc.chunk_conv, "launches"),
-            ("chunk_conv_bwd_fused", cc.chunk_conv_bwd_fused, "launches"),
-            ("chunk_conv_bwd_fused_kgrouped", cc.chunk_conv_bwd_fused,
-             "launches_kgrouped"),
-            ("chunk_conv_dw", cc.chunk_conv_dw, "launches"),
-            ("blocked_segment_sum", segsum.blocked_segment_sum, "launches"),
-            ("bce_radius", bce_loss.radius_sq, "launches"),
-            ("bce_fwd", bce_loss.bce_sums, "launches"),
-            ("bce_bwd", bce_loss.bce_sums_bwd, "launches"),
-            ("gather_conv", gc.gather_conv, "launches"))
-
-
 def read_launches() -> dict:
-    return {name: getattr(fn, attr) for name, fn, attr in _counters()}
+    from occuseg_tpu_torch.utils.profiling import snapshot
+    return snapshot()["launches"]
 
 
 def zero_launches() -> None:
-    for _, fn, attr in _counters():
+    from occuseg_tpu_torch.utils.profiling import launch_counters
+    for _, fn, attr in launch_counters():
         setattr(fn, attr, 0)
 
 

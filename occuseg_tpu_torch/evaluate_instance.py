@@ -60,6 +60,7 @@ from occuseg_tpu_torch.train.loop import (
     checkpoint_path,
     get_dataset,
 )
+from occuseg_tpu_torch.utils.profiling import record
 
 log = logging.getLogger("occuseg_tpu_torch")
 
@@ -94,19 +95,20 @@ def get_parser():
 
 class _Laps:
     """Part times into `trace` (a dict, or None for no timing): each lap
-    ends with a device synchronisation, so a part owns its device work."""
+    ends with a device synchronisation, so a part owns its device work,
+    and is the span `eval.<part>` (`utils/profiling.py`)."""
 
     def __init__(self, dev: torch.device, trace: Optional[Dict]):
         self.dev, self.trace = dev, trace
-        self.t = time.perf_counter()
+        self.t = time.time_ns()
 
     def lap(self, name: str) -> None:
         if self.trace is None:
             return
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.trace[name + "_ms"] = 1e3 * (now - self.t)
+        now = time.time_ns()
+        self.trace[name + "_ms"] = 1e3 * record("eval." + name, self.t, now)
         self.t = now
 
 

@@ -28,6 +28,7 @@ from occuseg_tpu_torch.core.topology import PlanSpec, Topology
 from occuseg_tpu_torch.models.occuseg import OccuSegOutputs
 from occuseg_tpu_torch.native.blocked import build_plan_host_blocked
 from occuseg_tpu_torch.ops.kernels import chunk_conv
+from occuseg_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +52,8 @@ def plan_scene(coords: np.ndarray, spec: PlanSpec, ns: int = 1,
     layout. A spec only the device planner builds raises ValueError:
     plan it with `core.topology.build_plan` (`Trainer.step(batch,
     plan=None)`)."""
-    plan = build_plan_host_blocked(coords, spec, ns, normals)
+    with span("plan.host"):
+        plan = build_plan_host_blocked(coords, spec, ns, normals)
     if plan is None:
         raise ValueError(f"the host planner does not build {spec}; plan it "
                          f"on the device (core.topology.build_plan)")
@@ -64,12 +66,15 @@ def augment_plan(plan: Topology, chunks: bool = True) -> Topology:
     layout does not fit the caps, with the points per voxel alone (host
     data the InputLayer's mean divides by)."""
     if chunks:
-        plan = chunk_conv.augment_plan_with_chunks(plan)
-    plan = augment_plan_with_point_layout(plan)
-    if plan.vox_counts is None:
-        p2v = np.asarray(plan.p2v)
-        plan = dataclasses.replace(plan, vox_counts=np.bincount(
-            p2v[p2v >= 0], minlength=plan.levels[0].cap).astype(np.float32))
+        with span("plan.chunks"):
+            plan = chunk_conv.augment_plan_with_chunks(plan)
+    with span("plan.layout"):
+        plan = augment_plan_with_point_layout(plan)
+        if plan.vox_counts is None:
+            p2v = np.asarray(plan.p2v)
+            plan = dataclasses.replace(plan, vox_counts=np.bincount(
+                p2v[p2v >= 0],
+                minlength=plan.levels[0].cap).astype(np.float32))
     return plan
 
 
@@ -81,8 +86,9 @@ def prepare_scene(coords: np.ndarray, features: np.ndarray,
     `chunks`) and the features [P, C] permuted into the plan's point
     layout."""
     plan = plan_scene(coords, spec, normals=normals, chunks=chunks)
-    laid = apply_point_layout({"features": np.asarray(features, np.float32)},
-                              plan)
+    with span("plan.layout"):
+        laid = apply_point_layout(
+            {"features": np.asarray(features, np.float32)}, plan)
     return PreparedScene(plan=plan, features=laid["features"],
                          num_voxels=int(plan.levels[0].num_active))
 

@@ -16,6 +16,13 @@ per-point arrays permuted into it (`train.state.prepare_batch`): the
 port's InputLayer needs the layout. Under spatial sharding a batch keeps
 its order and its plan is this rank's `ShardArgs` instead
 (`parallel/spatial_model.prepare_shard_args`).
+
+Spans and counters (`utils/profiling.py`): `plan.batch`, each batch's
+preparation on its worker (its children: `plan.host`, `plan.chunks`,
+`plan.layout`, `plan.pin`); `pool.wait`, the time the consumer blocks on
+the next batch; `pool.ready_at_take`, the batches of the window already
+prepared when the consumer takes one (over the count of `plan.batch`:
+the mean queue depth).
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from __future__ import annotations
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, Iterator, Tuple
+
+from occuseg_tpu_torch.utils.profiling import count, span
 
 
 class PlanPool:
@@ -52,18 +61,22 @@ class PlanPool:
         `pin` (`train.state.pinned`). With `spatial` (the keywords of
         `prepare_shard_args` but the plan's), (the batch as it is, this
         rank's ShardArgs of the plan of the whole batch, bucket index).
-        Runs in a worker thread."""
+        Runs in a worker thread, as the span `plan.batch`."""
         from occuseg_tpu_torch.train.bucketing import prepare_bucketed
         from occuseg_tpu_torch.train.state import pinned, prepare_batch
-        if self.spatial is not None:
-            return self._build_sharded(batch)
-        if self.buckets is not None:
-            laid, plan, bi = prepare_bucketed(batch, self.buckets, self.ns,
-                                              self.chunks)
-        else:
-            (laid, plan), bi = prepare_batch(batch, self.spec, self.ns,
-                                             self.chunks), 0
-        return (*pinned(laid, plan), bi) if self.pin else (laid, plan, bi)
+        with span("plan.batch"):
+            if self.spatial is not None:
+                return self._build_sharded(batch)
+            if self.buckets is not None:
+                laid, plan, bi = prepare_bucketed(batch, self.buckets,
+                                                  self.ns, self.chunks)
+            else:
+                (laid, plan), bi = prepare_batch(batch, self.spec, self.ns,
+                                                 self.chunks), 0
+            if not self.pin:
+                return laid, plan, bi
+            with span("plan.pin"):
+                return (*pinned(laid, plan), bi)
 
     def _build_sharded(self, batch: Dict) -> Tuple[Dict, object, int]:
         from occuseg_tpu_torch.native.plan import build_plan_host
@@ -74,9 +87,13 @@ class PlanPool:
         if self.buckets is not None:
             bi, plan = plan_for_batch(self.buckets, batch["coords"])
         else:
-            bi, plan = 0, build_plan_host(batch["coords"], self.spec)
+            with span("plan.host"):
+                bi, plan = 0, build_plan_host(batch["coords"], self.spec)
         sa = prepare_shard_args(plan, chunks=self.chunks, **self.spatial)
-        return batch, (sa.pinned() if self.pin else sa), bi
+        if not self.pin:
+            return batch, sa, bi
+        with span("plan.pin"):
+            return batch, sa.pinned(), bi
 
     def imap(self, batches: Iterable[Dict]
              ) -> Iterator[Tuple[Dict, object, int]]:
@@ -95,7 +112,10 @@ class PlanPool:
                 pending.append(self._pool.submit(self._build, b))
             if not pending:
                 break
-            yield pending.popleft().result()
+            count("pool.ready_at_take", sum(f.done() for f in pending))
+            with span("pool.wait"):
+                item = pending.popleft().result()
+            yield item
 
     def close(self):
         self._pool.shutdown(wait=False, cancel_futures=True)

@@ -47,6 +47,7 @@ import torch
 from occuseg_tpu_torch import native
 from occuseg_tpu_torch.core.topology import ChunkPlan
 from occuseg_tpu_torch.ops import kernels
+from occuseg_tpu_torch.utils.profiling import count, span
 
 DEFAULT_M = 128
 
@@ -90,17 +91,23 @@ def augment_plan_with_chunks(plan, M: int = DEFAULT_M, U=None, U_child=None,
     `num_active`) is planned as it stands: its per-scene caps are
     multiples of M, so no chunk straddles two scenes, and each chunk's
     input list is the JAX package's scene-local list shifted to global
-    rows."""
+    rows.
+
+    Each attempt is the span `plan.chunk_try` (`utils/profiling.py`); a
+    plan returned above tier 1.0 counts `plan.tier_raised`, and its maps
+    left with `chunks=None` count `plan.gather_maps`."""
+    def attempt(f, warn):
+        with span("plan.chunk_try"):
+            return _augment_once(plan, M, U, U_child, U_up, f, warn=warn)
+
     n_lvl = len(plan.levels)
     factors = [1.0] * n_lvl
     for _ in range(n_lvl + 1):
-        out, over_l, over_t = _augment_once(plan, M, U, U_child, U_up,
-                                            (tuple(factors), 1.0, 1.0),
-                                            warn=False)
+        out, over_l, over_t = attempt((tuple(factors), 1.0, 1.0), False)
         if out is not None:
             lbl = ",".join(f"L{li}x{f:.2f}" for li, f in enumerate(factors)
                            if f != 1.0)
-            return dataclasses.replace(out, chunk_tier=lbl or 1.0)
+            return _counted(out, lbl or 1.0)
         fresh = [li for li in over_l if factors[li] == 1.0]
         if over_t or not fresh:
             break  # a transition overflowed, or 1.3 was not enough
@@ -108,12 +115,23 @@ def augment_plan_with_chunks(plan, M: int = DEFAULT_M, U=None, U_child=None,
             factors[li] = 1.3
 
     for f in tiers[1:-1]:
-        out, _, _ = _augment_once(plan, M, U, U_child, U_up, f, warn=False)
+        out, _, _ = attempt(f, False)
         if out is not None:
-            return dataclasses.replace(out, chunk_tier=float(f))
-    out, _, _ = _augment_once(plan, M, U, U_child, U_up, tiers[-1],
-                              warn=True)
-    return dataclasses.replace(out, chunk_tier=float(tiers[-1]))
+            return _counted(out, float(f))
+    out, _, _ = attempt(tiers[-1], True)
+    return _counted(out, float(tiers[-1]))
+
+
+def _counted(plan, tier):
+    """The plan at `tier`, counted in `plan.tier_raised` (above 1.0) and
+    `plan.gather_maps` (its maps without chunks: a level's, a
+    transition's child and up)."""
+    if tier != 1.0:
+        count("plan.tier_raised")
+    count("plan.gather_maps",
+          sum(lvl.chunks is None for lvl in plan.levels)
+          + 2 * sum(tr.child_chunks is None for tr in plan.transitions))
+    return dataclasses.replace(plan, chunk_tier=tier)
 
 
 def _tier3(f):

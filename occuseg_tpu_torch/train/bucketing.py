@@ -21,6 +21,7 @@ from occuseg_tpu_torch.core.topology import PlanSpec, Topology
 from occuseg_tpu_torch.infer import augment_plan
 from occuseg_tpu_torch.native.blocked import build_plan_host_blocked
 from occuseg_tpu_torch.train.config import CAP_RATIOS
+from occuseg_tpu_torch.utils.profiling import span
 
 
 def bucket_specs(max_voxel_cap: int, num_levels: int,
@@ -66,7 +67,8 @@ def plan_for_batch(specs: Sequence[PlanSpec], coords: np.ndarray,
     sub-cap (the batch's largest scene binds)."""
     i = pick_bucket(specs, coords)
     while True:
-        plan = build_plan_host_blocked(coords, specs[i], ns, normals)
+        with span("plan.host"):
+            plan = build_plan_host_blocked(coords, specs[i], ns, normals)
         hot = [li for li, l in enumerate(plan.levels)
                if (np.asarray(l.num_active)
                    >= np.shape(l.keys)[0] // max(ns, 1)).any()]
@@ -88,4 +90,6 @@ def prepare_bucketed(batch, specs: Sequence[PlanSpec], ns: int = 1,
     normals = batch["normals"] if specs[0].guide_levels is not None else None
     bi, plan = plan_for_batch(specs, batch["coords"], normals, ns)
     plan = augment_plan(plan, chunks)
-    return apply_point_layout(batch, plan, num_scenes=ns), plan, bi
+    with span("plan.layout"):
+        laid = apply_point_layout(batch, plan, num_scenes=ns)
+    return laid, plan, bi

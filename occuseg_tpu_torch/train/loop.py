@@ -17,7 +17,8 @@ smallest cap bucket that fits) in a `PlanPool` of `--plan_workers` threads
 (one for 0 or 1), as NumPy arrays (on a card, what the step uploads is
 pinned there); only this thread pulls the batches from the dataset and
 uploads them, inside `Trainer.step`. Per epoch: the mean loss parts,
-MulAdd counters and wall time in one log line (and TensorBoard when it is
+MulAdd counters and wall time in one log line, the loader and step
+timings of `loader_report` in another (and TensorBoard when it is
 installed), a checkpoint every `snapshot` epochs with power-of-two
 retention, and the semantic eval. `--checkpoint_file` (config "load")
 resumes from a checkpoint of the port, or imports the weights and BN
@@ -88,6 +89,8 @@ from occuseg_tpu_torch.utils.profiling import (
     CounterState,
     plan_hidden_count,
     plan_muladd_count,
+    snapshot,
+    span,
 )
 
 log = logging.getLogger("occuseg_tpu_torch")
@@ -169,6 +172,34 @@ def get_dataset(config: Dict):
                     config.get("data_dir"))
         return _synthetic_dataset(config)
     return ds
+
+
+def loader_report(before: Dict, after: Dict) -> str:
+    """The loader's and the loop's numbers between two
+    `utils.profiling.snapshot()`s: the mean wait for a planned batch and
+    step time (ms, the spans `loop.wait` and `loop.step`), the mean queue
+    depth when the loop took a batch (`pool.ready_at_take` over the
+    batches planned, `plan.batch`), chunk-plan attempts a batch
+    (`plan.chunk_try`), batches whose chunk budgets were raised
+    (`plan.tier_raised`) and maps left on the gather path
+    (`plan.gather_maps`)."""
+    def spans(name):
+        a = before["spans"].get(name, {"count": 0, "seconds": 0.0})
+        b = after["spans"].get(name, {"count": 0, "seconds": 0.0})
+        return b["count"] - a["count"], b["seconds"] - a["seconds"]
+
+    def counter(name):
+        return after["counters"].get(name, 0) - before["counters"].get(
+            name, 0)
+
+    (nw, wait), (ns, stepped) = spans("loop.wait"), spans("loop.step")
+    batches = max(spans("plan.batch")[0], 1)
+    return (f"wait_ms={1e3 * wait / max(nw, 1):.1f} "
+            f"step_ms={1e3 * stepped / max(ns, 1):.1f} "
+            f"queue_depth={counter('pool.ready_at_take') / batches:.2f} "
+            f"chunk_tries={spans('plan.chunk_try')[0] / batches:.2f}/batch "
+            f"tier_raised={counter('plan.tier_raised')} "
+            f"gather_maps={counter('plan.gather_maps')}")
 
 
 def plan_prefetcher(batches: Iterable[Dict], spec: PlanSpec,
@@ -255,8 +286,9 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
     (`_ranks`). Returns dict(trainer, model, spec, steps, losses (the last
     epoch's mean loss parts, the ranks' weighted means), timings, ckpt_dir):
     timings["wait_ms"] is the time this thread waited for each prepared
-    batch, timings["step_ms"] each step's time to its loss values on the
-    host (the upload, the step, the all-reduce and a synchronization).
+    batch (the span `loop.wait`), timings["step_ms"] each step's time to
+    its loss values on the host (the upload, the step, the all-reduce and
+    a synchronization; the span `loop.step`).
     `on_start(trainer)` runs once, after any restore, before the first
     step."""
     rank, n_dev = _ranks(config)
@@ -327,6 +359,7 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
             agg: Dict[str, float] = {}
             nb = 0
             counters = CounterState()
+            at_start = snapshot()
             weights: deque = deque()   # each queued batch's loss weight
             if dp:
                 # every rank draws the same groups, and makes only its
@@ -346,33 +379,34 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
                     yield make()
             source = plan_pool.imap(batches())
             while True:
-                tw = time.perf_counter()
-                item = next(source, None)
+                with span("loop.wait") as waited:
+                    item = next(source, None)
                 if item is None:
                     break
                 raw, host_plan, _ = item
-                ts = time.perf_counter()
-                weight = weights.popleft()
-                if spatial is not None:  # host_plan: this rank's ShardArgs
-                    parts = trainer.step(raw, shard_args=host_plan)
-                else:
-                    parts = trainer.step(raw, host_plan, weight=weight)
-                # host work while the card runs the queued step; a rank
-                # counts its own member, a padding copy not at all (and,
-                # as the JAX loop, a sharded step not at all)
-                if spatial is None and (weight is None or weight > 0):
-                    counters.add(
-                        plan_muladd_count(host_plan, planes,
-                                          config.get("block_reps", 1),
-                                          config.get("residual_blocks",
-                                                     True),
-                                          config["input_feature_number"]),
-                        plan_hidden_count(host_plan, planes),
-                        scenes=batch_per_dev)
-                for k, v in parts.items():
-                    agg[k] = agg.get(k, 0.0) + float(v)
-                timings["wait_ms"].append(1e3 * (ts - tw))
-                timings["step_ms"].append(1e3 * (time.perf_counter() - ts))
+                with span("loop.step") as stepped:
+                    weight = weights.popleft()
+                    if spatial is not None:  # host_plan: this rank's
+                        parts = trainer.step(raw, shard_args=host_plan)
+                    else:
+                        parts = trainer.step(raw, host_plan, weight=weight)
+                    # host work while the card runs the queued step; a
+                    # rank counts its own member, a padding copy not at
+                    # all (and, as the JAX loop, a sharded step not at
+                    # all)
+                    if spatial is None and (weight is None or weight > 0):
+                        counters.add(
+                            plan_muladd_count(
+                                host_plan, planes,
+                                config.get("block_reps", 1),
+                                config.get("residual_blocks", True),
+                                config["input_feature_number"]),
+                            plan_hidden_count(host_plan, planes),
+                            scenes=batch_per_dev)
+                    for k, v in parts.items():
+                        agg[k] = agg.get(k, 0.0) + float(v)
+                timings["wait_ms"].append(1e3 * waited.seconds)
+                timings["step_ms"].append(1e3 * stepped.seconds)
                 nb += 1
                 step += 1
                 if max_steps is not None and step >= max_steps:
@@ -386,6 +420,8 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
                 log.info("epoch %d: %s (%.1fs, %d steps)", epoch, msg, dt,
                          nb)
                 log.info("epoch %d: %s", epoch, counters.report())
+                log.info("epoch %d: %s", epoch,
+                         loader_report(at_start, snapshot()))
             if writer:
                 for k, v in losses.items():
                     writer.add_scalar(f"train/{k}", v, epoch)

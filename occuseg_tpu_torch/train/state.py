@@ -58,6 +58,7 @@ from occuseg_tpu_torch.infer import Predictor, plan_scene
 from occuseg_tpu_torch.losses.instance import LossConfig, occuseg_total_loss
 from occuseg_tpu_torch.models.occuseg import OccuSegOutputs
 from occuseg_tpu_torch.parallel import data_parallel
+from occuseg_tpu_torch.utils.profiling import span
 
 # the batch arrays the forward and the loss read
 _BATCH_KEYS = ("features", "labels", "instance_id", "point_scene", "pose",
@@ -113,7 +114,9 @@ def prepare_batch(batch: Dict[str, np.ndarray], spec: PlanSpec,
     has `guide_levels`, and chunk rulebooks with `chunks`)."""
     normals = batch["normals"] if spec.guide_levels is not None else None
     plan = plan_scene(batch["coords"], spec, ns, normals, chunks)
-    return apply_point_layout(batch, plan, num_scenes=ns), plan
+    with span("plan.layout"):
+        laid = apply_point_layout(batch, plan, num_scenes=ns)
+    return laid, plan
 
 
 def pinned(batch: Dict[str, np.ndarray], plan: Topology
@@ -177,41 +180,57 @@ class Trainer:
         weighted means. A rank of a group of several needs its weight.
         With `shard_args` (`parallel/spatial_model.prepare_shard_args` of
         the batch's host plan, this rank's), a rank's step of a spatially
-        sharded batch (`batch` the whole batch; `plan` is not read)."""
+        sharded batch (`batch` the whole batch; `plan` is not read).
+
+        The call is the span `step` (`utils/profiling.py`), its parts the
+        spans `step.upload` (the plan and the batch to the device, or the
+        device plan), `step.forward`, `step.loss`, `step.backward` (with a
+        cycle's first call, the gradients set to None first; with a
+        group, the all-reduce) and `step.optimizer` (the update and the
+        schedule, on a cycle's last call)."""
+        with span("step"):
+            return self._step(batch, plan, weight, group, shard_args)
+
+    def _step(self, batch, plan, weight, group, shard_args):
         loss_group = None
-        if shard_args is not None:
-            from occuseg_tpu_torch.parallel.spatial_model import (
-                shard_points,
-            )
-            b = shard_points(batch, shard_args, self.device)
-            plan = shard_args.plan.to(self.device)
-            weight, group = 1.0, plan.group
-            loss_group = group
-        elif weight is None and dist.is_initialized() \
-                and dist.get_world_size(group) > 1:
-            raise ValueError("Trainer.step: a data-parallel rank's step "
-                             "needs its loss weight")
-        else:
-            b, plan = self._inputs(batch, plan)
+        with span("step.upload"):
+            if shard_args is not None:
+                from occuseg_tpu_torch.parallel.spatial_model import (
+                    shard_points,
+                )
+                b = shard_points(batch, shard_args, self.device)
+                plan = shard_args.plan.to(self.device)
+                weight, group = 1.0, plan.group
+                loss_group = group
+            elif weight is None and dist.is_initialized() \
+                    and dist.get_world_size(group) > 1:
+                raise ValueError("Trainer.step: a data-parallel rank's step "
+                                 "needs its loss weight")
+            else:
+                b, plan = self._inputs(batch, plan)
         self.model.train()
-        out = self.model(b["features"], plan)
-        total, parts = occuseg_total_loss(out, b, self.num_scenes,
-                                          self.num_instances, self.loss_cfg,
-                                          group=loss_group)
+        with span("step.forward"):
+            out = self.model(b["features"], plan)
+        with span("step.loss"):
+            total, parts = occuseg_total_loss(out, b, self.num_scenes,
+                                              self.num_instances,
+                                              self.loss_cfg, group=loss_group)
         micro = self.steps % self.accum_steps
-        if micro == 0:
-            self.optimizer.zero_grad(set_to_none=True)
-        if weight is None:
-            total.backward()
-        else:
-            parts = self._reduced_backward(total, parts, weight, group)
+        with span("step.backward"):
+            if micro == 0:
+                self.optimizer.zero_grad(set_to_none=True)
+            if weight is None:
+                total.backward()
+            else:
+                parts = self._reduced_backward(total, parts, weight, group)
         if micro == self.accum_steps - 1:
-            if self.accum_steps > 1:
-                for p in self.model.parameters():
-                    if p.grad is not None:
-                        p.grad.div_(self.accum_steps)
-            self.optimizer.step()
-            self.scheduler.step()
+            with span("step.optimizer"):
+                if self.accum_steps > 1:
+                    for p in self.model.parameters():
+                        if p.grad is not None:
+                            p.grad.div_(self.accum_steps)
+                self.optimizer.step()
+                self.scheduler.step()
         self.steps += 1
         return {k: v.detach() for k, v in parts.items()}
 

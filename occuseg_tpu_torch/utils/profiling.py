@@ -1,17 +1,170 @@
-"""MulAdd and hidden-state counters (counterpart of the counters of
+"""The port's spans and counters, and its MulAdd and hidden-state counters.
+
+Spans and counters (process-wide, thread-safe):
+
+    with span("step.forward"):
+        ...
+    count("plan.tier_raised")
+    snapshot()                     # totals, counters, kernel launches
+    timeline(t0_ns, t1_ns)         # spans recorded while a profiler ran
+
+A span always adds its count and host seconds to its name's totals. While
+a `torch.profiler` records (`torch.autograd.profiler._is_profiler_enabled`)
+it also appends (name, parent span, native thread id, start ns, end ns) to
+an in-memory timeline on `time.time_ns()`, the clock of the profiler's
+events, so a reader of the trace puts a launch or an idle gap inside a
+span by its time. A span enters no `record_function`: the profiler would
+record one only on the thread that started it, and would mark its range
+on the device too, as a CUDA event beside the kernels. A span that
+straddles the profiler's start or stop is kept whole; `timeline` clips it
+to the window asked for. With no profiler a span costs a flag test, two
+clock reads and a locked update, so spans mark the layers of a step or a
+batch, not kernels or modules, which the profiler names itself.
+
+MulAdd and hidden-state counters (counterpart of the counters of
 `occuseg_tpu/utils/profiling.py`): exact counts from a host plan, where
 only real rulebook pairs count, as the reference accumulates them per
-operation, and their per-epoch sums."""
+operation, and their per-epoch sums.
+"""
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Sequence
+import threading
+import time
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch.autograd.profiler as _autograd_profiler
 
-from occuseg_tpu_torch.core.topology import Topology
-from occuseg_tpu_torch.ops.conv import conv_flops
+if TYPE_CHECKING:
+    from occuseg_tpu_torch.core.topology import Topology
+
+# (name, parent span or None, native thread id, start ns, end ns)
+Interval = Tuple[str, Optional[str], int, int, int]
+
+
+def profiler_enabled() -> bool:
+    """Whether a `torch.profiler` is recording in this process."""
+    return getattr(_autograd_profiler, "_is_profiler_enabled", False)
+
+
+class _Recorder:
+    """The totals, counters and timeline behind `span`, `record`, `count`,
+    `snapshot` and `timeline`. The timeline keeps the newest `maxlen`
+    intervals."""
+
+    def __init__(self, maxlen: int = 1 << 20):
+        self.lock = threading.Lock()
+        self.totals: Dict[str, List] = {}      # name -> [count, seconds]
+        self.counters: Dict[str, int] = collections.defaultdict(int)
+        self.intervals: collections.deque = collections.deque(maxlen=maxlen)
+        self.local = threading.local()
+
+    def stack(self) -> List[str]:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+    def add(self, name: str, parent: Optional[str], t0: int, t1: int,
+            traced: bool) -> float:
+        sec = (t1 - t0) * 1e-9
+        with self.lock:
+            tot = self.totals.get(name)
+            if tot is None:
+                self.totals[name] = [1, sec]
+            else:
+                tot[0] += 1
+                tot[1] += sec
+            if traced:
+                self.intervals.append((name, parent,
+                                       threading.get_native_id(), t0, t1))
+        return sec
+
+
+_REC = _Recorder()
+
+
+class span:
+    """A span of the port's host work, as a context manager; `seconds`
+    holds its duration after it exits."""
+
+    __slots__ = ("name", "seconds", "_t0", "_traced")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.seconds = 0.0
+
+    def __enter__(self) -> "span":
+        _REC.stack().append(self.name)
+        self._traced = profiler_enabled()
+        self._t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        t1 = time.time_ns()
+        stack = _REC.stack()
+        stack.pop()
+        self.seconds = _REC.add(self.name, stack[-1] if stack else None,
+                                self._t0, t1,
+                                self._traced or profiler_enabled())
+
+
+def record(name: str, t0_ns: int, t1_ns: int) -> float:
+    """A span that ran from t0_ns to t1_ns (`time.time_ns()`) on this
+    thread, recorded after the fact; returns its seconds."""
+    stack = _REC.stack()
+    return _REC.add(name, stack[-1] if stack else None, t0_ns, t1_ns,
+                    profiler_enabled())
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the always-on counter `name`."""
+    with _REC.lock:
+        _REC.counters[name] += n
+
+
+def launch_counters() -> Tuple[Tuple[str, object, str], ...]:
+    """(name, wrapper, attribute) of every kernel wrapper's launch
+    counter."""
+    from occuseg_tpu_torch.ops.kernels import bce_loss
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    from occuseg_tpu_torch.ops.kernels import segsum
+    return (("chunk_conv", cc.chunk_conv, "launches"),
+            ("chunk_conv_bwd_fused", cc.chunk_conv_bwd_fused, "launches"),
+            ("chunk_conv_bwd_fused_kgrouped", cc.chunk_conv_bwd_fused,
+             "launches_kgrouped"),
+            ("chunk_conv_dw", cc.chunk_conv_dw, "launches"),
+            ("blocked_segment_sum", segsum.blocked_segment_sum, "launches"),
+            ("bce_radius", bce_loss.radius_sq, "launches"),
+            ("bce_fwd", bce_loss.bce_sums, "launches"),
+            ("bce_bwd", bce_loss.bce_sums_bwd, "launches"),
+            ("gather_conv", gc.gather_conv, "launches"))
+
+
+def snapshot() -> Dict[str, Dict]:
+    """{"spans": {name: {"count", "seconds"}}, "counters": {name: n},
+    "launches": {kernel: the wrapper's own launch counter}}."""
+    with _REC.lock:
+        spans = {k: {"count": c, "seconds": s}
+                 for k, (c, s) in _REC.totals.items()}
+        counters = dict(_REC.counters)
+    return {"spans": spans, "counters": counters,
+            "launches": {name: getattr(fn, attr)
+                         for name, fn, attr in launch_counters()}}
+
+
+def timeline(since_ns: int, until_ns: int) -> List[Interval]:
+    """The spans recorded while a profiler ran that overlap [since_ns,
+    until_ns] (`time.time_ns()`), clipped to it, in the order they
+    ended."""
+    with _REC.lock:
+        ivs = list(_REC.intervals)
+    return [(n, p, tid, max(a, since_ns), min(b, until_ns))
+            for n, p, tid, a, b in ivs if b > since_ns and a < until_ns]
 
 
 def plan_muladd_count(plan: Topology, n_planes: Sequence[int],
@@ -22,6 +175,7 @@ def plan_muladd_count(plan: Topology, n_planes: Sequence[int],
     convolutions, the strided convolution and deconvolution pairs, and the
     decoder blocks at twice the width for their first rep (with the NIN
     shortcut where widths differ)."""
+    from occuseg_tpu_torch.ops.conv import conv_flops
     L = len(n_planes)
 
     def sub(level, cin, cout):
