@@ -541,6 +541,7 @@ def phase_kernels(dev):
                   "up_conv L1->L0", "dec0.conv1 L1", "dec0.conv1 L4",
                   "enc0.conv1 L5"}
     tot = Totals()
+    tot.f32_maps = []
     n_route = collections.Counter()
     dw_values = collections.Counter()
     with torch.inference_mode():
@@ -588,6 +589,10 @@ def phase_kernels(dev):
                       f"U={fi.shape[1]:<4} Cin={cv.cin:<3} Cout={cv.cout:<3}"
                       f" max_abs_err={err:.3e} max|out|={scale:.3e} "
                       f"kernel={ms:.4f} ms plain={pms:.4f} ms")
+                if not bf:
+                    f32_fwd_skips(dev, tot, f"{cv.label} forward",
+                                  lambda: cc.chunk_conv(xd, fi, fl, wd), ms,
+                                  dense_f, 2.0 * nnz_f * cv.cin * cv.cout)
                 if bf:
                     tot.add("chunk_conv", ms, pms, err, 2.0 * nnz_f * cv.cin
                             * cv.cout, nbytes(xd, fi, fl, wd, out),
@@ -626,6 +631,11 @@ def phase_kernels(dev):
                 t_pms = cuda_ms(lambda: cc.chunk_conv_plain(
                     ctd, ti, tl, wtd), reps[1])
                 del dw, r_dw, r_t
+                if not bf:
+                    f32_fwd_skips(dev, tot, f"{cv.label} transpose",
+                                  lambda: cc.chunk_conv(ctd, ti, tl, wtd),
+                                  t_ms, dense_t,
+                                  2.0 * nnz_t * cv.cin * cv.cout)
                 print(f"[kernels] backward   {name} route={route} "
                       f"U_t={ti.shape[1]:<4} fused={f_ms:.4f} ms "
                       f"(plain {f_pms:.4f}) d_feats_err={e_f:.3e}/"
@@ -733,7 +743,36 @@ def phase_kernels(dev):
           f"{dw_values['fused']:.4g} (one atomic add per live chunk, offset, Cin row and Ct column: "
           f"{dw_values['atomics']:.4g}); dW route (#5) {dw_values['#5']:.4g}")
     tot.dw_values = dw_values["fused"]
+    dense = max(tot.f32_maps, key=lambda r: r["real_ms"] / r["dense_ms"])
+    print(f"[kernels] f32 #1 on the densest map of the f32 subset "
+          f"({dense['label']}, real products {dense['real_ms'] / dense['dense_ms']:.1%} "
+          f"of the dense-K work): the row order took "
+          f"{dense['order']:.2%} of the blocks' cycles; over the subset "
+          f"{sum(r['ms'] for r in tot.f32_maps):.3f} ms, dense-K floor "
+          f"{sum(r['dense_ms'] for r in tot.f32_maps):.3f} ms, real-product "
+          f"floor {sum(r['real_ms'] for r in tot.f32_maps):.3f} ms")
     return tot
+
+
+def f32_fwd_skips(dev, tot, label, call, ms, dense_flops, real_flops):
+    """#1 in f32 on one map: its time beside the floors at the f32 peak of
+    the dense-K work (every offset of every live chunk's rows) and of the
+    real products, and what its counters read over one more launch: the
+    (Cin tile, offset, warp) steps skipped and the row order's share of
+    the blocks' cycles."""
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    cc.fwd_counts(dev, reset=True)
+    call()
+    n = cc.fwd_counts(dev, reset=True)
+    row = dict(label=label, ms=ms, dense_ms=1e3 * dense_flops / PEAK_F32,
+               real_ms=1e3 * real_flops / PEAK_F32,
+               skipped=n.skipped_share, order=n.order_share)
+    tot.f32_maps.append(row)
+    print(f"[kernels] f32 #1 {label:<32} kernel {ms:.4f} ms, dense-K floor "
+          f"{row['dense_ms']:.4f} ms, real-product floor "
+          f"{row['real_ms']:.4f} ms, skipped {n.skipped_share:.1%} of "
+          f"{n.ran + n.skipped} warp-steps, row order {n.order_share:.2%} "
+          f"of the blocks' cycles")
 
 
 CLI_P, CLI_I, EMB = 262_144, 128, 64   # the training CLI's defaults, m=64

@@ -56,14 +56,30 @@
 //    the previous one completes, with two sets of A fragments, measured
 //    ~10% slower: the stage it holds is refilled a step later);
 //  * f32 (the training CLI, parity checks): exact FMA products, each thread
-//    an 8 x 4 register tile reading the staged rows through lidx (NT=64),
-//    skipping the same dead groups;
+//    an 8 x 4 register tile reading the staged rows through lidx (NT=64).
+//    Most of a sparse map's (offset, row) pairs are missing neighbours
+//    (2.7x the real products ran at the bench shapes when only dead
+//    64-row groups were skipped), so each block first orders its chunk's
+//    rows by their neighbour mask (bit k: a reference at offset k; ties by
+//    row), warp w owns positions w*16..+16 of that order, and a warp
+//    skips every offset at which none of its rows has a reference (it
+//    still waits on and releases the W stage). A row's sum keeps its
+//    (Cin tile, offset, ci) order; a skipped product is an exact zero, so
+//    the output does not depend on the order. The blocks count their
+//    warp-steps run and skipped and the clock cycles of building the
+//    order into `counts`. A block takes about as long as its densest warp
+//    (the W ring holds the warps within three steps), so f32 takes a Cin
+//    tile with which two blocks share an SM. (Groups of 8 rows, two a
+//    warp and the sparsest paired with the densest to even the warps out,
+//    skipped 12% more but measured 6-10% slower: a step of four rows a
+//    thread costs nearly what one of eight does);
 //  * coarse levels, where chunks x column tiles would leave SMs idle: the
 //    wrapper splits the (Cin tile, k) steps into `splits` ranges, one per
 //    block; each writes an f32 partial and a second launch sums them in
 //    split order and rounds to the feature dtype (deterministic);
 //  * CI_T is the largest of 64/32/16 that divides Cin and whose shared
-//    memory fits the device's opt-in limit; beyond it the call fails (the
+//    memory fits the device's opt-in limit (f32: 32 where that lets two
+//    blocks share an SM and 64 does not); beyond it the call fails (the
 //    wrapper raises) -- there is no other path;
 //  * a chunk with no referenced row (all cap padding) writes zeros.
 
@@ -78,6 +94,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 8;  // two warpgroups
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;                 // W ring depth
+constexpr int kMaskOffsets = 32;  // f32: offsets a row's neighbour mask holds
 
 struct FwdArgs {
   const void* feats;
@@ -85,6 +102,9 @@ struct FwdArgs {
   const int32_t* lidx;
   void* out;    // [C*M, cout], feature dtype (splits == 1)
   float* part;  // [splits, C*M, cout] f32 (splits > 1)
+  // f32: warp-steps run, skipped, thread 0's cycles building the row order
+  // and its cycles in the block, summed over the blocks (or null)
+  unsigned long long* counts;
   int n_rows, cin, C, U, K, M, cout, splits;
 };
 
@@ -107,8 +127,11 @@ struct FwdLayout {
     off += align128(static_cast<size_t>(U) * sizeof(int32_t));
     lidx_off = off;
     off += align128(static_cast<size_t>(K) * kMaxM * sizeof(int32_t));
-    live_off = off;  // per (offset, 64-row group): any valid reference
-    off += align128(static_cast<size_t>(K) * 2);
+    // bf16: per (offset, 64-row group), any valid reference; f32: each
+    // row's neighbour mask, each warp's live offsets, the row order
+    live_off = off;
+    off += align128(sizeof(T) == 2 ? static_cast<size_t>(K) * 2
+                                   : kMaxM * 4 + kWarps * 4 + kMaxM);
     gin_off = off;
     off += align128(static_cast<size_t>(U + 1) * kLdg * sizeof(T));
     total = off + 1024;  // room to align the base
@@ -187,15 +210,24 @@ struct WgTile {
   }
 };
 
-// f32 consumer tile (NT = 64): thread (rg, cg) holds rows rg*8..+8 and
-// columns cg*4..+4 in registers; exact FMA products. The W stage is two
-// swizzled boxes of 32 columns.
+// Component q of a float4 (q a compile-time constant once unrolled).
+__device__ __forceinline__ float lane_of(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// f32 consumer tile (NT = 64): thread (rg, cg) holds the rows at
+// positions rg*8..+8 of the block's row order `ord` (so warp w those at
+// w*16..+16) and columns cg*4..+4 in registers; exact FMA products, in ci
+// order. A thread reads each row's A values four ci at a time (one 16-byte
+// load, not four of 4 bytes). The W stage is two swizzled boxes of 32
+// columns.
 template <int CI_T, int NT>
 struct FmaTile {
   static_assert(NT == 64, "the f32 tile is 64 columns wide");
   static constexpr int kLdg = CI_T + 4;
   float acc[8][4];
   int rg, cg;
+  uint32_t live = 0;  // bit k: one of the warp's rows references offset k
 
   __device__ FmaTile(int t) : rg(t / 16), cg(t % 16) {
 #pragma unroll
@@ -204,43 +236,53 @@ struct FmaTile {
       for (int e = 0; e < 4; ++e) acc[r][e] = 0.0f;
   }
 
+  // Whether the warp runs offset k (uniform over the warp).
+  __device__ bool runs(int k) const {
+    return k >= kMaskOffsets || (live >> k & 1u);
+  }
+
   __device__ void step(const float* gin_s, const float* w_b,
-                       const int32_t* lk, const uint8_t* live_k, int M,
-                       int U) {
-    if (!live_k[rg >> 3]) return;  // rows rg*8.. lie in group rg/8
+                       const int32_t* lk, const uint8_t* ord, int M, int U) {
     int off[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
-      const int m = rg * 8 + r;
+      const int m = ord[rg * 8 + r];
       off[r] = (m < M ? row_of(lk[m], U) : U) * kLdg;
     }
     const char* wb = reinterpret_cast<const char*>(w_b) +
                      (cg >> 3) * (CI_T * kBox);
-#pragma unroll 4
-    for (int ci = 0; ci < CI_T; ++ci) {
-      const float4 b =
-          *reinterpret_cast<const float4*>(wb + swz(ci, cg & 7));
+#pragma unroll 2
+    for (int ci = 0; ci < CI_T; ci += 4) {
+      float4 a[8];
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float a = gin_s[off[r] + ci];
-        acc[r][0] = fmaf(a, b.x, acc[r][0]);
-        acc[r][1] = fmaf(a, b.y, acc[r][1]);
-        acc[r][2] = fmaf(a, b.z, acc[r][2]);
-        acc[r][3] = fmaf(a, b.w, acc[r][3]);
+      for (int r = 0; r < 8; ++r)
+        a[r] = *reinterpret_cast<const float4*>(gin_s + off[r] + ci);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(wb + swz(ci + q, cg & 7));
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float av = lane_of(a[r], q);
+          acc[r][0] = fmaf(av, b.x, acc[r][0]);
+          acc[r][1] = fmaf(av, b.y, acc[r][1]);
+          acc[r][2] = fmaf(av, b.z, acc[r][2]);
+          acc[r][3] = fmaf(av, b.w, acc[r][3]);
+        }
       }
     }
   }
 
   // out and part are both f32 here: write whichever is given.
   __device__ void store(float* out, float* part, int cout, size_t rbase,
-                        int M, int co0, int ncols) const {
+                        int M, int co0, int ncols, const uint8_t* ord) const {
     float* dst = part ? part : out;
     const int c = cg * 4;
     if (c >= ncols) return;
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
-      const int m = rg * 8 + r;
-      if (m >= M) break;
+      const int m = ord[rg * 8 + r];
+      if (m >= M) continue;
       *reinterpret_cast<float4*>(dst + (rbase + m) * cout + co0 + c) =
           make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     }
@@ -251,10 +293,25 @@ template <typename T, int CI_T, int NT>
 using TileOf = typename std::conditional<sizeof(T) == 2, WgTile<CI_T, NT>,
                                          FmaTile<CI_T, NT>>::type;
 
+// f32: one block's counts into counts[0..4) (see FwdArgs), by one thread.
+__device__ __forceinline__ void add_counts(unsigned long long* counts,
+                                           unsigned long long ran,
+                                           unsigned long long skipped,
+                                           long long order_cycles,
+                                           long long cycles) {
+  atomicAdd(counts, ran);
+  atomicAdd(counts + 1, skipped);
+  atomicAdd(counts + 2, static_cast<unsigned long long>(order_cycles));
+  atomicAdd(counts + 3, static_cast<unsigned long long>(cycles));
+}
+
 template <typename T, int CI_T, int NT>
 __global__ void __launch_bounds__(kThreads, 2)
 chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
                   const FwdArgs a) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  static_assert(kThreads == 2 * kMaxM, "the f32 row order: two threads a row");
+  const long long t_start = kF32 ? clock64() : 0;
   using L = FwdLayout<T, CI_T, NT>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
@@ -265,7 +322,10 @@ chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
   uint64_t* empty = full + kStages;
   int32_t* in_s = reinterpret_cast<int32_t*>(smem + lay.in_off);
   int32_t* lidx_s = reinterpret_cast<int32_t*>(smem + lay.lidx_off);
-  uint8_t* live_s = smem + lay.live_off;
+  uint8_t* live_s = smem + lay.live_off;  // bf16
+  uint32_t* mask_s = reinterpret_cast<uint32_t*>(smem + lay.live_off);  // f32
+  uint32_t* wlive_s = mask_s + kMaxM;
+  uint8_t* ord_s = reinterpret_cast<uint8_t*>(wlive_s + kWarps);
   T* gin_s = reinterpret_cast<T*>(smem + lay.gin_off);
 
   const int U = a.U, K = a.K, M = a.M;
@@ -293,6 +353,10 @@ chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
       reinterpret_cast<uint4*>(
           base + ((rbase + i / vpr) * a.cout + co0) * esz)[i % vpr] =
           make_uint4(0, 0, 0, 0);
+    if (kF32 && t == 0 && a.counts)  // every warp-step skipped
+      add_counts(a.counts, 0,
+                 static_cast<unsigned long long>(s1 - s0) * kWarps, 0,
+                 clock64() - t_start);
     return;
   }
   const int warp = t / 32, lane = t % 32;
@@ -328,18 +392,59 @@ chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
   zero_bytes(gin_s + static_cast<size_t>(U) * L::kLdg, L::kLdg * sizeof(T), t,
              kThreads);
   __syncthreads();
-  // liveness of each (offset, 64-row group), one warp per pair (made
-  // visible by the first staging's barrier): a group with no valid
-  // reference at an offset skips it
-  for (int p = warp; p < 2 * K; p += kWarps) {
-    const int k = p >> 1, m0 = (p & 1) * 64;
-    bool any = false;
-    for (int m = m0 + lane; m < min(M, m0 + 64); m += 32)
-      any |= lidx_s[k * M + m] >= 0;
-    any = __any_sync(0xffffffffu, any);
-    if (lane == 0) live_s[p] = any;
+  long long order_cycles = 0;
+  uint32_t live = 0;  // f32: the offsets any of the warp's rows references
+  if constexpr (!kF32) {
+    // liveness of each (offset, 64-row group), one warp per pair (made
+    // visible by the first staging's barrier): a group with no valid
+    // reference at an offset skips it
+    for (int p = warp; p < 2 * K; p += kWarps) {
+      const int k = p >> 1, m0 = (p & 1) * 64;
+      bool any = false;
+      for (int m = m0 + lane; m < min(M, m0 + 64); m += 32)
+        any |= lidx_s[k * M + m] >= 0;
+      any = __any_sync(0xffffffffu, any);
+      if (lane == 0) live_s[p] = any;
+    }
+  } else {
+    const long long t_order = clock64();
+    // each row's neighbour mask over the offsets below kMaskOffsets
+    for (int m = t; m < M; m += kThreads) {
+      uint32_t mk = 0;
+      for (int k = 0; k < min(K, kMaskOffsets); ++k)
+        mk |= static_cast<uint32_t>(lidx_s[k * M + m] >= 0) << k;
+      mask_s[m] = mk;
+    }
+    __syncthreads();
+    // the row order: row m goes to its rank by (mask, row) among the
+    // chunk's rows, counted by two threads over alternate rows; positions
+    // M.. hold rows M.. (none)
+    {
+      const int m = t >> 1;
+      int p = 0;
+      if (m < M) {
+        const uint32_t mk = mask_s[m];
+        for (int j = t & 1; j < M; j += 2) {
+          const uint32_t mj = mask_s[j];
+          p += mj < mk || (mj == mk && j < m);
+        }
+      }
+      p += __shfl_xor_sync(0xffffffffu, p, 1);
+      if ((t & 1) == 0) ord_s[m < M ? p : m] = static_cast<uint8_t>(m);
+    }
+    __syncthreads();
+    // the warp's live offsets: the OR of its 16 rows' masks (made visible
+    // to thread 0 by the first staging's barrier)
+    const int m = ord_s[warp * 16 + (lane & 15)];
+    live = m < M ? mask_s[m] : 0u;
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1)
+      live |= __shfl_xor_sync(0xffffffffu, live, o);
+    if (lane == 0) wlive_s[warp] = live;
+    order_cycles = clock64() - t_order;
   }
   TileOf<T, CI_T, NT> tile(t);
+  if constexpr (kF32) tile.live = live;
   const T* feats = static_cast<const T*>(a.feats);
   int staged = -1;
   for (int i = 0; i < n; ++i) {
@@ -355,8 +460,11 @@ chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
     const int stage = i % kStages;
     mbar_wait(full + stage, (i / kStages) & 1);
     __syncwarp();  // wgmma wants the warp converged
-    tile.step(gin_s, reinterpret_cast<const T*>(w_s + stage * L::kStageBytes),
-              lidx_s + k * M, live_s + 2 * k, M, U);
+    const T* w_b = reinterpret_cast<const T*>(w_s + stage * L::kStageBytes);
+    if constexpr (!kF32)
+      tile.step(gin_s, w_b, lidx_s + k * M, live_s + 2 * k, M, U);
+    else if (tile.runs(k))
+      tile.step(gin_s, w_b, lidx_s + k * M, ord_s, M, U);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + stage);
     // refill the stage once every warp is done with it
@@ -365,7 +473,32 @@ chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
       load_w(i + kStages);
     }
   }
-  tile.store(out, part, a.cout, rbase, M, co0, ncols);
+  if constexpr (!kF32) {
+    tile.store(out, part, a.cout, rbase, M, co0, ncols);
+  } else {
+    tile.store(out, part, a.cout, rbase, M, co0, ncols, ord_s);
+    if (a.counts == nullptr) return;
+    __syncthreads();
+    if (t != 0) return;
+    // warp-steps run below step s: each warp's live offsets once per Cin
+    // tile before s, and those of its tile below offset s % K; offsets from
+    // kMaskOffsets on run in every warp
+    auto ran_below = [&](int s) {
+      const int r = s % K;
+      const uint32_t below = r >= 32 ? ~0u : (1u << r) - 1u;
+      unsigned long long per_tile = 0, rest = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        per_tile += __popc(wlive_s[w]);
+        rest += __popc(wlive_s[w] & below);
+      }
+      per_tile += kWarps * max(0, K - kMaskOffsets);
+      rest += kWarps * max(0, r - kMaskOffsets);
+      return static_cast<unsigned long long>(s / K) * per_tile + rest;
+    };
+    const unsigned long long ran = ran_below(s1) - ran_below(s0);
+    add_counts(a.counts, ran, static_cast<unsigned long long>(n) * kWarps - ran,
+               order_cycles, clock64() - t_start);
+  }
 }
 
 // out[i] = (feature dtype) sum over s in order of part[s][i].
@@ -435,15 +568,35 @@ int launch(const void* w, const FwdArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Shared memory of one block when two share an SM (228 KiB less 1 KiB
+// reserved per block, halved), as `run_dw` of chunk_conv_bwd.cu has it.
+constexpr size_t kTwoPerSm = 115712;
+
+// The Cin tile of a call: f32 takes 32 where 64 leaves room for one block
+// an SM and 32 for two (the warps of a block whose rows are sparse idle
+// while its densest warp runs: a second block fills the SM); else the
+// largest of 64/32/16 that divides Cin and whose shared memory fits the
+// device's opt-in limit, or -2.
+template <typename T, int NT>
+int cin_tile(int cin, int U, int K) {
+  const size_t limit = static_cast<size_t>(max_dynamic_smem());
+  if (sizeof(T) == 4 && cin % 32 == 0 &&
+      FwdLayout<T, 64, NT>(U, K).total > kTwoPerSm &&
+      FwdLayout<T, 32, NT>(U, K).total <= kTwoPerSm)
+    return 32;
+  if (cin % 64 == 0 && FwdLayout<T, 64, NT>(U, K).total <= limit) return 64;
+  if (cin % 32 == 0 && FwdLayout<T, 32, NT>(U, K).total <= limit) return 32;
+  if (cin % 16 == 0 && FwdLayout<T, 16, NT>(U, K).total <= limit) return 16;
+  return -2;
+}
+
 template <typename T, int NT>
 int launch_fitting(const void* w, const FwdArgs& a, cudaStream_t s) {
-  const size_t limit = static_cast<size_t>(max_dynamic_smem());
-  if (a.cin % 64 == 0 && FwdLayout<T, 64, NT>(a.U, a.K).total <= limit)
-    return launch<T, 64, NT>(w, a, s);
-  if (a.cin % 32 == 0 && FwdLayout<T, 32, NT>(a.U, a.K).total <= limit)
-    return launch<T, 32, NT>(w, a, s);
-  if (a.cin % 16 == 0 && FwdLayout<T, 16, NT>(a.U, a.K).total <= limit)
-    return launch<T, 16, NT>(w, a, s);
+  switch (cin_tile<T, NT>(a.cin, a.U, a.K)) {
+    case 64: return launch<T, 64, NT>(w, a, s);
+    case 32: return launch<T, 32, NT>(w, a, s);
+    case 16: return launch<T, 16, NT>(w, a, s);
+  }
   return -2;
 }
 
@@ -454,19 +607,22 @@ extern "C" {
 // out [C*M, cout] = chunk conv of feats [n_rows, cin] (see the header), in
 // column tiles of nt (bf16: 64, 96, 128; f32: 64) and `splits` ranges of
 // (Cin tile, k) steps per block; with splits > 1, part is caller-owned f32
-// scratch [splits, C*M, cout]. Returns a cudaError_t, -2 when no Cin tile
-// fits in shared memory, -3 for an unsupported nt, -4 when the
+// scratch [splits, C*M, cout]. f32 adds its blocks' counts into `counts`
+// (4 x uint64: warp-steps run, skipped, cycles building the row order,
+// cycles in the block), unless it is null. Returns a cudaError_t, -2 when
+// no Cin tile fits in shared memory, -3 for an unsupported nt, -4 when the
 // tensor-map encoder is missing or refuses W.
 int occ_chunk_conv_fwd(const void* feats, int n_rows, int cin,
                        const void* in_idx, int C, int U, const void* lidx,
                        int K, int M, const void* w, int cout, int nt,
                        int splits, void* part, void* out, int is_bf16,
-                       void* stream) {
+                       void* counts, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const FwdArgs a{feats, static_cast<const int32_t*>(in_idx),
                   static_cast<const int32_t*>(lidx), out,
-                  static_cast<float*>(part), n_rows, cin, C, U, K, M, cout,
-                  splits};
+                  static_cast<float*>(part),
+                  static_cast<unsigned long long*>(counts), n_rows, cin, C,
+                  U, K, M, cout, splits};
   if (is_bf16) {
     switch (nt) {
       case 64: return launch_fitting<bf16, 64>(w, a, s);
@@ -476,6 +632,12 @@ int occ_chunk_conv_fwd(const void* feats, int n_rows, int cin,
     return -3;
   }
   return nt == 64 ? launch_fitting<float, 64>(w, a, s) : -3;
+}
+
+// The Cin tile the f32 `occ_chunk_conv_fwd` takes at these shapes on the
+// current device (64, 32 or 16), or -2 when none fits.
+int occ_chunk_conv_fwd_cin_tile(int cin, int U, int K) {
+  return cin_tile<float, 64>(cin, U, K);
 }
 
 }  // extern "C"

@@ -53,7 +53,9 @@ def load() -> ctypes.CDLL:
     lib.occ_chunk_conv_fwd.restype = _int
     lib.occ_chunk_conv_fwd.argtypes = [_vp, _int, _int, _vp, _int, _int, _vp,
                                        _int, _int, _vp, _int, _int, _int, _vp,
-                                       _vp, _int, _vp]
+                                       _vp, _int, _vp, _vp]
+    lib.occ_chunk_conv_fwd_cin_tile.restype = _int
+    lib.occ_chunk_conv_fwd_cin_tile.argtypes = [_int, _int, _int]
     lib.occ_chunk_conv_dwt.restype = _int
     lib.occ_chunk_conv_dwt.argtypes = [_vp, _int, _int, _vp, _int, _int, _vp,
                                        _int, _int, _vp, _int, _int, _vp, _vp,

@@ -255,6 +255,47 @@ def chunk_conv_dw_plain(feats: torch.Tensor, in_idx: torch.Tensor,
     return torch.einsum("ckmi,cmo->kio", g, ct.reshape(C, M, -1).float())
 
 
+# The f32 tile of the forward kernel (`FmaTile`, csrc/chunk_conv.cu): 8
+# warps, each owning 16 consecutive positions of its chunk's row order,
+# and a row's neighbour mask over the offsets below 32 (a warp runs every
+# offset from 32 on).
+F32_WARPS, F32_WARP_ROWS, MASK_OFFSETS = 8, 16, 32
+
+
+def row_masks(lidx: torch.Tensor) -> torch.Tensor:
+    """[C, M] int64: bit k of row m's mask is set where lidx[c, k, m] >= 0,
+    for the offsets k < MASK_OFFSETS."""
+    live = (lidx[:, :MASK_OFFSETS] >= 0).long()               # [C, K', M]
+    bits = torch.ones((), dtype=torch.long) << torch.arange(live.shape[1])
+    return (live * bits[:, None]).sum(1)
+
+
+def fwd_row_order(lidx: torch.Tensor) -> torch.Tensor:
+    """Plain version of the f32 forward kernel's row order: [C, M] int64,
+    each chunk's rows sorted by their neighbour mask (`row_masks`, as an
+    integer), ties by row. Position p of a chunk holds row order[c, p]."""
+    return torch.sort(row_masks(lidx), dim=1, stable=True).indices
+
+
+def fwd_warp_steps(lidx: torch.Tensor, tiles: int = 1) -> Tuple[int, int]:
+    """(ran, skipped): the (Cin tile, offset, warp) steps of the f32
+    forward kernel over lidx [C, K, M]. Warp w holds positions
+    F32_WARP_ROWS * w.. of `fwd_row_order` (past M: no row); it runs an
+    offset where any of its rows has a reference, and every offset from
+    MASK_OFFSETS on; a chunk with no reference runs nothing. `tiles` is
+    the number of (Cin tile, column tile) pairs of the call: each repeats
+    the same steps."""
+    C, K, M = lidx.shape
+    order = fwd_row_order(lidx)
+    rows = torch.gather(lidx >= 0, 2, order[:, None, :].expand(C, K, M))
+    pos = F32_WARPS * F32_WARP_ROWS
+    rows = torch.cat([rows, rows.new_zeros(C, K, pos - M)], 2)
+    live = rows.reshape(C, K, F32_WARPS, F32_WARP_ROWS).any(3)
+    live[:, MASK_OFFSETS:] = rows.flatten(1).any(1)[:, None, None]
+    ran = int(live.sum())
+    return tiles * ran, tiles * (C * K * F32_WARPS - ran)
+
+
 # ---------------------------------------------------------------------------
 # Device half: kernel wrappers (CUDA tensors launch the kernel or raise)
 # ---------------------------------------------------------------------------
@@ -366,12 +407,14 @@ def _run_chunk_conv(what, feats, in_idx, lidx, w) -> torch.Tensor:
     out = torch.empty((C * M, cout), dtype=dt, device=feats.device)
     part = (torch.empty((splits, C * M, cout), dtype=torch.float32,
                         device=feats.device) if splits > 1 else None)
+    counts = None if bf else _counts_buffer(feats.device)
     with torch.cuda.device(feats.device):
         rc = kernels.load().occ_chunk_conv_fwd(
             feats.data_ptr(), N, cin, in_idx.data_ptr(), C, U,
             lidx.data_ptr(), K, M, w.data_ptr(), cout, nt, splits,
             None if part is None else part.data_ptr(), out.data_ptr(),
-            int(bf), kernels.stream_ptr(feats))
+            int(bf), None if counts is None else counts.data_ptr(),
+            kernels.stream_ptr(feats))
     if rc == -2:
         raise ValueError(f"{what}: no Cin tile of U={U}, Cin={cin}, K={K} "
                          f"({dt}) fits in shared memory")
@@ -381,6 +424,68 @@ def _run_chunk_conv(what, feats, in_idx, lidx, w) -> torch.Tensor:
                            f"the weight")
     kernels.check(rc, f"{what} kernel launch")
     return out
+
+
+_COUNTS = {}  # device index -> the f32 forward's int64 [4] counters
+
+
+def _counts_buffer(device: torch.device) -> Optional[torch.Tensor]:
+    """The f32 forward's counters on a device, made at its first launch
+    there (none while a CUDA graph is being captured: the buffer must
+    outlive any graph)."""
+    buf = _COUNTS.get(device.index)
+    if buf is None and not torch.cuda.is_current_stream_capturing():
+        buf = _COUNTS[device.index] = torch.zeros(4, dtype=torch.int64,
+                                                  device=device)
+    return buf
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdCounts:
+    """What the f32 forward kernel's blocks counted: (Cin tile, offset,
+    warp) steps run and skipped (`fwd_warp_steps` per call), and thread
+    0's clock cycles building the row order and in the whole block."""
+    ran: int
+    skipped: int
+    order_cycles: int
+    block_cycles: int
+
+    @property
+    def skipped_share(self) -> float:
+        total = self.ran + self.skipped
+        return self.skipped / total if total else 0.0
+
+    @property
+    def order_share(self) -> float:
+        """The row order's share of the blocks' cycles."""
+        return (self.order_cycles / self.block_cycles if self.block_cycles
+                else 0.0)
+
+
+def fwd_counts(device, reset: bool = False) -> FwdCounts:
+    """The f32 forward's counts on a CUDA device since its last reset (all
+    zero before its first f32 launch), then zeroed with `reset`. Reads the
+    device's counters, so it synchronises: not for a timed path."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    buf = _counts_buffer(device)
+    if buf is None:
+        return FwdCounts(0, 0, 0, 0)
+    got = FwdCounts(*buf.tolist())
+    if reset:
+        buf.zero_()
+    return got
+
+
+def fwd_cin_tile(cin: int, U: int, K: int) -> int:
+    """The Cin tile the f32 forward kernel takes at these shapes on the
+    current CUDA device (64, 32 or 16); ValueError where none fits."""
+    tile = kernels.load().occ_chunk_conv_fwd_cin_tile(cin, U, K)
+    if tile < 0:
+        raise ValueError(f"no Cin tile of U={U}, Cin={cin}, K={K} (f32) "
+                         f"fits in shared memory")
+    return tile
 
 
 def chunk_conv_bwd_fused(ct: torch.Tensor, t_in_idx: torch.Tensor,

@@ -4,6 +4,7 @@ other on one card, in one call.
     python -m occuseg_tpu_torch.tools.ab_kernels OUT_DIR DIR_A DIR_B [...]
     python -m occuseg_tpu_torch.tools.ab_kernels --smoke OUT_DIR DIR_A ...
     python -m occuseg_tpu_torch.tools.ab_kernels --focus OUT_DIR DIR_A ...
+    python -m occuseg_tpu_torch.tools.ab_kernels --f32conv OUT_DIR DIR_A ...
 
 Each run is `chip_smoke.py`'s build and `[kernels]` phase (every kernel at
 the bench plan's shapes, against its plain version) in a process of its
@@ -19,7 +20,14 @@ does (CUDA events around back to back calls, the host's launch cost
 included) and inside a CUDA graph (without it), with the segment sum's
 `index_add` beside it, digests of the outputs saved to
 OUT_DIR/focus_<i>.pt, and the first checkout's outputs compared bit for
-bit with each other's. The checkouts run in the order given and
+bit with each other's; with --f32conv, this module's `f32conv`: the f32
+forward kernel (#1) over the forward plan and the transpose plan (the
+d_feats pass of both backward routes) of each of the bench plan's 33
+convolutions, timed as `chip_smoke.cuda_ms` does, with what the f32
+forward counted (skipped warp-steps, the row order's share of the blocks'
+cycles) where the checkout's wrapper has `fwd_counts`, and the outputs
+compared bit for bit across the checkouts (a zero's sign aside). The
+checkouts run in the order given and
 then in reverse (A, B, B, A for two), so that a drift of the card's clocks
 over the call falls on all of them alike. Prints the card's name and
 power limit and each run's summary lines; the full output of run i goes
@@ -42,6 +50,7 @@ SMOKE_SUMMARY = SUMMARY + ("[slice] request", "[train] 9 steps",
                            "[train] device busy", "[loop] cli.main",
                            "[loop] device busy", "all phases passed")
 FOCUS_SUMMARY = ("[focus]",)
+F32CONV_SUMMARY = ("[f32conv] per step", "[f32conv] ptxas")
 
 
 def event_ms(fn, reps: int) -> float:
@@ -98,7 +107,8 @@ def _both(fn, reps: int) -> str:
             f"{'not measured' if g is None else f'{g:.4f}'})")
 
 
-def _ptxas(path: str, names=("segsum", "bce", "radius", "gather")):
+def _ptxas(path: str, names=("segsum", "bce", "radius", "gather"),
+           tag: str = "focus"):
     """The nvcc log's register and spill lines of the named kernels."""
     fn = ""
     for line in open(path + ".log"):
@@ -108,7 +118,7 @@ def _ptxas(path: str, names=("segsum", "bce", "radius", "gather")):
             fn = m.group(1)
         elif any(n in fn for n in names) and ("Used" in line
                                               or "spill" in line):
-            print(f"[focus] ptxas {fn[:60]}: {line.split(':')[-1].strip()}")
+            print(f"[{tag}] ptxas {fn[:60]}: {line.split(':')[-1].strip()}")
 
 
 def _radius_inputs(P: int, I: int, seed: int, runs: bool, dev):
@@ -217,6 +227,62 @@ def focus(out_path: str) -> None:
     torch.save(saved, out_path)
 
 
+def f32conv(out_path: str) -> None:
+    """Time the f32 forward kernel (#1) of the package under the working
+    directory over the 33 convolutions of the bench plan, forward and
+    transpose plans."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.infer import prepare_scene
+    from occuseg_tpu_torch.ops import kernels
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _ptxas(kernels.library_path(), names=("chunk_conv_kernelIf",),
+           tag="f32conv")
+    dev = torch.device("cuda", 0)
+    b = cs.bench_scene(0)
+    plan = prepare_scene(b["coords"], b["features"],
+                         PlanSpec(caps=cs.BENCH_CAPS)).plan.to(dev)
+    counted = hasattr(cc, "fwd_counts")
+    gen = torch.Generator().manual_seed(1)
+    saved, tot = {}, {"fwd": 0.0, "t": 0.0}
+    with torch.inference_mode():
+        for cv in cs.conv_calls(plan, cs.N_PLANES):
+            K = cv.chunks.lidx.shape[1]
+            x = torch.randn(cv.n_in, cv.cin, generator=gen)
+            x[cv.n_act:] = 0
+            w = torch.randn(K, cv.cin, cv.cout, generator=gen) \
+                * (2 / (cv.cin * K)) ** .5
+            ct = torch.randn(cv.n_out, cv.cout, generator=gen)
+            ct[cv.n_out_act:] = 0
+            sub = cv.label.startswith(("sub", "enc", "dec"))
+            wt = (w.flip(0) if sub else w).transpose(1, 2).contiguous()
+            x, w, ct, wt = (a.to(dev) for a in (x, w, ct, wt))
+            row = []
+            for kind, (f, ch, wk) in (("fwd", (x, cv.chunks, w)),
+                                      ("t", (ct, cv.t_chunks, wt))):
+                call = lambda: cc.chunk_conv(  # noqa: E731
+                    f, ch.in_idx, ch.lidx, wk)
+                if counted:
+                    cc.fwd_counts(dev, reset=True)
+                out = call()
+                saved[f"{cv.label} {kind}"] = _digest(out + 0.0)
+                txt = ""
+                if counted:
+                    n = cc.fwd_counts(dev)
+                    txt = (f" (skipped {100 * n.skipped_share:.1f}%, order "
+                           f"{100 * n.order_share:.2f}%)")
+                ms = event_ms(call, 3)
+                tot[kind] += ms
+                row.append(f"{kind} {ms:.4f} ms{txt}")
+            print(f"[f32conv] {cv.label:<22} " + " | ".join(row), flush=True)
+    print(f"[f32conv] per step: forward {tot['fwd']:.3f} ms, transpose "
+          f"(d_feats) {tot['t']:.3f} ms, both {tot['fwd'] + tot['t']:.3f} ms")
+    torch.save(saved, out_path)
+
+
 def _digest(*tensors, keep: bool = False):
     """(sha256 of the tensors' bytes, the tensors on the CPU if `keep`)."""
     import hashlib
@@ -247,15 +313,15 @@ def main(out_dir: str, roots, mode: str = "kernels") -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     keep = {"kernels": SUMMARY, "smoke": SMOKE_SUMMARY,
-            "focus": FOCUS_SUMMARY}[mode]
+            "focus": FOCUS_SUMMARY, "f32conv": F32CONV_SUMMARY}[mode]
     runs = list(roots) + list(roots)[::-1]
     rc = 0
     for i, root in enumerate(runs):
         if mode == "smoke":
             cmd = ["chip_smoke.py"]
-        elif mode == "focus":
-            cmd = [os.path.abspath(__file__), "--run-focus",
-                   os.path.join(out_dir, f"focus_{i}.pt")]
+        elif mode in ("focus", "f32conv"):
+            cmd = [os.path.abspath(__file__), f"--run-{mode}",
+                   os.path.join(out_dir, f"{mode}_{i}.pt")]
         else:
             cmd = ["-c", RUN]
         r = subprocess.run([sys.executable, *cmd], cwd=root,
@@ -270,13 +336,18 @@ def main(out_dir: str, roots, mode: str = "kernels") -> int:
         if r.returncode:
             print(r.stderr[-3000:])
             rc = 1
-    if mode == "focus" and rc == 0:
+    if mode in ("focus", "f32conv") and rc == 0:
         import torch
-        outs = [torch.load(os.path.join(out_dir, f"focus_{i}.pt"))
+        outs = [torch.load(os.path.join(out_dir, f"{mode}_{i}.pt"))
                 for i in range(len(runs))]
         for i, root in enumerate(runs[1:len(roots)], 1):
-            print(f"[focus] {root} against {runs[0]}: " + "; ".join(
-                f"{k} {_diff(v, outs[i][k])}" for k, v in outs[0].items()))
+            diffs = [f"{k} {_diff(v, outs[i][k])}"
+                     for k, v in outs[0].items()]
+            if mode == "f32conv":
+                same = sum(d.endswith("same bits") for d in diffs)
+                diffs = [f"{same} of {len(diffs)} outputs the same bits"] \
+                    + [d for d in diffs if not d.endswith("same bits")]
+            print(f"[{mode}] {root} against {runs[0]}: " + "; ".join(diffs))
     return rc
 
 
@@ -285,8 +356,11 @@ if __name__ == "__main__":
     if args[:1] == ["--run-focus"]:
         focus(args[1])
         sys.exit(0)
+    if args[:1] == ["--run-f32conv"]:
+        f32conv(args[1])
+        sys.exit(0)
     mode = "kernels"
-    if args[:1] in (["--smoke"], ["--focus"]):
+    if args[:1] in (["--smoke"], ["--focus"], ["--f32conv"]):
         mode, args = args[0][2:], args[1:]
     if len(args) < 2:
         raise SystemExit(__doc__)

@@ -291,3 +291,163 @@ def test_bench_dw_route_values(bench_plan):
                for r in [cc.dwt_runs(C, K, cout, cin, SMS)])
     assert values == want == 3 * 2 * 27 * 384 * 384 + 3 * 27 * 640 * 320 \
         + 4 * 27 * 512 * 256
+
+
+# ---- the f32 forward's row order and skipped warp-steps -------------------
+
+def _up_like(offsets, M=128, K=8):
+    """lidx [1, K, M] of an `up`-like chunk: row m references one
+    neighbour, at offset offsets[m]."""
+    lidx = np.full((1, K, M), -1, np.int32)
+    lidx[0, offsets, np.arange(M)] = np.arange(M) % 37
+    return torch.from_numpy(lidx)
+
+
+def _warp_steps_by_loops(lidx, tiles=1):
+    """`fwd_warp_steps` written out: rows sorted by (mask, row), 16 to a
+    warp, a warp live at an offset where one of its rows references it."""
+    lidx = lidx.numpy()
+    C, K, M = lidx.shape
+    ran = 0
+    for c in range(C):
+        masks = [sum(1 << k for k in range(min(K, 32)) if lidx[c, k, m] >= 0)
+                 for m in range(M)]
+        order = sorted(range(M), key=lambda m: (masks[m], m))
+        for w in range(8):
+            rows = order[16 * w:16 * w + 16]
+            ran += sum(any(lidx[c, k, m] >= 0 for m in rows)
+                       for k in range(K))
+    return tiles * ran, tiles * (C * K * 8 - ran)
+
+
+def test_row_order_of_an_up_chunk():
+    """Row m at offset m % 8: the order puts the 16 rows of each offset
+    together, so each warp runs one offset of 8 and skips seven."""
+    lidx = _up_like(np.arange(128) % 8)
+    order = cc.fwd_row_order(lidx)[0]
+    assert order.tolist() == [m for k in range(8) for m in range(k, 128, 8)]
+    assert cc.fwd_warp_steps(lidx) == (8, 56)
+    assert cc.fwd_warp_steps(lidx, tiles=6) == (48, 336)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_warp_steps_of_random_up_chunks(seed):
+    """One live offset a row, drawn at random: the count as the loops
+    give it, and at least one offset run per warp."""
+    rng = np.random.default_rng(seed)
+    lidx = torch.cat([_up_like(rng.integers(0, 8, 128)) for _ in range(3)])
+    ran, skipped = cc.fwd_warp_steps(lidx, tiles=2)
+    assert (ran, skipped) == _warp_steps_by_loops(lidx, tiles=2)
+    assert 2 * 3 * 8 <= ran < 2 * 3 * 8 * 3
+
+
+def test_warp_steps_of_an_all_pad_chunk():
+    """A chunk of cap padding references nothing: every step skipped,
+    also at offsets past the masks' 32."""
+    for K in (27, 40):
+        lidx = torch.full((2, K, 128), -1, dtype=torch.int32)
+        assert cc.fwd_warp_steps(lidx, tiles=3) == (0, 3 * 2 * K * 8)
+
+
+@pytest.mark.parametrize("M", [128, 64])
+def test_warp_steps_of_a_dense_chunk(M):
+    """Every row referenced at every offset: nothing skipped where the
+    warps hold rows (at M=64 the last four warps hold none)."""
+    lidx = torch.zeros((1, 27, M), dtype=torch.int32)
+    assert cc.fwd_warp_steps(lidx) == (27 * M // 16, 27 * (8 - M // 16))
+    assert cc.fwd_row_order(lidx)[0].tolist() == list(range(M))
+
+
+@pytest.mark.parametrize("M", [128, 64])
+def test_row_order_and_count_under_a_row_permutation(small_plan, M):
+    """Each chunk's rows in another order: the order lists the same
+    masks in the same sequence, ties by row, and the count does not
+    change (a warp's rows have the same masks)."""
+    _, lidx = cc.build_chunk_arrays(small_plan.levels[0].nbr, M, 512)
+    lidx = torch.from_numpy(lidx)
+    C, K, _ = lidx.shape
+    g = torch.Generator().manual_seed(M)
+    perm = torch.stack([torch.randperm(M, generator=g) for _ in range(C)])
+    lidx_p = torch.gather(lidx, 2, perm[:, None].expand(C, K, M))
+    masks, masks_p = cc.row_masks(lidx), cc.row_masks(lidx_p)
+    order, order_p = cc.fwd_row_order(lidx), cc.fwd_row_order(lidx_p)
+    seq = torch.gather(masks, 1, order)
+    assert torch.equal(seq, torch.gather(masks_p, 1, order_p))
+    assert (seq[:, 1:] >= seq[:, :-1]).all()
+    assert ((seq[:, 1:] > seq[:, :-1]) | (order[:, 1:] > order[:, :-1])).all()
+    assert cc.fwd_warp_steps(lidx) == cc.fwd_warp_steps(lidx_p) \
+        == _warp_steps_by_loops(lidx)
+    ran, skipped = cc.fwd_warp_steps(lidx)
+    assert ran > 0 and skipped > 0
+
+
+def test_row_order_replays_the_kernels_rank():
+    """The kernel places row m at its rank: the number of rows j with
+    (mask_j, j) < (mask_m, m), counted by two threads over alternate rows;
+    that is the plain version's stable sort."""
+    rng = np.random.default_rng(3)
+    lidx = torch.from_numpy(np.where(rng.random((4, 27, 128)) < 0.2, 0, -1)
+                            .astype(np.int32))
+    lidx[:, :, 100:] = -1  # rows with no reference at all
+    masks = cc.row_masks(lidx).numpy()
+    for c in range(4):
+        pos = np.full(128, -1)
+        for m in range(128):
+            halves = [sum(masks[c, j] < masks[c, m]
+                          or (masks[c, j] == masks[c, m] and j < m)
+                          for j in range(h, 128, 2)) for h in (0, 1)]
+            pos[m] = sum(halves)
+        order = np.empty(128, np.int64)
+        order[pos] = np.arange(128)
+        assert order.tolist() == cc.fwd_row_order(lidx)[c].tolist()
+
+
+def test_skipped_steps_multiply_only_missing_neighbours(small_plan):
+    """The f32 forward replayed in float64 step by step, each warp over
+    its 16 rows of the order and only the offsets it runs, four ci at a
+    time: the plain forward. Every product a skipped step leaves out is a
+    zero."""
+    in_idx, lidx = cc.build_chunk_arrays(small_plan.levels[0].nbr, 128, 512)
+    rng = np.random.default_rng(4)
+    C, K, M = lidx.shape
+    cin, cout = 16, 24
+    x = rng.standard_normal((small_plan.levels[0].cap, cin))
+    w = rng.standard_normal((K, cin, cout))
+    g = _gather(x, in_idx, lidx)                      # [C, K, M, cin]
+    order = cc.fwd_row_order(torch.from_numpy(lidx)).numpy()
+    out = np.zeros((C, M, cout))
+    steps = 0
+    for c in range(C):
+        for wp in range(8):
+            rows = order[c, 16 * wp:16 * wp + 16]
+            for k in range(K):
+                if (lidx[c, k, rows] >= 0).any():
+                    for ci in range(0, cin, 4):
+                        out[c, rows] += g[c, k, rows, ci:ci + 4] \
+                            @ w[k, ci:ci + 4]
+                    steps += 1
+    assert steps == cc.fwd_warp_steps(torch.from_numpy(lidx))[0]
+    np.testing.assert_allclose(out, np.einsum("ckmi,kio->cmo", g, w),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_bench_plan_skips_a_third_of_the_f32_products(bench_plan):
+    """Over the bench plan's 33 convolutions, forward and transpose plans,
+    weighted by their channel products: the warps run about 0.70 of the
+    rows x offsets that skipping dead 64-row groups ran (0.66 on the
+    child maps, 0.24 on the up maps), and never fewer than the real
+    products (0.36)."""
+    import chip_smoke as cs
+    run = old = real = 0
+    for cv in cs.conv_calls(bench_plan, cs.N_PLANES):
+        for ch in (cv.chunks, cv.t_chunks):
+            lidx = torch.from_numpy(np.asarray(ch.lidx))
+            C, K, M = lidx.shape
+            live = lidx >= 0
+            groups = live.reshape(C, K, M // 64, 64).any(3).sum()
+            ran, _ = cc.fwd_warp_steps(lidx)
+            wgt = cv.cin * cv.cout
+            run += 16 * ran * wgt
+            old += 64 * int(groups) * wgt
+            real += int(live.sum()) * wgt
+    assert 0.3 * old < real < run < 0.75 * old

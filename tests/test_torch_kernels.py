@@ -13,7 +13,10 @@ all-pad chunks and offsets whose 16-row fragments miss entirely, the widest
 U (a tier-1.7 transpose plan), a coarse level of a few chunks (the
 forward's split steps), the weight-gradient kernel's runs on both routes
 (one chunk, all-pad chunks, Cin 640, U=1312 for dW; both results
-bitwise repeatable), both backward routes through autograd, the segment
+bitwise repeatable), the f32 forward's row order (a plan with its rows
+permuted gives the same bits; its count of skipped warp-steps against
+the plain count on the bench plan's maps and on a split coarse level),
+both backward routes through autograd, the segment
 sum at both block sizes bit for bit against its slot-order replay
 (`tests/segsum_replay.py`), the BCE kernels from I=1 to 128 (a P that is
 not a multiple of their tiles, all points invalid, a forward and a
@@ -326,6 +329,109 @@ def test_coarse_level_split(dev, plan, dt, K_kind):
         with torch.no_grad():
             _check(cc.chunk_conv(x, in_idx, lidx, w),
                    cc.chunk_conv_plain(x, in_idx, lidx, w), TOL[dt])
+
+
+def _permute_rows(lidx, seed):
+    """lidx with each chunk's rows in a random order, and that order
+    ([C, M]: row j of the new chunk is row perm[c, j] of the old)."""
+    C, K, M = lidx.shape
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.stack([torch.randperm(M, generator=g) for _ in range(C)])
+    perm = perm.to(lidx.device)
+    return torch.gather(lidx, 2, perm[:, None].expand(C, K, M)), perm
+
+
+@pytest.mark.parametrize("kind,cin,cout", [("nbr", 64, 64),
+                                           ("child", 64, 128),
+                                           ("up", 128, 64)])
+def test_f32_forward_is_independent_of_row_order(dev, plan, kind, cin, cout):
+    """The f32 forward orders each chunk's rows by neighbour mask and
+    skips an offset where none of a warp's rows has a reference: every
+    output keeps its sum's order, so a plan whose chunks list their rows
+    in another order gives the same bits, row for row."""
+    table, _, n_in, _, U, _ = _maps(plan, kind)
+    in_idx, lidx = _chunks(table, 128, U, dev)
+    lidx_p, perm = _permute_rows(lidx, 16)
+    g = torch.Generator().manual_seed(17)
+    K, (C, M) = lidx.shape[1], perm.shape
+    x = torch.randn(n_in, cin, generator=g).to(dev)
+    w = (torch.randn(K, cin, cout, generator=g) / (cin * K) ** 0.5).to(dev)
+    with torch.no_grad():
+        out = cc.chunk_conv(x, in_idx, lidx, w)
+        out_p = cc.chunk_conv(x, in_idx, lidx_p, w)
+    torch.cuda.synchronize()
+    back = torch.empty_like(out_p).reshape(C, M, cout)
+    back.scatter_(1, perm[..., None].expand(C, M, cout),
+                  out_p.reshape(C, M, cout))
+    assert torch.equal(out.reshape(C, M, cout), back)
+    _check(out, cc.chunk_conv_plain(x, in_idx, lidx, w), TOL[torch.float32])
+
+
+@pytest.fixture(scope="module")
+def bench_plan(dev):
+    """The bench scene's plan (`chip_smoke.py`), on the card."""
+    import chip_smoke as cs
+    from occuseg_tpu_torch.infer import prepare_scene
+    b = cs.bench_scene(0)
+    return prepare_scene(b["coords"], b["features"],
+                         PlanSpec(caps=cs.BENCH_CAPS)).plan.to(dev)
+
+
+def _bench_map(plan, kind):
+    """(chunks, input rows, Cin, Cout) of a bench-plan map at the model's
+    widths (64, 128, 192, ...)."""
+    tr = plan.transitions[0]
+    return {"L0": (plan.levels[0].chunks, plan.levels[0].cap, 64, 64),
+            "L2": (plan.levels[2].chunks, plan.levels[2].cap, 192, 192),
+            "child": (tr.child_chunks, plan.levels[0].cap, 64, 128),
+            "up": (tr.up_chunks, plan.levels[1].cap, 128, 64)}[kind]
+
+
+def _counted_f32(dev, in_idx, lidx, n_in, cin, cout, seed):
+    """(output, plain output, counts) of one f32 forward."""
+    g = torch.Generator().manual_seed(seed)
+    K = lidx.shape[1]
+    x = torch.randn(n_in, cin, generator=g).to(dev)
+    w = (torch.randn(K, cin, cout, generator=g) / (cin * K) ** 0.5).to(dev)
+    cc.fwd_counts(dev, reset=True)
+    with torch.no_grad():
+        out = cc.chunk_conv(x, in_idx, lidx, w)
+        ref = cc.chunk_conv_plain(x, in_idx, lidx, w)
+    return out, ref, cc.fwd_counts(dev, reset=True)
+
+
+@pytest.mark.parametrize("kind", ["L0", "L2", "child", "up"])
+def test_f32_forward_counts_its_skipped_steps(dev, bench_plan, kind):
+    """The kernel's count of (Cin tile, offset, warp) steps run and
+    skipped equals the plain count (`fwd_warp_steps`) on the bench plan's
+    maps, exactly; the blocks count the row order's cycles."""
+    chunks, n_in, cin, cout = _bench_map(bench_plan, kind)
+    in_idx, lidx = chunks.in_idx, chunks.lidx
+    out, ref, n = _counted_f32(dev, in_idx, lidx, n_in, cin, cout, 18)
+    _check(out, ref, TOL[torch.float32])
+    tiles = (cin // cc.fwd_cin_tile(cin, in_idx.shape[1], lidx.shape[1])
+             * -(-cout // cc.col_tile(cout, False)))
+    assert (n.ran, n.skipped) == cc.fwd_warp_steps(lidx.cpu(), tiles)
+    assert n.skipped > 0 and 0 < n.order_cycles < n.block_cycles
+
+
+def test_f32_forward_split_counts_and_matches_plain(dev, plan):
+    """The coarse-level split in f32 (8 chunks of L3 at Cin 320, Cout
+    384: the (Cin tile, offset) steps cut into ranges, one block each,
+    the partials summed in order) against the plain version, and its
+    count against the plain count."""
+    nbr = plan.levels[3].nbr[:1024]
+    table = np.where(nbr < 1024, nbr, -1).astype(np.int32)
+    in_idx, lidx = _chunks(table, 128, 1024, dev)
+    C, K, _ = lidx.shape
+    cin, cout = 320, 384
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert cc.conv_splits(C, -(-cout // 64), K * 5, sms) > 1
+    out, ref, n = _counted_f32(dev, in_idx, lidx, 1024, cin, cout, 19)
+    _check(out, ref, TOL[torch.float32])
+    tiles = (cin // cc.fwd_cin_tile(cin, in_idx.shape[1], K)
+             * -(-cout // 64))
+    assert (n.ran, n.skipped) == cc.fwd_warp_steps(lidx.cpu(), tiles)
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
