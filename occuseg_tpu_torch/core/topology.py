@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from occuseg_tpu_torch.core import coords as C
+from occuseg_tpu_torch.utils.profiling import count_tensor, span
 
 
 def _offsets(kernel: int, dilation: int = 1) -> np.ndarray:
@@ -238,10 +239,37 @@ class LevelTopology(_DeviceArrays, _GatherMaps):
     kn: dict = _kn_cache()
     # (name, device) -> keys or coords copied there (`device_array`)
     arrays: dict = _kn_cache()
+    # the odd cubic stencil of a second neighbour map this level carries
+    # beside `nbr` (`PlanSpec.stem_kernel`), built on the device at its
+    # first use (`stencil_map`)
+    stem_kernel: Optional[int] = None
 
     @property
     def cap(self) -> int:
         return self.nbr.shape[0]
+
+    def stencil_map(self, volume: int, device) -> torch.Tensor:
+        """The map of the level's second stencil (`stem_kernel`) whose
+        volume is `volume`, as [K, cap] int32 on `device` in the gather
+        kernel's orientation: built there from the level's keys at the
+        first call (`stencil_map_kn`, the span `plan.stem_map`; its pairs
+        add to the counter `plan.stem_pairs`), then kept with the level.
+        Raises ValueError where the level carries no map of that
+        volume."""
+        kernel = self.stem_kernel
+        if kernel is None or kernel ** 3 != volume:
+            raise ValueError(f"the plan's level has no map of kernel volume "
+                             f"{volume} (its maps: {self.nbr.shape[1]}"
+                             f"{'' if kernel is None else f', {kernel ** 3}'})")
+        name = f"nbr{kernel}"
+        m = self.kn.get(name)
+        if m is None:
+            with span("plan.stem_map"):
+                m = stencil_map_kn(self.device_array("keys", device), kernel,
+                                   np.size(self.num_active))
+                count_tensor("plan.stem_pairs", (m >= 0).sum())
+            self.kn[name] = m
+        return m
 
     def device_array(self, name: str, device) -> torch.Tensor:
         """Array `name` ("keys" or "coords") as a tensor on `device`: a
@@ -341,6 +369,15 @@ class PlanSpec:
     # "cubic" (the K^3 stencil) or "permutohedral" (the 13 lattice
     # neighbours; coordinates pre-mapped with ops/permutohedral.embed_points)
     lattice: str = "cubic"
+    # level 0 also carries the map of this odd cubic stencil (a 5^3 input
+    # convolution beside the 3^3 ones), built on the device at its first
+    # use (`LevelTopology.stencil_map`); None = no second map
+    stem_kernel: Optional[int] = None
+    # how a host plan's chunk budgets grow where a map overflows them
+    # (`ops/kernels/chunk_conv.augment_plan_with_chunks`): "plan", the JAX
+    # package's rule (a level alone, then the whole plan), or "map" (each
+    # map alone)
+    chunk_escalation: str = "plan"
 
     def level_offsets(self) -> Optional[np.ndarray]:
         """The offsets of every level's neighbour map where they are not
@@ -426,6 +463,59 @@ def _level(keys: torch.Tensor, kernel: int = 3, dilation: int = 1,
                         nbr=nbr_kn.t(), orient=orient)
     lvl.kn["nbr"] = nbr_kn
     return lvl
+
+
+def stencil_map_kn(keys: torch.Tensor, kernel: int, blocks: int = 1
+                   ) -> torch.Tensor:
+    """The submanifold map [kernel^3, cap] int32 of the odd cubic stencil
+    over a level's keys [cap] on their device, in the gather kernel's
+    orientation: entry (k, r) is the row of the site at row r's
+    coordinates + offset k (z-major, as `_offsets`), -1 where there is
+    none. The keys are `blocks` equal blocks, each sorted with its
+    KEY_PAD rows last (one block: a one-scene plan; ns blocks: the
+    blocked layout, `native/blocked.py`), searched side by side (a
+    batched `searchsorted`), one z offset (kernel^2 offsets) a search.
+    A neighbour's key is built from the row's key by a dilated addition
+    in each axis's Morton bits (the other bits set to 1 carry through
+    them; the wrap of a coordinate past the domain is masked by the
+    row's coordinates), so an offset costs two ORs of the three axes'
+    shifted bits, not a pack. About a hundred launches whatever the
+    blocks (the stepping thread shares the interpreter with the plan
+    workers, so it issues few operations); no host wait."""
+    dev = keys.device
+    n, cap = kernel, keys.shape[0]
+    if cap % blocks:
+        raise ValueError(f"stencil_map_kn: cap {cap} is not a multiple of "
+                         f"{blocks} blocks")
+    sc = cap // blocks
+    kb = keys.reshape(blocks, sc)
+    c = C.unpack(keys).reshape(blocks, sc, 4)
+    delta = torch.arange(-(n // 2), n // 2 + 1, device=dev)     # [n]
+    spread = C._spread3(delta % C.AXIS_SIZE)                    # x bits
+    x_bits = sum(1 << (3 * i) for i in range(C.AXIS_BITS))
+    parts, oks = [], []
+    all_bits = 0
+    for a in range(3):                                          # z, y, x
+        m = x_bits << (2 - a)
+        all_bits |= m
+        dil = (spread << (2 - a))[:, None, None]
+        parts.append(((kb | ~m)[None] + dil) & m)               # [n, B, sc]
+        v = c[None, :, :, 1 + a] + delta[:, None, None]
+        oks.append((v >= 0) & (v < C.AXIS_SIZE))
+    zy = (kb & ~all_bits)[None, None] | parts[0][:, None] | parts[1][None]
+    zy_ok = oks[0][:, None] & oks[1][None] & (kb < C.KEY_PAD)
+    base = (torch.arange(blocks, device=dev) * sc)[:, None]
+    out = torch.empty((n, n, n, cap), dtype=torch.int32, device=dev)
+    for i in range(n):
+        q = zy[i][:, None] | parts[2][None]                     # [n,n,B,sc]
+        q = torch.where(zy_ok[i][:, None] & oks[2][None], q, C.KEY_PAD)
+        qb = q.permute(2, 0, 1, 3).reshape(blocks, -1)          # [B, n*n*sc]
+        pos = torch.searchsorted(kb, qb).clamp(max=sc - 1)
+        hit = (kb.gather(1, pos) == qb) & (qb < C.KEY_PAD)
+        rows = torch.where(hit, pos + base, -1).to(torch.int32)
+        out[i] = rows.reshape(blocks, n, n, sc).permute(1, 2, 0, 3) \
+            .reshape(n, n, cap)
+    return out.reshape(n ** 3, cap)
 
 
 def build_level(keys: torch.Tensor, kernel: int = 3, dilation: int = 1,
@@ -654,8 +744,11 @@ def build_plan(point_coords, spec: PlanSpec, point_normals=None
         levels.append(lvl)
     counts = torch.stack([l.num_active for l in levels]
                          + [num_points]).tolist()
-    levels = tuple(_with_count(l, n, guided=g)
-                   for l, n, g in zip(levels, counts, guided))
+    levels = tuple(_with_count(l, n, guided=g,
+                               stem_kernel=spec.stem_kernel if i == 0
+                               else None)
+                   for i, (l, n, g) in enumerate(zip(levels, counts,
+                                                     guided)))
     return Topology(levels=levels, transitions=tuple(transitions), p2v=p2v,
                     num_points=counts[-1], vox_counts=vox_counts)
 

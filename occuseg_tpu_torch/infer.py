@@ -57,17 +57,20 @@ def plan_scene(coords: np.ndarray, spec: PlanSpec, ns: int = 1,
     if plan is None:
         raise ValueError(f"the host planner does not build {spec}; plan it "
                          f"on the device (core.topology.build_plan)")
-    return augment_plan(plan, chunks)
+    return augment_plan(plan, chunks, spec.chunk_escalation == "map")
 
 
-def augment_plan(plan: Topology, chunks: bool = True) -> Topology:
+def augment_plan(plan: Topology, chunks: bool = True,
+                 per_map: bool = False) -> Topology:
     """A host plan with its chunk rulebooks (none without `chunks`, the
-    training CLI's --chunk_conv 0) and sorted point layout; where the
-    layout does not fit the caps, with the points per voxel alone (host
-    data the InputLayer's mean divides by)."""
+    training CLI's --chunk_conv 0; each map's budget grown alone with
+    `per_map`, `PlanSpec.chunk_escalation`) and sorted point layout; where
+    the layout does not fit the caps, with the points per voxel alone
+    (host data the InputLayer's mean divides by)."""
     if chunks:
         with span("plan.chunks"):
-            plan = chunk_conv.augment_plan_with_chunks(plan)
+            plan = chunk_conv.augment_plan_with_chunks(plan,
+                                                       per_map=per_map)
     with span("plan.layout"):
         plan = augment_plan_with_point_layout(plan)
         if plan.vox_counts is None:
@@ -128,6 +131,6 @@ class Predictor:
         if plan.point_perm is None:  # no layout: original order
             return out
         with torch.inference_mode():
-            return OccuSegOutputs(*(None if t is None
-                                    else unpermute(t, plan.point_perm)
-                                    for t in out))
+            return type(out)(*(None if t is None
+                               else unpermute(t, plan.point_perm)
+                               for t in out))

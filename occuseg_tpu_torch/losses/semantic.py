@@ -1,11 +1,12 @@
 """Alternative semantic losses: Lovasz-softmax, focal, weighted CE
 (counterpart of `occuseg_tpu/losses/semantic.py`, selected by
-`LossConfig.semantic_loss`). Points with a negative label are ignored.
+`LossConfig.semantic_loss`), and the training loss of a semantic-only
+model (`semantic_step_loss`). Points with a negative label are ignored.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -84,3 +85,20 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ce, valid, safe = _ce_per_point(logits, labels)
     w = weight[safe] * valid.float()
     return (ce * w).sum() / torch.clamp(w.sum(), min=1e-12)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Plain CE, the mean over the points with a label >= 0."""
+    ce, valid, _ = _ce_per_point(logits, labels)
+    return (torch.where(valid, ce, torch.zeros((), dtype=ce.dtype,
+                                               device=ce.device)).sum()
+            / torch.clamp(valid.sum(), min=1))
+
+
+def semantic_step_loss(outputs, batch: Dict[str, torch.Tensor]
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total, parts) of a semantic-only model's step (`Trainer.step` for
+    a model with `semantic_only`, MinkUNet): the plain `cross_entropy` of
+    the per-point logits `outputs.semantics` over batch["labels"]."""
+    sem = cross_entropy(outputs.semantics, batch["labels"])
+    return sem, {"semantic_loss": sem, "total": sem}

@@ -6,3 +6,8 @@ from occuseg_tpu_torch.models.occuseg import (  # noqa: F401
     OccuSegOutputs,
     ThreeVoxelKernel,
 )
+from occuseg_tpu_torch.models.minkunet import (  # noqa: F401
+    MinkUNet,
+    MinkUNet34C,
+    SemanticOutputs,
+)

@@ -73,6 +73,20 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+def set_threads(n: int) -> None:
+    """Give the planner's OpenMP loops that the calling thread starts a
+    team of `n` threads (OpenMP's `omp_set_num_threads`, found through
+    the library's own link to the OpenMP runtime: a setting of the calling
+    thread alone, kept for its later calls)."""
+    load().omp_set_num_threads(ctypes.c_int(int(n)))
+
+
+def threads() -> int:
+    """The team the calling thread's next OpenMP loop would start
+    (`omp_get_max_threads`)."""
+    return int(load().omp_get_max_threads())
+
+
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 

@@ -69,7 +69,7 @@ def merge_scene_plans(plans: Sequence[Topology],
             nbr=np.concatenate([_off(l.nbr, s * cap)
                                 for s, l in enumerate(lvls)]),
             orient=np.concatenate([np.asarray(l.orient) for l in lvls]),
-            guided=lvls[0].guided))
+            guided=lvls[0].guided, stem_kernel=lvls[0].stem_kernel))
     transitions = []
     for ti in range(len(scaps) - 1):
         fine_cap, coarse_cap = scaps[ti], scaps[ti + 1]

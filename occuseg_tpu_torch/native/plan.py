@@ -18,6 +18,10 @@ of its points' normals, a coarse site's the normalised sum of its
 children's, down to `PlanSpec.guide_levels` (coarser levels keep the
 identity orientation, as the reference's normal_guide_scale cutoff does).
 Each carrying level gets its sites' dominant-axis class {0, 2, 4}.
+
+A spec with a `stem_kernel` marks level 0 with it: that second map (125
+probes a voxel at 5^3) is built on the device at its first use
+(`LevelTopology.stencil_map`), not here.
 """
 
 from __future__ import annotations
@@ -213,7 +217,8 @@ def build_plan_host(point_coords: np.ndarray, spec: PlanSpec,
         LevelTopology(keys=lk, coords=lc, num_active=int(ln), nbr=nbrs[li],
                       orient=(np.zeros(spec.caps[li], np.int32) if ls is None
                               else _orient_class(ls)),
-                      guided=ls is not None)
+                      guided=ls is not None,
+                      stem_kernel=spec.stem_kernel if li == 0 else None)
         for li, (lk, lc, ln, ls) in enumerate(lvl_data))
     return Topology(levels=levels, transitions=tuple(transitions), p2v=p2v,
                     num_points=int((p2v >= 0).sum()))

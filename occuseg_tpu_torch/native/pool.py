@@ -29,19 +29,28 @@ from __future__ import annotations
 
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, Iterator, Tuple
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 from occuseg_tpu_torch.utils.profiling import count, span
+
+
+def _set_threads(n: int) -> None:
+    from occuseg_tpu_torch import native
+    native.set_threads(n)
 
 
 class PlanPool:
     """Ordered sliding-window batch preparation over `workers` threads
     (one worker: a prefetch thread, the loop's `plan_prefetcher`), with up
-    to `workers + 2` batches in flight."""
+    to `workers + 2` batches in flight. With `threads`, each worker's
+    OpenMP loops in the C++ planner start teams of that many threads
+    (`native.set_threads`; ranks that share a host share its cores,
+    `parallel/data_parallel.share_cores`); without, OpenMP's default (every
+    core)."""
 
     def __init__(self, spec, workers: int, bucket_specs_list=None,
                  ns: int = 1, pin: bool = False, chunks: bool = True,
-                 spatial=None):
+                 spatial=None, threads: Optional[int] = None):
         self.workers = max(int(workers), 1)
         self.window = self.workers + 2
         self.spec = spec
@@ -50,8 +59,11 @@ class PlanPool:
         self.pin = pin
         self.chunks = chunks
         self.spatial = spatial
+        self.threads = threads
+        team = {} if threads is None else {
+            "initializer": _set_threads, "initargs": (int(threads),)}
         self._pool = ThreadPoolExecutor(max_workers=self.workers,
-                                        thread_name_prefix="plan")
+                                        thread_name_prefix="plan", **team)
 
     def _build(self, batch: Dict) -> Tuple[Dict, object, int]:
         """(laid-out batch, host plan, bucket index) of one batch: the

@@ -125,7 +125,11 @@ def _sharded_conv(feats: torch.Tensor, nbr_kn: torch.Tensor,
 
 
 class SubmanifoldConvolution(nn.Module):
-    """Same-topology K^3 convolution over the level's neighbor map;
+    """Same-topology K^3 convolution over the level's neighbor map whose
+    volume is the weight's: `nbr`, or the level's second stencil
+    (`LevelTopology.stencil_map`, MinkUNet's 5^3 input convolution beside
+    its 3^3 ones), which has no chunk rulebook and so runs the gather
+    convolution; a level with no map of that volume raises. Over `nbr`,
     `normal_guided` rotates each site's filter by its orientation class
     (the plan's `orient`, from point normals)."""
 
@@ -142,11 +146,11 @@ class SubmanifoldConvolution(nn.Module):
 
     def forward(self, x: SparseTensor, plan: Topology) -> SparseTensor:
         lvl = plan.levels[x.level]
-        if lvl.nbr.shape[1] != self.weight.shape[0]:
-            raise ValueError(f"plan kernel volume {lvl.nbr.shape[1]} != "
-                             f"module's {self.weight.shape[0]}")
         f = x.features
-        if lvl.halo_ex is not None:
+        if lvl.nbr.shape[1] != self.weight.shape[0]:
+            nbr = lvl.stencil_map(self.weight.shape[0], f.device)
+            out = conv_ops.gather_conv_kn(f, nbr, self.weight, nbr, True)
+        elif lvl.halo_ex is not None:
             out = _sharded_conv(f, lvl.gather_map("nbr", f.device),
                                 lvl.halo_ex, self.weight, lvl.chunks,
                                 plan.group)

@@ -78,7 +78,7 @@ class _GatherConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, nbr_kn, bwd_kn, weight, reverse):
-        ctx.save_for_backward(feats, bwd_kn, weight)
+        ctx.save_for_backward(feats, nbr_kn, bwd_kn, weight)
         ctx.reverse = reverse
         return _kernel_conv(feats, nbr_kn, weight)
 
@@ -87,12 +87,15 @@ class _GatherConv(torch.autograd.Function):
         """With j = K-1-k where `reverse`, else j = k: d_feats[i] =
         sum_k ct[bwd_kn[k, i]] @ W[j]^T, the same gather convolution over
         the backward map with the weights (reversed and) transposed, and
-        dW[j] = feats^T @ ct[bwd_kn[k]], one gather and one f32 matmul per
-        offset (all K at once would be [N, K, Cout]). No scatter, no
+        dW, one gather and one f32 matmul per offset (all K at once would
+        be [N, K, Cout]), gathering the narrower side: dW[j] = feats^T @
+        ct[bwd_kn[k]] (N rows of Cout gathered), or, where the M output
+        rows of Cin are fewer bytes (a thin input, as MinkUNet's 5^3 stem
+        from 3 channels), dW[k] = feats[nbr_kn[k]]^T @ ct. No scatter, no
         atomics."""
-        feats, bwd_kn, weight = ctx.saved_tensors
+        feats, nbr_kn, bwd_kn, weight = ctx.saved_tensors
         ctc = ct.to(feats.dtype)
-        K = weight.shape[0]
+        K, cin, cout = weight.shape
         order = range(K - 1, -1, -1) if ctx.reverse else range(K)
         d_feats = d_w = None
         if ctx.needs_input_grad[0]:
@@ -100,12 +103,18 @@ class _GatherConv(torch.autograd.Function):
             d_feats = _kernel_conv(ctc, bwd_kn,
                                    w_t.flip(0) if ctx.reverse else w_t)
         if ctx.needs_input_grad[3]:
-            f = acc(feats).t()
-            d_w = torch.empty(weight.shape, dtype=f.dtype,
+            d_w = torch.empty(weight.shape, dtype=acc_dtype(feats),
                               device=feats.device)
-            for k, j in enumerate(order):
-                torch.matmul(f, acc(gather_rows(ctc, bwd_kn[k])),
-                             out=d_w[j])
+            if nbr_kn.shape[1] * cin < bwd_kn.shape[1] * cout:
+                c = acc(ctc)
+                for k in range(K):
+                    torch.matmul(acc(gather_rows(feats, nbr_kn[k])).t(), c,
+                                 out=d_w[k])
+            else:
+                f = acc(feats).t()
+                for k, j in enumerate(order):
+                    torch.matmul(f, acc(gather_rows(ctc, bwd_kn[k])),
+                                 out=d_w[j])
             d_w = d_w.to(weight.dtype)
         return d_feats, None, None, d_w, None
 

@@ -75,7 +75,8 @@ def _chunk_or_none(table: np.ndarray, M: int, u: int) -> Optional[ChunkPlan]:
 
 
 def augment_plan_with_chunks(plan, M: int = DEFAULT_M, U=None, U_child=None,
-                             U_up: int = None, tiers=(1.0, 1.3, 1.7)):
+                             U_up: int = None, tiers=(1.0, 1.3, 1.7),
+                             per_map: bool = False):
     """Attach ChunkPlans to every level and transition of a host plan.
 
     U budgets are static tables (an int or one per level). Escalation
@@ -93,9 +94,22 @@ def augment_plan_with_chunks(plan, M: int = DEFAULT_M, U=None, U_child=None,
     input list is the JAX package's scene-local list shifted to global
     rows.
 
-    Each attempt is the span `plan.chunk_try` (`utils/profiling.py`); a
-    plan returned above tier 1.0 counts `plan.tier_raised`, and its maps
-    left with `chunks=None` count `plan.gather_maps`."""
+    With `per_map` (`PlanSpec.chunk_escalation == "map"`), each map
+    instead takes the first of the tiers whose budget holds it, alone: a
+    map that overflows is rebuilt at the next tier, the others keep tier
+    1.0, so a batch's rulebooks are built once and the maps' budgets do
+    not all jump with its worst map (the whole-plan rule's tiers 1.3 and
+    1.7 make a step's kernels stage up to 1.7x the rows).
+
+    Each attempt is the span `plan.chunk_try` (`utils/profiling.py`;
+    under `per_map` the first pass over every map is one, and each map's
+    rebuild at a later tier another); a plan returned above tier 1.0
+    counts `plan.tier_raised`, and its maps left with `chunks=None` count
+    `plan.gather_maps`."""
+    if per_map:
+        out, lbl = _augment_per_map(plan, M, U, U_child, U_up, tiers)
+        return _counted(out, lbl or 1.0)
+
     def attempt(f, warn):
         with span("plan.chunk_try"):
             return _augment_once(plan, M, U, U_child, U_up, f, warn=warn)
@@ -149,10 +163,8 @@ def _scale_u(u, f):
     return tuple(_scale1(x, f) for x in u)
 
 
-def _augment_once(plan, M, U, U_child, U_up, tier_f, warn):
-    """One escalation attempt: (plan or None, overflowed levels,
-    overflowed transitions). With warn=False an overflow returns no plan;
-    with warn=True overflowing maps keep chunks=None."""
+def _budgets(M, U, U_child, U_up):
+    """The default U tables of chunk size M (`_augment_once`'s)."""
     if U is None:
         # measured per-level maxima at M=128: 231/287/321/325/317/260
         U = ((256, 320, 384, 384, 384, 320) if M == 128
@@ -164,6 +176,65 @@ def _augment_once(plan, M, U, U_child, U_up, tier_f, warn):
     if U_up is None:
         # measured up maxima at M=128: 122/90/55/41/36
         U_up = 160 if M == 128 else 384
+    return U, U_child, U_up
+
+
+def _pick(u, i):
+    return u if isinstance(u, int) else u[min(i, len(u) - 1)]
+
+
+def _augment_per_map(plan, M, U, U_child, U_up, tiers):
+    """(plan, tier label) of `augment_plan_with_chunks(per_map=True)`:
+    each map's chunks at the first tier whose scaled budget holds it
+    (None past the last, a gather-path map); a transition's two maps
+    both or neither. The label names the maps above 1.0 (L<level>,
+    T<transition>), as the whole-plan rule's per-level labels. The first
+    pass over every map at tier 1.0 is one `plan.chunk_try` span, each
+    later rebuild of one map another."""
+    U, U_child, U_up = _budgets(M, U, U_child, U_up)
+    maps = [(f"L{li}", lvl.nbr, _pick(U, li))
+            for li, lvl in enumerate(plan.levels)]
+    for ti, tr in enumerate(plan.transitions):
+        maps += [(f"T{ti}c", tr.child, _pick(U_child, ti)),
+                 (f"T{ti}u", tr.up, _pick(U_up, ti))]
+    with span("plan.chunk_try"):
+        got = {name: _chunk_or_none(np.asarray(table), M, u)
+               for name, table, u in maps}
+    raised = []
+    for name, table, u in maps:
+        # a misaligned cap is not an overflow
+        if got[name] is not None or np.shape(table)[0] % M:
+            continue
+        for f in tiers[1:]:
+            with span("plan.chunk_try"):
+                got[name] = _chunk_or_none(np.asarray(table), M,
+                                           _scale1(u, f))
+            if got[name] is not None:
+                raised.append(f"{name}x{f:.2f}")
+                break
+        else:
+            logger.warning("chunk plan overflow at %s (U=%d, tiers %s)",
+                           name, u, tiers)
+
+    levels = tuple(dataclasses.replace(lvl, chunks=got[f"L{li}"])
+                   for li, lvl in enumerate(plan.levels))
+    transitions = []
+    for ti, tr in enumerate(plan.transitions):
+        child, up = got[f"T{ti}c"], got[f"T{ti}u"]
+        if child is None or up is None:
+            child = up = None
+        transitions.append(dataclasses.replace(tr, child_chunks=child,
+                                               up_chunks=up))
+    return dataclasses.replace(plan, levels=levels,
+                               transitions=tuple(transitions)), \
+        ",".join(raised)
+
+
+def _augment_once(plan, M, U, U_child, U_up, tier_f, warn):
+    """One escalation attempt: (plan or None, overflowed levels,
+    overflowed transitions). With warn=False an overflow returns no plan;
+    with warn=True overflowing maps keep chunks=None."""
+    U, U_child, U_up = _budgets(M, U, U_child, U_up)
     f_lvl, f_child, f_up = _tier3(tier_f)
     U_child, U_up = _scale_u(U_child, f_child), _scale_u(U_up, f_up)
     over_l, over_t = [], []

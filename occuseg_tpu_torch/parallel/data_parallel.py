@@ -84,6 +84,26 @@ def rank_device(device, rank: int) -> torch.device:
     return dev
 
 
+def share_cores(workers: int, world_size: int) -> Optional[int]:
+    """Where ranks share a host, this rank's even share of its cores: the
+    cores this process may run on over (the ranks on the host, torchrun's
+    LOCAL_WORLD_SIZE where it is set, else `world_size`) x `workers` plan
+    workers, at least 1. Sets the rank's own intra-op threads
+    (`torch.set_num_threads`) to it and returns it as each plan worker's
+    OpenMP team (`PlanPool(threads=)`), as torchrun bounds its ranks'
+    OpenMP threads: left alone, every plan worker of every rank starts a
+    team of every core (4 ranks x 4 workers on 32 cores: 16 teams of 32).
+    None for a rank alone on its host, whose threads stay as they are."""
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    if per_host <= 1:
+        return None
+    cores = (len(os.sched_getaffinity(0))
+             if hasattr(os, "sched_getaffinity") else os.cpu_count() or 1)
+    n = max(1, cores // (per_host * max(int(workers), 1)))
+    torch.set_num_threads(n)
+    return n
+
+
 def default_backend(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 

@@ -26,7 +26,9 @@ from occuseg_tpu_torch.utils.profiling import span
 
 def bucket_specs(max_voxel_cap: int, num_levels: int,
                  num_buckets: int = 3, kernel: int = 3,
-                 guide_levels: Optional[int] = None) -> List[PlanSpec]:
+                 guide_levels: Optional[int] = None,
+                 stem_kernel: Optional[int] = None,
+                 chunk_escalation: str = "plan") -> List[PlanSpec]:
     """Cap sets at max_voxel_cap / 2^k, smallest first, each level rounded
     up to a multiple of 1024 with the measured per-level ratios."""
     specs = []
@@ -37,7 +39,9 @@ def bucket_specs(max_voxel_cap: int, num_levels: int,
                 // 1024 * 1024, 1024)
             for l in range(num_levels))
         specs.append(PlanSpec(caps=caps, kernel=kernel,
-                              guide_levels=guide_levels))
+                              guide_levels=guide_levels,
+                              stem_kernel=stem_kernel,
+                              chunk_escalation=chunk_escalation))
     return specs
 
 
@@ -89,7 +93,7 @@ def prepare_bucketed(batch, specs: Sequence[PlanSpec], ns: int = 1,
     (laid-out batch, host plan, bucket index)."""
     normals = batch["normals"] if specs[0].guide_levels is not None else None
     bi, plan = plan_for_batch(specs, batch["coords"], normals, ns)
-    plan = augment_plan(plan, chunks)
+    plan = augment_plan(plan, chunks, specs[bi].chunk_escalation == "map")
     with span("plan.layout"):
         laid = apply_point_layout(batch, plan, num_scenes=ns)
     return laid, plan, bi

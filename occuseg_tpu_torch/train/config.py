@@ -3,9 +3,9 @@
 and defaults (the reference's flags, plus the caps, device count, plan
 workers, buckets and the blocked layout), and the same derived values (UNet
 widths [m..6m], input channels from the `use_feature` string l/c/n/d/h,
-class count, per-level caps). The port takes every flag: --num_devices
-trains data-parallel, --spatial_shards splits every batch's voxels over
-that many ranks (`train/cli.py`)."""
+class count, per-level caps), and the port's `--arch`. The port takes
+every flag: --num_devices trains data-parallel, --spatial_shards splits
+every batch's voxels over that many ranks (`train/cli.py`)."""
 
 from __future__ import annotations
 
@@ -58,6 +58,15 @@ def get_parser() -> argparse.ArgumentParser:
                    help="DriftLoss coefficient (reference uses 50 when "
                         "enabled, train_instance.py:240; 0 = off, the "
                         "reference default)")
+    # --- the port's architectures ---
+    p.add_argument("--arch", default="occuseg",
+                   choices=("occuseg", "minkunet34c"),
+                   help="occuseg: the OccuSeg models (--use_dense_model "
+                        "picks LearningBWDenseUNet), trained with the "
+                        "6-term loss; minkunet34c: MinkUNet34C (a 5^3 stem, "
+                        "post-activation residual stages; --m, "
+                        "--residual_blocks and --block_reps do not apply), "
+                        "trained with the plain cross-entropy")
     # --- additions of the JAX package ---
     p.add_argument("--data_dir", default="data/scannet")
     p.add_argument("--point_cap", type=int, default=262144,
@@ -113,10 +122,16 @@ def args_to_config(args: argparse.Namespace) -> Dict[str, Any]:
               "instance_cap", "num_devices", "num_buckets", "accum_steps",
               "spatial_shards", "spatial_halo", "spatial_pool", "load",
               "chunk_conv", "drift_weight", "plan_workers",
-              "blocked_batch"):
+              "blocked_batch", "arch"):
         config[k] = getattr(args, k)
     m = args.m
     config["unet_structure"] = [m, 2 * m, 3 * m, 4 * m, 5 * m, 6 * m]
+    if args.arch == "minkunet34c":
+        # one entry a level: the stem's width, then each encoder stage's
+        from occuseg_tpu_torch.models.minkunet import MINKUNET34C
+        planes = MINKUNET34C["planes"]
+        config["unet_structure"] = [MINKUNET34C["init_dim"]] + list(
+            planes[:len(planes) // 2])
     # 20 ScanNet classes / 14 Stanford3D (reference
     # `evaluate_instance.py:1332-1337`)
     config["class_num"] = 14 if args.dataset == "stanford3d" else 20

@@ -76,6 +76,7 @@ from occuseg_tpu_torch.losses.semantic import (
     STANFORD_CE_WEIGHTS,
 )
 from occuseg_tpu_torch.models import InstanceDenseUNet, LearningBWDenseUNet
+from occuseg_tpu_torch.models.minkunet import MINKUNET34C, MinkUNet34C
 from occuseg_tpu_torch.parallel import data_parallel
 from occuseg_tpu_torch.train import checkpoint as ckpt
 from occuseg_tpu_torch.train.config import plan_caps
@@ -108,7 +109,14 @@ def build_model(config: Dict, generator: Optional[torch.Generator] = None):
     """The config's model with f32 parameters and activations (the JAX
     package's default), initialised from `generator`: the
     `input_feature_number` input channels of the `use_feature` string, and
-    normal-guided convolutions under `use_normal`."""
+    normal-guided convolutions under `use_normal`; with `--arch
+    minkunet34c`, MinkUNet34C (`models/minkunet.py`)."""
+    if config.get("arch", "occuseg") == "minkunet34c":
+        if config.get("use_normal"):
+            raise ValueError("--use_normal: MinkUNet34C has no "
+                             "normal-guided convolutions")
+        return MinkUNet34C(int(config.get("input_feature_number", 3)),
+                           config.get("class_num", 20), generator=generator)
     planes = tuple(int(x) for x in config["unet_structure"])
     cls = (LearningBWDenseUNet if config.get("use_dense_model")
            else InstanceDenseUNet)
@@ -123,11 +131,19 @@ def build_model(config: Dict, generator: Optional[torch.Generator] = None):
 def build_spec(config: Dict) -> PlanSpec:
     """The plan spec; under --use_normal, orientation classes at levels
     0..rotation_guide_level (the reference's normal_guide_scale =
-    (full_scale >> rotation_guide_level) + 1)."""
+    (full_scale >> rotation_guide_level) + 1); for MinkUNet34C, its 5^3
+    stem stencil at level 0 and each map's chunk budget grown alone (its
+    8-room 2 cm batches overflow the budgets at most levels, and the
+    whole-plan rule then stages up to 1.7x the rows in every map of a
+    step, a different share of the steps each run: 614k-736k voxels/s
+    over three seeds on one H100 against 744k-765k over six)."""
     guide = (int(config.get("rotation_guide_level", 0)) + 1
              if config.get("use_normal") else None)
+    mink = config.get("arch", "occuseg") == "minkunet34c"
     return PlanSpec(caps=tuple(plan_caps(config)),
-                    kernel=config.get("kernel_size", 3), guide_levels=guide)
+                    kernel=config.get("kernel_size", 3), guide_levels=guide,
+                    stem_kernel=MINKUNET34C["stem_kernel"] if mink else None,
+                    chunk_escalation="map" if mink else "plan")
 
 
 def _synthetic_dataset(config: Dict):
@@ -327,7 +343,9 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
                                len(config["unet_structure"]),
                                int(config["num_buckets"]),
                                kernel=config.get("kernel_size", 3),
-                               guide_levels=spec.guide_levels)
+                               guide_levels=spec.guide_levels,
+                               stem_kernel=spec.stem_kernel,
+                               chunk_escalation=spec.chunk_escalation)
 
     ckpt_dir = os.path.join(config["checkpoints_dir"],
                             config.get("taskname", "default"))
@@ -348,11 +366,13 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
     step = 0
     losses: Dict[str, float] = {}
     # --plan_workers 0 or 1: one prefetch thread
-    plan_pool = PlanPool(spec, int(config.get("plan_workers", 0) or 0),
-                         bucket_specs_list=buckets, ns=blocked_ns,
-                         pin=dev.type == "cuda",
+    workers = int(config.get("plan_workers", 0) or 0)
+    plan_pool = PlanPool(spec, workers, bucket_specs_list=buckets,
+                         ns=blocked_ns, pin=dev.type == "cuda",
                          chunks=bool(config.get("chunk_conv", 1)),
-                         spatial=spatial)
+                         spatial=spatial,
+                         threads=data_parallel.share_cores(max(workers, 1),
+                                                           n_dev))
     try:
         for epoch in range(start_epoch, int(config.get("max_epoch", 1))):
             t0 = time.time()
@@ -396,11 +416,7 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
                     # all)
                     if spatial is None and (weight is None or weight > 0):
                         counters.add(
-                            plan_muladd_count(
-                                host_plan, planes,
-                                config.get("block_reps", 1),
-                                config.get("residual_blocks", True),
-                                config["input_feature_number"]),
+                            _muladds(model, host_plan, planes, config),
                             plan_hidden_count(host_plan, planes),
                             scenes=batch_per_dev)
                     for k, v in parts.items():
@@ -457,6 +473,16 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
             writer.close()
     return {"trainer": trainer, "model": model, "spec": spec, "steps": step,
             "losses": losses, "timings": timings, "ckpt_dir": ckpt_dir}
+
+
+def _muladds(model, plan, planes, config: Dict) -> int:
+    """The forward's MulAdds on a host plan: the model's own count where
+    it has one (`plan_muladds`), else the UNet's (`plan_muladd_count`)."""
+    if hasattr(model, "plan_muladds"):
+        return model.plan_muladds(plan)
+    return plan_muladd_count(plan, planes, config.get("block_reps", 1),
+                             config.get("residual_blocks", True),
+                             config["input_feature_number"])
 
 
 def _spatial(config: Dict, rank: int, n_dev: int) -> Optional[Dict]:

@@ -27,6 +27,11 @@ build its plan on the device (`core/topology.build_plan`, with the batch's
 normals under `use_normals`): no chunk rulebook, so every convolution runs
 the gather path.
 
+A semantic-only model (`semantic_only`, MinkUNet) has no instance heads:
+its step uploads the features and labels alone and trains the plain
+cross-entropy (`losses/semantic.semantic_step_loss`) in place of the
+6-term loss.
+
 A data-parallel rank (`parallel/data_parallel.py`) passes its loss
 weight and process group to `step`: the gradients of weight * L, the loss
 parts and the BN running statistics are then averaged over the group's
@@ -56,6 +61,7 @@ from occuseg_tpu_torch.core.point_layout import apply_point_layout
 from occuseg_tpu_torch.core.topology import PlanSpec, Topology, build_plan, pin
 from occuseg_tpu_torch.infer import Predictor, plan_scene
 from occuseg_tpu_torch.losses.instance import LossConfig, occuseg_total_loss
+from occuseg_tpu_torch.losses.semantic import semantic_step_loss
 from occuseg_tpu_torch.models.occuseg import OccuSegOutputs
 from occuseg_tpu_torch.parallel import data_parallel
 from occuseg_tpu_torch.utils.profiling import span
@@ -63,6 +69,8 @@ from occuseg_tpu_torch.utils.profiling import span
 # the batch arrays the forward and the loss read
 _BATCH_KEYS = ("features", "labels", "instance_id", "point_scene", "pose",
                "offsets", "displacements", "occupancy")
+# those a semantic-only model's step reads
+_SEMANTIC_KEYS = ("features", "labels")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +158,7 @@ class Trainer:
         self.num_scenes = num_scenes
         self.accum_steps = max(int(cfg.accum_steps), 1)
         self.steps = 0   # calls of `step`, as the JAX TrainState.step
+        self.semantic_only = bool(getattr(model, "semantic_only", False))
 
     def _upload(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device, non_blocking=True)
@@ -166,7 +175,8 @@ class Trainer:
 
     def _inputs(self, batch, plan):
         plan = self.plan(batch) if plan is None else plan.to(self.device)
-        b = {k: self._upload(batch[k]) for k in _BATCH_KEYS}
+        keys = _SEMANTIC_KEYS if self.semantic_only else _BATCH_KEYS
+        b = {k: self._upload(batch[k]) for k in keys}
         return b, plan
 
     def step(self, batch: Dict[str, np.ndarray],
@@ -186,8 +196,9 @@ class Trainer:
         spans `step.upload` (the plan and the batch to the device, or the
         device plan), `step.forward`, `step.loss`, `step.backward` (with a
         cycle's first call, the gradients set to None first; with a
-        group, the all-reduce) and `step.optimizer` (the update and the
-        schedule, on a cycle's last call)."""
+        group, the all-reduce, its own span `step.allreduce`) and
+        `step.optimizer` (the update and the schedule, on a cycle's last
+        call)."""
         with span("step"):
             return self._step(batch, plan, weight, group, shard_args)
 
@@ -212,9 +223,15 @@ class Trainer:
         with span("step.forward"):
             out = self.model(b["features"], plan)
         with span("step.loss"):
-            total, parts = occuseg_total_loss(out, b, self.num_scenes,
-                                              self.num_instances,
-                                              self.loss_cfg, group=loss_group)
+            if self.semantic_only:
+                if loss_group is not None:
+                    raise NotImplementedError("a semantic-only model under "
+                                              "spatial sharding")
+                total, parts = semantic_step_loss(out, b)
+            else:
+                total, parts = occuseg_total_loss(
+                    out, b, self.num_scenes, self.num_instances,
+                    self.loss_cfg, group=loss_group)
         micro = self.steps % self.accum_steps
         with span("step.backward"):
             if micro == 0:
@@ -241,9 +258,10 @@ class Trainer:
         params = list(self.model.parameters())
         grads = torch.autograd.grad(total * weight, params,
                                     allow_unused=True)
-        grads, parts = data_parallel.allreduce_step(
-            list(grads), {k: v.detach() for k, v in parts.items()},
-            data_parallel.bn_statistics(self.model), weight, group)
+        with span("step.allreduce"):
+            grads, parts = data_parallel.allreduce_step(
+                list(grads), {k: v.detach() for k, v in parts.items()},
+                data_parallel.bn_statistics(self.model), weight, group)
         for p, g in zip(params, grads):
             if g is not None:
                 p.grad = g if p.grad is None else p.grad + g

@@ -36,6 +36,7 @@ import time
 from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 import torch.autograd.profiler as _autograd_profiler
 
 if TYPE_CHECKING:
@@ -126,6 +127,42 @@ def count(name: str, n: int = 1) -> None:
         _REC.counters[name] += n
 
 
+# counts still on their way from a device: (name, host copy, event)
+_PENDING: collections.deque = collections.deque()
+
+
+def count_tensor(name: str, n) -> None:
+    """Add the 0-d integer tensor `n` to counter `name` without making the
+    host wait for its device: a device value is copied to the host behind
+    the work already queued, and added once that copy has run (at a later
+    `count_tensor`, or at `snapshot`, which waits for it)."""
+    if not n.is_cuda:
+        count(name, int(n))
+        return
+    host = torch.empty((), dtype=n.dtype, pin_memory=True)
+    host.copy_(n, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    with _REC.lock:
+        _PENDING.append((name, host, done))
+    _fold_pending(wait=False)
+
+
+def _fold_pending(wait: bool) -> None:
+    """Add the pending device counts whose copies have run (all of them,
+    waiting, with `wait`)."""
+    while True:
+        with _REC.lock:
+            if not _PENDING:
+                return
+            name, host, done = _PENDING[0]
+            if not wait and not done.query():
+                return
+            _PENDING.popleft()
+        done.synchronize()
+        count(name, int(host))
+
+
 def launch_counters() -> Tuple[Tuple[str, object, str], ...]:
     """(name, wrapper, attribute) of every kernel wrapper's launch
     counter."""
@@ -148,6 +185,7 @@ def launch_counters() -> Tuple[Tuple[str, object, str], ...]:
 def snapshot() -> Dict[str, Dict]:
     """{"spans": {name: {"count", "seconds"}}, "counters": {name: n},
     "launches": {kernel: the wrapper's own launch counter}}."""
+    _fold_pending(wait=True)
     with _REC.lock:
         spans = {k: {"count": c, "seconds": s}
                  for k, (c, s) in _REC.totals.items()}

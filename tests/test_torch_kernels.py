@@ -1177,3 +1177,57 @@ def test_planner_modules_autograd_match_cpu(dev, raw_scene, kind):
     _check(df2, df, TOL[torch.float32])
     for a, b in zip(dw2, dw):
         _check(a, b, DW_TOL)
+
+
+def test_stem_map_and_routes_at_k125(dev):
+    """MinkUNet's 5^3 stem (K = 125, Cin 3 -> 32, f32) on a blocked
+    two-scene plan: the map built on the card (`stencil_map_kn`) is the
+    host planner's probe map; #9, the stem's route through
+    `gather_conv_kn`, gives the plain forward and, through autograd, the
+    plain d_weight; and #1 over the map's rulebooks gives the plain
+    forward too (its neighbour mask holds offsets below 32: the rest are
+    never skipped)."""
+    from occuseg_tpu_torch import native
+    from occuseg_tpu_torch.core.topology import _offsets, stencil_map_kn
+    from occuseg_tpu_torch.native.blocked import build_plan_host_blocked
+    from occuseg_tpu_torch.ops import conv as conv_ops
+    from occuseg_tpu_torch.ops.kernels import gather_conv as gc
+    b = make_batch(SceneConfig(num_points=9_000, extent=128, num_objects=8),
+                   num_scenes=2, p_cap=24_576, num_instances=16, seed=5)
+    plan = build_plan_host_blocked(b["coords"], PlanSpec(caps=(24_576,
+                                                               12_288)), 2)
+    lvl = plan.levels[0]
+    sc = lvl.cap // 2
+    host = np.full((lvl.cap, 125), -1, np.int32)
+    for s, n in enumerate(lvl.num_active):
+        rows = slice(s * sc, (s + 1) * sc)
+        m = native.plan_neighbor_map(lvl.keys[rows], lvl.coords[rows],
+                                     int(n), _offsets(5))
+        host[rows] = np.where(m >= 0, m + s * sc, -1)
+    nbr = stencil_map_kn(torch.as_tensor(lvl.keys, device=dev), 5, 2)
+    assert torch.equal(nbr.t().cpu(), torch.from_numpy(host))
+    assert (host[:, 32:] >= 0).sum() > (host[:, :32] >= 0).sum()
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    feats = torch.randn((lvl.cap, 3), generator=g, device=dev)
+    feats[torch.from_numpy(host[:, 62] < 0).to(dev)] = 0
+    w = torch.randn((125, 3, 32), generator=g, device=dev) * 0.1
+    ref_w = w.clone().requires_grad_(True)
+    pad = torch.nn.functional.pad
+    ref = gc.gather_conv_plain(pad(feats, (0, 5)), nbr,
+                               pad(ref_w, (0, 0, 0, 5)))
+    ct = torch.randn(ref.shape, generator=g, device=dev)
+    (ref * ct).sum().backward()
+    w9 = w.clone().requires_grad_(True)
+    out9 = conv_ops.gather_conv_kn(feats, nbr, w9, nbr, True)
+    (out9 * ct).sum().backward()
+    _check(out9, ref, TOL[torch.float32])
+    _check(w9.grad, ref_w.grad, DW_TOL)
+    # the smallest U that holds the map's rulebooks (the f32 forward's
+    # shared memory takes U rows of a Cin tile beside K x M ids)
+    U = next(u for u in (256, 512, 768, 1024)
+             if cc.build_chunk_arrays(host, 128, u) is not None)
+    in_idx, lidx = _chunks(host, 128, U, dev)
+    out1 = cc.chunk_conv(pad(feats, (0, 13)), in_idx, lidx,
+                         pad(w, (0, 0, 0, 13)))
+    _check(out1, ref, TOL[torch.float32])

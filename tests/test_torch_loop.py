@@ -7,7 +7,10 @@ their choices; checkpoint retention; the CLI's flags and defaults;
 batches and blocked plans for the same rng. Then the port alone:
 `accum_steps=2` makes one update equal to one step on the mean gradient
 (f32, 1e-6); a checkpoint round trip; `PlanPool` yields what the
-sequential preparation gives, in order; `train(config, max_steps=2)` at
+sequential preparation gives, in order; `PlanPool(threads=)` sizes its
+workers' OpenMP teams, and ranks sharing a host share its cores
+(`data_parallel.share_cores`, which `train` hands its pool);
+`train(config, max_steps=2)` at
 m=8 on the CPU, and a resume from its checkpoint; the same two steps
 with --chunk_conv 0 (no chunk rulebook, the gather path) against the
 chunked run; and no module of the port imports jax or the JAX package.
@@ -18,6 +21,7 @@ import copy
 import os
 import pathlib
 import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -65,13 +69,21 @@ def _small_config(tmp_path, *extra):
     return c
 
 
+# the port's own flags, which the JAX CLI lacks: the architecture
+PORT_FLAGS = {"arch": (("--arch",), "occuseg", "_StoreAction")}
+
+
 def test_flags_and_defaults_match_jax():
     def actions(parser):
         return {a.dest: (tuple(a.option_strings), a.default, type(a).__name__)
                 for a in parser._actions if a.dest != "help"}
-    assert actions(config.get_parser()) == actions(jax_config.get_parser())
+    port = actions(config.get_parser())
+    assert {k: port.pop(k) for k in PORT_FLAGS} == PORT_FLAGS
+    assert port == actions(jax_config.get_parser())
     argv = ["--m", "32", "--use_feature", "cd", "--dataset", "stanford3d"]
-    assert config.args_to_config(config.get_parser().parse_args(argv)) == \
+    cfg = config.args_to_config(config.get_parser().parse_args(argv))
+    assert cfg.pop("arch") == "occuseg"
+    assert cfg == \
         jax_config.args_to_config(jax_config.get_parser().parse_args(argv))
     for vc in (4096, 6144, 262144):
         cfg = {"voxel_cap": vc, "unet_structure": [1] * 6}
@@ -221,6 +233,84 @@ def test_plan_pool_yields_in_order(tmp_path):
         assert bi == 0
         assert np.array_equal(plan.point_perm, want_p.point_perm)
         assert np.array_equal(laid["features"], want_b["features"])
+
+
+def test_plan_pool_threads_size_each_workers_openmp_team(tmp_path):
+    """`PlanPool(threads=n)`: every worker thread's OpenMP loops start
+    teams of n (`native.set_threads`), the plans are those of the default
+    team, and a pool without `threads` leaves OpenMP's default."""
+    from occuseg_tpu_torch import native
+    cfg = _small_config(tmp_path)
+    spec = loop.build_spec(cfg)
+    bs = [make_batch(SCENE, 2, cfg["point_cap"], 16, seed=s)
+          for s in range(3)]
+    # a new thread's team (this thread's is set by torch.set_num_threads)
+    fresh = []
+    t = threading.Thread(target=lambda: fresh.append(native.threads()))
+    t.start()
+    t.join()
+    default, mine = fresh[0], native.threads()
+    with PlanPool(spec, 2, ns=2) as pool:
+        assert {pool._pool.submit(native.threads).result()
+                for _ in range(4)} == {default}
+        want = list(pool.imap(iter(bs)))
+    with PlanPool(spec, 2, ns=2, threads=1) as pool:
+        assert pool.threads == 1
+        assert {pool._pool.submit(native.threads).result()
+                for _ in range(4)} == {1}
+        got = list(pool.imap(iter(bs)))
+    assert native.threads() == mine   # the caller's thread keeps its own
+    for (lw, pw, _), (lg, pg, _) in zip(want, got):
+        assert np.array_equal(lw["features"], lg["features"])
+        for a, b in zip(pw.levels, pg.levels):
+            assert np.array_equal(a.nbr, b.nbr)
+            assert np.array_equal(a.chunks.lidx, b.chunks.lidx)
+
+
+def test_share_cores_splits_the_host_among_its_ranks(monkeypatch):
+    """`data_parallel.share_cores`: cores / (ranks on the host x
+    workers), at least 1, also the rank's torch threads; the ranks on the
+    host are torchrun's LOCAL_WORLD_SIZE where it is set; a lone rank
+    keeps its threads (None)."""
+    from occuseg_tpu_torch.parallel import data_parallel as dp
+    set_to = []
+    monkeypatch.setattr(dp.os, "sched_getaffinity", lambda pid: set(
+        range(32)), raising=False)
+    monkeypatch.setattr(dp.torch, "set_num_threads", set_to.append)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    assert dp.share_cores(4, 1) is None and set_to == []
+    assert dp.share_cores(4, 4) == 2 and set_to == [2]
+    assert dp.share_cores(3, 2) == 5
+    assert dp.share_cores(8, 8) == 1
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    assert dp.share_cores(4, 8) == 4
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    assert dp.share_cores(4, 8) is None
+    assert set_to == [2, 5, 1, 4]
+
+
+def test_train_gives_its_plan_pool_the_ranks_share(tmp_path, monkeypatch):
+    """`train()` as one of 4 ranks builds its PlanPool with
+    `share_cores(plan workers, 4)`'s team; alone, with none."""
+    from occuseg_tpu_torch.parallel import data_parallel as dp
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def pool(*a, **k):
+        seen.append(k["threads"])
+        raise Stop
+    monkeypatch.setattr(loop, "PlanPool", pool)
+    monkeypatch.setattr(dp, "share_cores", lambda w, n: None if n == 1
+                        else 100 * w + n)
+    cfg = _small_config(tmp_path, "--plan_workers", "3")
+    for ranks in (4, 1):
+        monkeypatch.setattr(loop, "_ranks", lambda c, n=ranks: (0, n))
+        with pytest.raises(Stop):
+            loop.train(cfg, max_steps=1, device="cpu")
+    assert seen == [304, None]
 
 
 def _tiny_trainer(accum):
