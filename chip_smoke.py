@@ -277,6 +277,7 @@ ZERO_TOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores,
 # f32 outside them, HBM3
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -437,9 +438,23 @@ def forward_launches(plan, n_planes=N_PLANES) -> dict:
             "blocked_segment_sum": int(plan.vox_seg is not None)}
 
 
+# the f32 forward kernel's launches by tile (`chunk_conv.f32_route`), which
+# the launch predictions leave out (`read_routes`)
+ROUTE_KEYS = ("chunk_conv_f32_tc", "chunk_conv_f32_fma")
+
+
 def read_launches() -> dict:
     from occuseg_tpu_torch.utils.profiling import snapshot
-    return snapshot()["launches"]
+    return {k: v for k, v in snapshot()["launches"].items()
+            if k not in ROUTE_KEYS}
+
+
+def read_routes() -> dict:
+    """{tile: f32 launches of the forward kernel} since the last
+    `zero_launches`."""
+    from occuseg_tpu_torch.utils.profiling import snapshot
+    got = snapshot()["launches"]
+    return {k[len("chunk_conv_f32_"):]: got[k] for k in ROUTE_KEYS}
 
 
 def zero_launches() -> None:
@@ -591,8 +606,8 @@ def phase_kernels(dev):
                       f"kernel={ms:.4f} ms plain={pms:.4f} ms")
                 if not bf:
                     f32_fwd_skips(dev, tot, f"{cv.label} forward",
-                                  lambda: cc.chunk_conv(xd, fi, fl, wd), ms,
-                                  dense_f, 2.0 * nnz_f * cv.cin * cv.cout)
+                                  (xd, fi, fl, wd), ms, dense_f,
+                                  2.0 * nnz_f * cv.cin * cv.cout)
                 if bf:
                     tot.add("chunk_conv", ms, pms, err, 2.0 * nnz_f * cv.cin
                             * cv.cout, nbytes(xd, fi, fl, wd, out),
@@ -633,8 +648,7 @@ def phase_kernels(dev):
                 del dw, r_dw, r_t
                 if not bf:
                     f32_fwd_skips(dev, tot, f"{cv.label} transpose",
-                                  lambda: cc.chunk_conv(ctd, ti, tl, wtd),
-                                  t_ms, dense_t,
+                                  (ctd, ti, tl, wtd), t_ms, dense_t,
                                   2.0 * nnz_t * cv.cin * cv.cout)
                 print(f"[kernels] backward   {name} route={route} "
                       f"U_t={ti.shape[1]:<4} fused={f_ms:.4f} ms "
@@ -744,35 +758,86 @@ def phase_kernels(dev):
           f"{dw_values['atomics']:.4g}); dW route (#5) {dw_values['#5']:.4g}")
     tot.dw_values = dw_values["fused"]
     dense = max(tot.f32_maps, key=lambda r: r["real_ms"] / r["dense_ms"])
+    f32 = tot.f32_maps
     print(f"[kernels] f32 #1 on the densest map of the f32 subset "
           f"({dense['label']}, real products {dense['real_ms'] / dense['dense_ms']:.1%} "
           f"of the dense-K work): the row order took "
           f"{dense['order']:.2%} of the blocks' cycles; over the subset "
-          f"{sum(r['ms'] for r in tot.f32_maps):.3f} ms, dense-K floor "
-          f"{sum(r['dense_ms'] for r in tot.f32_maps):.3f} ms, real-product "
-          f"floor {sum(r['real_ms'] for r in tot.f32_maps):.3f} ms")
+          f"{sum(r['ms'] for r in f32):.3f} ms (the FMA tile "
+          f"{sum(r['fma_ms'] for r in f32):.3f} ms), dense-K floor "
+          f"{sum(r['dense_ms'] for r in f32):.3f} ms, real-product "
+          f"floor {sum(r['real_ms'] for r in f32):.3f} ms at the f32 peak, "
+          f"{sum(r['tc_floor_ms'] for r in f32):.3f} ms at a third of the "
+          f"TF32 peak; float64 error of the tensor-core tile over the FMA "
+          f"tile's at most {max(r['tc_over_fma'] for r in f32):.2f}x")
     return tot
 
 
-def f32_fwd_skips(dev, tot, label, call, ms, dense_flops, real_flops):
-    """#1 in f32 on one map: its time beside the floors at the f32 peak of
-    the dense-K work (every offset of every live chunk's rows) and of the
-    real products, and what its counters read over one more launch: the
-    (Cin tile, offset, warp) steps skipped and the row order's share of
-    the blocks' cycles."""
+def f32_errors(out, ref64):
+    """(mean, max) |out - ref64| over max |ref64|."""
+    d = (out.double() - ref64).abs()
+    scale = ref64.abs().max().item()
+    return d.mean().item() / scale, d.max().item() / scale
+
+
+def f32_fwd_skips(dev, tot, label, args, ms, dense_flops, real_flops):
+    """#1 in f32 on one map (`args`: feats, in_idx, lidx, weight): the
+    time of the tile the wrapper takes (`chunk_conv.f32_route`) beside
+    each tile's (the tensor-core one where it fits) and the floors of the
+    dense-K work (every offset of every
+    live chunk's rows) and the real products at the f32 peak, and of the
+    real products at a third of the TF32 peak (3xTF32); each tile's
+    counters over one more launch (the FMA tile's (Cin tile, offset, warp)
+    steps skipped, the tensor-core tile's (Cin tile, offset, 64-row group)
+    steps run and skipped, the row order's share of the blocks' cycles);
+    and each tile's error against the float64 product of the same
+    gathered rows (mean and max over the largest output), the
+    tensor-core tile held to twice the FMA tile's."""
     from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
-    cc.fwd_counts(dev, reset=True)
-    call()
-    n = cc.fwd_counts(dev, reset=True)
-    row = dict(label=label, ms=ms, dense_ms=1e3 * dense_flops / PEAK_F32,
+    feats, in_idx, lidx, w = args
+    _, K, M = lidx.shape
+    route = cc.f32_route(feats.shape[1], w.shape[2], M, K, in_idx.shape[1],
+                         cc._smem_optin(dev.index))
+    ref64 = cc.chunk_conv_plain(feats, in_idx, lidx, w, torch.float64)
+    nt = cc.tc_col_tile(w.shape[2], K, in_idx.shape[1],
+                        cc._smem_optin(dev.index))
+    n, err = {"tc": cc.FwdCounts(0, 0, 0, 0)}, {"tc": (0.0, 0.0)}
+    tile_ms = {"tc": 0.0}
+    for r in ("tc", "fma") if nt else ("fma",):
+        def call(r=r):
+            return cc._run_chunk_conv(label, feats, in_idx, lidx, w, route=r)
+        cc.fwd_counts(dev, reset=True)
+        out = call()
+        n[r] = cc.fwd_counts(dev, reset=True)
+        err[r] = f32_errors(out, ref64)
+        tile_ms[r] = cuda_ms(call, 1)
+    del ref64, out
+    fma_ms = tile_ms["fma"]
+    over = max(err["tc"][i] / max(err["fma"][i], 1e-30) for i in (0, 1))
+    row = dict(label=label, ms=ms, fma_ms=fma_ms, route=route,
+               dense_ms=1e3 * dense_flops / PEAK_F32,
                real_ms=1e3 * real_flops / PEAK_F32,
-               skipped=n.skipped_share, order=n.order_share)
+               tc_floor_ms=1e3 * 3 * real_flops / PEAK_TF32,
+               tc_products=n["tc"].group_ran * cc.TC_GROUP_ROWS * 32 * nt,
+               skipped=n["fma"].skipped_share, order=n["fma"].order_share,
+               group_skipped=n["tc"].group_skipped_share, err=err,
+               tc_over_fma=over)
     tot.f32_maps.append(row)
-    print(f"[kernels] f32 #1 {label:<32} kernel {ms:.4f} ms, dense-K floor "
+    check(over <= 2.0, f"f32 #1 {label}: the tensor-core tile's float64 "
+          f"error {err['tc']} is past twice the FMA tile's {err['fma']}")
+    print(f"[kernels] f32 #1 {label:<32} route {route}: kernel {ms:.4f} ms "
+          f"(tensor-core tile {tile_ms['tc']:.4f} ms, FMA tile "
+          f"{fma_ms:.4f} ms), dense-K floor "
           f"{row['dense_ms']:.4f} ms, real-product floor "
-          f"{row['real_ms']:.4f} ms, skipped {n.skipped_share:.1%} of "
-          f"{n.ran + n.skipped} warp-steps, row order {n.order_share:.2%} "
-          f"of the blocks' cycles")
+          f"{row['real_ms']:.4f} ms (3xTF32 {row['tc_floor_ms']:.4f} ms); "
+          f"tensor-core tile ran {n['tc'].group_ran} and skipped "
+          f"{n['tc'].group_skipped} group-steps ({row['group_skipped']:.1%},"
+          f" {row['tc_products'] / max(real_flops / 2, 1):.2f}x the real "
+          f"products); FMA tile skipped {n['fma'].skipped_share:.1%} of "
+          f"{n['fma'].ran + n['fma'].skipped} warp-steps, row order "
+          f"{n['fma'].order_share:.2%} of its blocks' cycles; float64 error "
+          f"mean/max tensor-core {err['tc'][0]:.3e}/{err['tc'][1]:.3e}, FMA "
+          f"{err['fma'][0]:.3e}/{err['fma'][1]:.3e}")
 
 
 CLI_P, CLI_I, EMB = 262_144, 128, 64   # the training CLI's defaults, m=64
@@ -3962,6 +4027,64 @@ def builders_float64_sources(dev, which=("FullyConvolutionalNet",
             print(f"{label} the free float64 step under {eps:g} input "
                   f"noise moves {errs[key]:.3e} of the norm")
         out[name] = errs
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_step_float64_gap(dev):
+    """ROADMAP C8's yardstick on #1: a residual UNet (64-128-192-256, one
+    block a level) on the mid scene's chunked host plan, one
+    training-mode forward and backward against a seeded cotangent
+    (`_builder_step`), on the card with #1 f32 on the tile the wrapper
+    takes (`chunk_conv.f32_route`: the tensor cores where a block fits),
+    on the card with every f32 launch on the FMA tile (the route rule
+    replaced for the run), and on the CPU; each run's gradients against
+    the float64 step on the CPU with that run's own ReLU branches imposed
+    (`choices`), as a share of the norm, and each card run's share over
+    the CPU's. The float64 step runs on the plan without rulebooks (the
+    gather path sums in float64; the chunk path's plain version in f32).
+    Returns {run: share}. A diagnosis, not run by `main`."""
+    from occuseg_tpu_torch.core.topology import PlanSpec
+    from occuseg_tpu_torch.infer import prepare_scene
+    from occuseg_tpu_torch.nn.unet import UNet
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    b = _mid_scene()
+    plan = prepare_scene(b["coords"], b["features"],
+                         PlanSpec(caps=MID_CAPS)).plan
+    plans = {"cpu": plan.to(torch.device("cpu")), "card": plan.to(dev)}
+    g = torch.Generator().manual_seed(81)
+    net = UNet(1, (64, 128, 192, 256), residual_blocks=True, generator=g)
+    randomize_bn_stats(net, torch.Generator().manual_seed(82))
+    lvl0 = plan.levels[0]
+    x = torch.randn(lvl0.cap, 64, generator=g)
+    x[lvl0.num_active:] = 0
+    names = ["input"] + [n for n, _ in net.named_parameters()]
+    runs = {"CPU f32": _builder_step(net, x, plans["cpu"], "cpu")}
+    zero_launches()
+    runs["card, #1 as routed"] = _builder_step(net, x, plans["card"], dev)
+    routed = read_routes()
+    rule = cc.f32_route
+    cc.f32_route = lambda *args, **kw: "fma"
+    try:
+        zero_launches()
+        runs["card, #1 FMA tile"] = _builder_step(net, x, plans["card"], dev)
+        fma = read_routes()
+    finally:
+        cc.f32_route = rule
+    out = {}
+    L = len(plan.levels)
+    plan64 = drop_chunks(plans["cpu"], range(L), range(L - 1))
+    for who, r in runs.items():
+        ref = _builder_step(net, x, plan64, "cpu", torch.float64, r[5],
+                            replay=True)
+        out[who] = _float64_errors("[c8]", {who: [r[2]] + r[3]},
+                                   [ref[2]] + ref[3], names)[who]
+    print(f"[c8] f32 step against float64 with each run's ReLU branches: "
+          f"card (#1 launches by tile {routed}) {out['card, #1 as routed']:.3e}"
+          f" = {out['card, #1 as routed'] / out['CPU f32']:.2f}x the CPU's "
+          f"{out['CPU f32']:.3e}; card on the FMA tile ({fma}) "
+          f"{out['card, #1 FMA tile']:.3e} = "
+          f"{out['card, #1 FMA tile'] / out['CPU f32']:.2f}x the CPU's")
     torch.cuda.empty_cache()
     return out
 

@@ -73,6 +73,27 @@
 //    warp and the sparsest paired with the densest to even the warps out,
 //    skipped 12% more but measured 6-10% slower: a step of four rows a
 //    thread costs nearly what one of eight does);
+//  * f32 on the tensor cores (the tile the wrapper takes wherever its
+//    shared memory fits, but for two shapes where the FMA tile measured
+//    faster: `f32_route` in ops/kernels/chunk_conv.py): a 3xTF32 split,
+//    a*b ~ a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (`tf32_split`), the two
+//    small terms issued first, at a third of the TF32 rate (495 TFLOP/s):
+//    ~2.5x the 67 TFLOP/s of the FMA tile, with ~2^-22 of each product's
+//    size left out. TF32 wgmma reads B K-major only, so the wrapper hands
+//    W as [2, K, Cout, Cin] (hi, then lo; `occ_chunk_conv_tf32_split_w`,
+//    once a call), Cin padded to a multiple of 32 and each 32 columns in
+//    the order of the A fragments (`tc_col`), and TMA streams a hi and a
+//    lo box of NT rows x 32 columns per step through the same ring.
+//    Warpgroup g owns positions g*64..+64 of the neighbour-mask row order
+//    above; each thread gathers its two rows' 8 staged columns through
+//    lidx with two 16-byte loads, splits them in registers, and the group
+//    runs 4 x 3 wgmma m64nNTk8 with A from registers into a partial
+//    sum, which an f32 add then takes into the row's sum (`TcTile`). A
+//    (Cin tile, offset, 64-row group) with no reference in the group's
+//    rows is skipped (`TcTile::runs`); the blocks count the group-steps
+//    run and skipped. The Cin tile is 32 (a Cin of 16 stages its tile
+//    with zero columns, and W's padding is zero). The partial costs NT/2
+//    registers a thread, so one block an SM;
 //  * coarse levels, where chunks x column tiles would leave SMs idle: the
 //    wrapper splits the (Cin tile, k) steps into `splits` ranges, one per
 //    block; each writes an f32 partial and a second launch sums them in
@@ -103,21 +124,24 @@ struct FwdArgs {
   void* out;    // [C*M, cout], feature dtype (splits == 1)
   float* part;  // [splits, C*M, cout] f32 (splits > 1)
   // f32: warp-steps run, skipped, thread 0's cycles building the row order
-  // and its cycles in the block, summed over the blocks (or null)
+  // and its cycles in the block, then the tensor-core path's group-steps
+  // run and skipped, summed over the blocks (6 slots, or null)
   unsigned long long* counts;
   int n_rows, cin, C, U, K, M, cout, splits;
 };
 
 // Shared memory plan shared by host and device, from a 1024-byte aligned
-// base (the 128-byte swizzle of the W boxes needs it).
-template <typename T, int CI_T, int NT>
+// base (the 128-byte swizzle of the W boxes needs it). kTc: the W stage is
+// a hi and a lo box of NT K-major rows of 128 bytes (32 f32 of Cin).
+template <typename T, int CI_T, int NT, bool kTc = false>
 struct FwdLayout {
   static constexpr int kVec = 16 / sizeof(T);
   static constexpr int kLdg = CI_T + kVec;              // staged row stride
   static constexpr int kBoxCols = kBox / sizeof(T);     // columns per box
   static constexpr int kBoxes = (NT + kBoxCols - 1) / kBoxCols;
-  static constexpr int kBoxBytes = CI_T * kBox;
-  static constexpr int kStageBytes = kBoxes * kBoxBytes;  // one W tile
+  static constexpr int kBoxBytes = kTc ? NT * kBox : CI_T * kBox;
+  static constexpr int kStageBytes =  // one W tile
+      kTc ? 2 * kBoxBytes : kBoxes * kBoxBytes;
   size_t bar_off, in_off, lidx_off, live_off, gin_off, total;
   __host__ __device__ FwdLayout(int U, int K) {
     size_t off = static_cast<size_t>(kStages) * kStageBytes;  // W ring
@@ -289,30 +313,147 @@ struct FmaTile {
   }
 };
 
-template <typename T, int CI_T, int NT>
-using TileOf = typename std::conditional<sizeof(T) == 2, WgTile<CI_T, NT>,
-                                         FmaTile<CI_T, NT>>::type;
+// Position q (0..31) of a K-major W row of the tensor-core tile: the Cin
+// column of its 32-column tile that it holds. A thread of the A fragment
+// layout (lane & 3 = t) reads columns 8t..8t+8 of a staged row with two
+// 16-byte loads, and step j of the tile's four k8 steps takes its fragment
+// columns t and t + 4 from components j of the two loads: columns 8t + j
+// and 8t + 4 + j. B's position 8j + t (resp. 8j + t + 4) holds the same
+// column, so the sum over the tile is the same (`TC_COLS` in
+// ops/kernels/chunk_conv.py).
+__host__ __device__ constexpr int tc_col(int q) {
+  return (q & 7) < 4 ? 8 * (q & 7) + (q >> 3) : 8 * ((q & 7) - 4) + 4 + (q >> 3);
+}
 
-// f32: one block's counts into counts[0..4) (see FwdArgs), by one thread.
+// f32 on the tensor cores (3xTF32; CI_T = 32): warpgroup g holds the rows
+// at positions g*64..+64 of the block's row order and all NT columns as
+// wgmma accumulators (NT/2 f32 per thread); the thread's rows are the
+// positions p0 = g*64 + (warp & 3)*16 + lane/4 and p0 + 8 (rows m0, m1,
+// >= M: none). A step gathers each row's columns 8(lane&3)..+8 of the
+// staged tile through lidx, splits them (`tf32_split`) into the four k8
+// steps' hi and lo fragments, and runs lo*W_hi and hi*W_lo of every k8
+// step (the small terms first), then hi*W_hi, against the stage's two
+// K-major boxes, into a partial sum that starts at zero; the step's
+// partial is then added into the sum with an f32 add. (With every
+// product of a row in one wgmma accumulator, ~1000 at Cin 80, the sum
+// measured 1.6e-5 of the largest output from the f32 plain version on
+// the H100, past F32_TOL: the tensor cores' f32 accumulation loses more
+// than an f32 add. With a partial a step, its error from float64 is at
+// most 1.05x the FMA tile's over the bench plan's 66 maps, mostly 2-5x
+// below it.)
+template <int CI_T, int NT>
+struct TcTile {
+  static_assert(CI_T == 32, "one 128-byte K-major row of W per column");
+  static constexpr int kLdg = CI_T + 4;
+  float acc[NT / 2], part[NT / 2];
+  int lane, m0 = 0, m1 = 0;
+  uint32_t live = 0;  // bit k: one of the group's 64 rows references offset k
+
+  __device__ TcTile(int t) : lane(t % 32) {
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+  }
+
+  // the thread's two rows, from the block's row order
+  __device__ void rows(const uint8_t* ord, int t) {
+    const int warp = t / 32;
+    const int p = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
+    m0 = ord[p];
+    m1 = ord[p + 8];
+  }
+
+  // Whether the warpgroup runs offset k (uniform over the warpgroup).
+  __device__ bool runs(int k) const {
+    return k >= kMaskOffsets || (live >> k & 1u);
+  }
+
+  __device__ void step(const float* gin_s, const unsigned char* w_hi,
+                       const unsigned char* w_lo, const int32_t* lk, int M,
+                       int U) {
+    const int c = (lane & 3) * 8;
+    const float* r0 = gin_s + (m0 < M ? row_of(lk[m0], U) : U) * kLdg + c;
+    const float* r1 = gin_s + (m1 < M ? row_of(lk[m1], U) : U) * kLdg + c;
+    const float4 x0 = *reinterpret_cast<const float4*>(r0);
+    const float4 y0 = *reinterpret_cast<const float4*>(r0 + 4);
+    const float4 x1 = *reinterpret_cast<const float4*>(r1);
+    const float4 y1 = *reinterpret_cast<const float4*>(r1 + 4);
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      tf32_split(lane_of(x0, j), hi[j][0], lo[j][0]);
+      tf32_split(lane_of(x1, j), hi[j][1], lo[j][1]);
+      tf32_split(lane_of(y0, j), hi[j][2], lo[j][2]);
+      tf32_split(lane_of(y1, j), hi[j][3], lo[j][3]);
+    }
+    const uint32_t bh = smem_u32(w_hi), bl = smem_u32(w_lo);
+    fence_regs(part);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wgmma_tf32<NT>(part, lo[j], wgmma_desc_k128(bh + 32 * j), j > 0);
+      wgmma_tf32<NT>(part, hi[j], wgmma_desc_k128(bl + 32 * j), 1);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_tf32<NT>(part, hi[j], wgmma_desc_k128(bh + 32 * j), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(hi);
+    fence_regs(lo);
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+  }
+
+  // f32 rows of out (splits == 1) or of part, columns co0..co0+ncols.
+  __device__ void store(float* out, float* part, int cout, size_t rbase,
+                        int M, int co0, int ncols) const {
+    float* dst = part ? part : out;
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      if (j * 8 >= ncols) continue;
+      const int col = co0 + j * 8 + (lane & 3) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = h ? m1 : m0;
+        if (m >= M) continue;
+        *reinterpret_cast<float2*>(dst + (rbase + m) * cout + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+};
+
+template <typename T, int CI_T, int NT, bool kTc>
+using TileOf = typename std::conditional<
+    kTc, TcTile<CI_T, NT>,
+    typename std::conditional<sizeof(T) == 2, WgTile<CI_T, NT>,
+                              FmaTile<CI_T, NT>>::type>::type;
+
+// f32: one block's counts (see FwdArgs), by one thread: its warp-steps
+// (the FMA tile) or group-steps (kTc) run and skipped, and its cycles.
 __device__ __forceinline__ void add_counts(unsigned long long* counts,
-                                           unsigned long long ran,
+                                           bool tc, unsigned long long ran,
                                            unsigned long long skipped,
                                            long long order_cycles,
                                            long long cycles) {
-  atomicAdd(counts, ran);
-  atomicAdd(counts + 1, skipped);
+  atomicAdd(counts + (tc ? 4 : 0), ran);
+  atomicAdd(counts + (tc ? 5 : 1), skipped);
   atomicAdd(counts + 2, static_cast<unsigned long long>(order_cycles));
   atomicAdd(counts + 3, static_cast<unsigned long long>(cycles));
 }
 
-template <typename T, int CI_T, int NT>
-__global__ void __launch_bounds__(kThreads, 2)
+// kTc holds a partial sum beside the sum (`TcTile`): one block an SM, up to
+// 255 registers a thread.
+template <typename T, int CI_T, int NT, bool kTc>
+__global__ void __launch_bounds__(kThreads, kTc ? 1 : 2)
 chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
                   const FwdArgs a) {
   constexpr bool kF32 = sizeof(T) == 4;
+  static_assert(kF32 || !kTc, "the tensor-core f32 path is f32");
   static_assert(kThreads == 2 * kMaxM, "the f32 row order: two threads a row");
   const long long t_start = kF32 ? clock64() : 0;
-  using L = FwdLayout<T, CI_T, NT>;
+  using L = FwdLayout<T, CI_T, NT, kTc>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -331,7 +472,7 @@ chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
   const int U = a.U, K = a.K, M = a.M;
   const int c = blockIdx.x, co0 = blockIdx.y * NT, split = blockIdx.z;
   const int ncols = min(NT, a.cout - co0);
-  const int n_steps = (a.cin / CI_T) * K;
+  const int n_steps = (a.cin + CI_T - 1) / CI_T * K;  // kTc: Cin 16 pads
   const int s0 = static_cast<int>(static_cast<long long>(n_steps) * split /
                                   a.splits);
   const int s1 = static_cast<int>(static_cast<long long>(n_steps) *
@@ -353,10 +494,11 @@ chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
       reinterpret_cast<uint4*>(
           base + ((rbase + i / vpr) * a.cout + co0) * esz)[i % vpr] =
           make_uint4(0, 0, 0, 0);
-    if (kF32 && t == 0 && a.counts)  // every warp-step skipped
-      add_counts(a.counts, 0,
-                 static_cast<unsigned long long>(s1 - s0) * kWarps, 0,
-                 clock64() - t_start);
+    if (kF32 && t == 0 && a.counts)  // every warp- or group-step skipped
+      add_counts(a.counts, kTc, 0,
+                 static_cast<unsigned long long>(s1 - s0) *
+                     (kTc ? kWarps / 4 : kWarps),
+                 0, clock64() - t_start);
     return;
   }
   const int warp = t / 32, lane = t % 32;
@@ -368,6 +510,14 @@ chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
       min(L::kBoxes, (a.cout - co0 + L::kBoxCols - 1) / L::kBoxCols);
   auto load_w = [&](int i) {
     const int stage = i % kStages, s = s0 + i;
+    if constexpr (kTc) {
+      // W [2K, cout, cin_p]: the hi box of offset k, then its lo box
+      mbar_arrive_expect_tx(full + stage, L::kStageBytes);
+      for (int b = 0; b < 2; ++b)
+        tma_load_3d(w_s + stage * L::kStageBytes + b * L::kBoxBytes, &wmap,
+                    (s / K) * CI_T, co0, s % K + b * K, full + stage);
+      return;
+    }
     mbar_arrive_expect_tx(full + stage, nbox * L::kBoxBytes);
     const int row = (s % K) * a.cin + (s / K) * CI_T;
     for (int b = 0; b < nbox; ++b)
@@ -441,9 +591,17 @@ chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
     for (int o = 8; o > 0; o >>= 1)
       live |= __shfl_xor_sync(0xffffffffu, live, o);
     if (lane == 0) wlive_s[warp] = live;
+    if constexpr (kTc) {
+      // the warpgroup's live offsets: the OR of its four warps'
+      __syncthreads();
+      const int w0 = warp & ~3;
+      live = wlive_s[w0] | wlive_s[w0 + 1] | wlive_s[w0 + 2] |
+             wlive_s[w0 + 3];
+    }
     order_cycles = clock64() - t_order;
   }
-  TileOf<T, CI_T, NT> tile(t);
+  TileOf<T, CI_T, NT, kTc> tile(t);
+  if constexpr (kTc) tile.rows(ord_s, t);
   if constexpr (kF32) tile.live = live;
   const T* feats = static_cast<const T*>(a.feats);
   int staged = -1;
@@ -461,10 +619,16 @@ chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
     mbar_wait(full + stage, (i / kStages) & 1);
     __syncwarp();  // wgmma wants the warp converged
     const T* w_b = reinterpret_cast<const T*>(w_s + stage * L::kStageBytes);
-    if constexpr (!kF32)
+    if constexpr (!kF32) {
       tile.step(gin_s, w_b, lidx_s + k * M, live_s + 2 * k, M, U);
-    else if (tile.runs(k))
+    } else if constexpr (kTc) {
+      if (tile.runs(k))
+        tile.step(gin_s, w_s + stage * L::kStageBytes,
+                  w_s + stage * L::kStageBytes + L::kBoxBytes, lidx_s + k * M,
+                  M, U);
+    } else if (tile.runs(k)) {
       tile.step(gin_s, w_b, lidx_s + k * M, ord_s, M, U);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + stage);
     // refill the stage once every warp is done with it
@@ -473,30 +637,38 @@ chunk_conv_kernel(const __grid_constant__ CUtensorMap wmap,
       load_w(i + kStages);
     }
   }
-  if constexpr (!kF32) {
+  if constexpr (!kF32 || kTc) {
     tile.store(out, part, a.cout, rbase, M, co0, ncols);
   } else {
     tile.store(out, part, a.cout, rbase, M, co0, ncols, ord_s);
+  }
+  if constexpr (kF32) {
     if (a.counts == nullptr) return;
     __syncthreads();
     if (t != 0) return;
-    // warp-steps run below step s: each warp's live offsets once per Cin
-    // tile before s, and those of its tile below offset s % K; offsets from
-    // kMaskOffsets on run in every warp
+    // steps run below step s by the block's units (its 8 warps, or kTc its
+    // 2 warpgroups, each the OR of its 4 warps): each unit's live offsets
+    // once per Cin tile before s, and those of its tile below offset s % K;
+    // offsets from kMaskOffsets on run in every unit
+    constexpr int kUnits = kTc ? kWarps / 4 : kWarps;
+    constexpr int kPer = kWarps / kUnits;
     auto ran_below = [&](int s) {
       const int r = s % K;
       const uint32_t below = r >= 32 ? ~0u : (1u << r) - 1u;
       unsigned long long per_tile = 0, rest = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        per_tile += __popc(wlive_s[w]);
-        rest += __popc(wlive_s[w] & below);
+      for (int u = 0; u < kUnits; ++u) {
+        uint32_t lv = 0;
+        for (int w = u * kPer; w < (u + 1) * kPer; ++w) lv |= wlive_s[w];
+        per_tile += __popc(lv);
+        rest += __popc(lv & below);
       }
-      per_tile += kWarps * max(0, K - kMaskOffsets);
-      rest += kWarps * max(0, r - kMaskOffsets);
+      per_tile += kUnits * max(0, K - kMaskOffsets);
+      rest += kUnits * max(0, r - kMaskOffsets);
       return static_cast<unsigned long long>(s / K) * per_tile + rest;
     };
     const unsigned long long ran = ran_below(s1) - ran_below(s0);
-    add_counts(a.counts, ran, static_cast<unsigned long long>(n) * kWarps - ran,
+    add_counts(a.counts, kTc, ran,
+               static_cast<unsigned long long>(n) * kUnits - ran,
                order_cycles, clock64() - t_start);
   }
 }
@@ -529,6 +701,10 @@ sum_splits_kernel(const float4* __restrict__ part, int S, size_t n4,
   }
 }
 
+template <typename T, int CI_T, int NT, bool kTc>
+int run_kernel(const CUtensorMap& wmap, const FwdArgs& a,
+               cudaStream_t stream);
+
 template <typename T, int CI_T, int NT>
 int launch(const void* w, const FwdArgs& a, cudaStream_t stream) {
   using L = FwdLayout<T, CI_T, NT>;
@@ -550,9 +726,16 @@ int launch(const void* w, const FwdArgs& a, cudaStream_t stream) {
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return -4;
-  const L lay(a.U, a.K);
+  return run_kernel<T, CI_T, NT, false>(wmap, a, stream);
+}
+
+// The kernel (and, with splits, its sum of partials) on a W tensor map.
+template <typename T, int CI_T, int NT, bool kTc>
+int run_kernel(const CUtensorMap& wmap, const FwdArgs& a,
+               cudaStream_t stream) {
+  const FwdLayout<T, CI_T, NT, kTc> lay(a.U, a.K);
   const int smem = static_cast<int>(lay.total);
-  auto kernel = chunk_conv_kernel<T, CI_T, NT>;
+  auto kernel = chunk_conv_kernel<T, CI_T, NT, kTc>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -600,6 +783,55 @@ int launch_fitting(const void* w, const FwdArgs& a, cudaStream_t s) {
   return -2;
 }
 
+// The tensor-core f32 path: wt [2, K, cout, cin_p] (`split_w_kernel`) as
+// a 3D tensor map of boxes of NT rows x 32 columns (128 bytes, swizzled);
+// rows past cout are filled with zeros.
+template <int NT>
+int launch_tc(const void* wt, const FwdArgs& a, cudaStream_t stream) {
+  using L = FwdLayout<float, 32, NT, true>;
+  if (L(a.U, a.K).total > static_cast<size_t>(max_dynamic_smem())) return -2;
+  const int cin_p = (a.cin + 31) / 32 * 32;
+  CUtensorMap wmap;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cin_p),
+                              static_cast<cuuint64_t>(a.cout),
+                              static_cast<cuuint64_t>(2 * a.K)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cin_p) * 4,
+                                 static_cast<cuuint64_t>(cin_p) * 4 * a.cout};
+  const cuuint32_t box[3] = {32, NT, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr ||
+      encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+             const_cast<void*>(wt), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return -4;
+  return run_kernel<float, 32, NT, true>(wmap, a, stream);
+}
+
+// w [K, cin, cout] f32 -> wt [2, K, cout, cin_p]: hi, then lo
+// (`tf32_split`), K-major, each 32 columns in `tc_col` order, zero past
+// cin. One element of each a thread.
+__global__ void __launch_bounds__(256)
+split_w_kernel(const float* __restrict__ w, int K, int cin, int cout,
+               int cin_p, float* __restrict__ wt) {
+  const size_t n = static_cast<size_t>(K) * cout * cin_p;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x; i < n;
+       i += static_cast<size_t>(gridDim.x) * 256) {
+    const int q = static_cast<int>(i % cin_p);
+    const size_t kn = i / cin_p;
+    const int co = static_cast<int>(kn % cout);
+    const int k = static_cast<int>(kn / cout);
+    const int ci = (q & ~31) + tc_col(q & 31);
+    uint32_t hi = 0, lo = 0;
+    if (ci < cin)
+      tf32_split(w[(static_cast<size_t>(k) * cin + ci) * cout + co], hi, lo);
+    wt[i] = __uint_as_float(hi);
+    wt[n + i] = __uint_as_float(lo);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -638,6 +870,59 @@ int occ_chunk_conv_fwd(const void* feats, int n_rows, int cin,
 // current device (64, 32 or 16), or -2 when none fits.
 int occ_chunk_conv_fwd_cin_tile(int cin, int U, int K) {
   return cin_tile<float, 64>(cin, U, K);
+}
+
+// f32 on the tensor cores: out [C*M, cout] f32 = the chunk conv of feats
+// [n_rows, cin] f32 with wt = `occ_chunk_conv_tf32_split_w`'s [2, K, cout,
+// cin_p], in column tiles of nt (64, 96, 128) and `splits` ranges of
+// (Cin tile, k) steps per block (part: f32 [splits, C*M, cout] scratch
+// when splits > 1). Its blocks add their group-steps run and skipped into
+// counts[4..6) and their cycles into counts[2..4), unless counts is null.
+// Returns a cudaError_t, -2 when the block's shared memory does not fit,
+// -3 for an unsupported nt, -4 when the tensor-map encoder is missing or
+// refuses wt.
+int occ_chunk_conv_fwd_tf32(const void* feats, int n_rows, int cin,
+                            const void* in_idx, int C, int U,
+                            const void* lidx, int K, int M, const void* wt,
+                            int cout, int nt, int splits, void* part,
+                            void* out, void* counts, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FwdArgs a{feats, static_cast<const int32_t*>(in_idx),
+                  static_cast<const int32_t*>(lidx), out,
+                  static_cast<float*>(part),
+                  static_cast<unsigned long long*>(counts), n_rows, cin, C,
+                  U, K, M, cout, splits};
+  switch (nt) {
+    case 64: return launch_tc<64>(wt, a, s);
+    case 96: return launch_tc<96>(wt, a, s);
+    case 128: return launch_tc<128>(wt, a, s);
+  }
+  return -3;
+}
+
+// wt [2, K, cout, cin_p] (cin_p: cin rounded up to 32) from w [K, cin,
+// cout], both f32 on the device, for `occ_chunk_conv_fwd_tf32`.
+int occ_chunk_conv_tf32_split_w(const void* w, int K, int cin, int cout,
+                                void* wt, void* stream) {
+  const int cin_p = (cin + 31) / 32 * 32;
+  const size_t n = static_cast<size_t>(K) * cout * cin_p;
+  const size_t want = (n + 255) / 256;
+  split_w_kernel<<<static_cast<int>(want < 4096 ? want : 4096), 256, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w), K, cin, cout, cin_p,
+      static_cast<float*>(wt));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of shared memory a block of `occ_chunk_conv_fwd_tf32` asks for at
+// these shapes (the wrapper's route rule computes the same), or -3.
+long long occ_chunk_conv_fwd_tf32_smem(int U, int K, int nt) {
+  switch (nt) {
+    case 64: return FwdLayout<float, 32, 64, true>(U, K).total;
+    case 96: return FwdLayout<float, 32, 96, true>(U, K).total;
+    case 128: return FwdLayout<float, 32, 128, true>(U, K).total;
+  }
+  return -3;
 }
 
 }  // extern "C"

@@ -56,6 +56,15 @@ def load() -> ctypes.CDLL:
                                        _vp, _int, _vp, _vp]
     lib.occ_chunk_conv_fwd_cin_tile.restype = _int
     lib.occ_chunk_conv_fwd_cin_tile.argtypes = [_int, _int, _int]
+    lib.occ_chunk_conv_fwd_tf32.restype = _int
+    lib.occ_chunk_conv_fwd_tf32.argtypes = [_vp, _int, _int, _vp, _int, _int,
+                                            _vp, _int, _int, _vp, _int, _int,
+                                            _int, _vp, _vp, _vp, _vp]
+    lib.occ_chunk_conv_tf32_split_w.restype = _int
+    lib.occ_chunk_conv_tf32_split_w.argtypes = [_vp, _int, _int, _int, _vp,
+                                                _vp]
+    lib.occ_chunk_conv_fwd_tf32_smem.restype = ctypes.c_longlong
+    lib.occ_chunk_conv_fwd_tf32_smem.argtypes = [_int, _int, _int]
     lib.occ_chunk_conv_dwt.restype = _int
     lib.occ_chunk_conv_dwt.argtypes = [_vp, _int, _int, _vp, _int, _int, _vp,
                                        _int, _int, _vp, _int, _int, _vp, _vp,

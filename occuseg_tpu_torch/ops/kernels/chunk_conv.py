@@ -25,7 +25,11 @@ per run of chunks); the dW route runs `chunk_conv_dw` (the same kernel
 with its operands' roles swapped, over the forward plan) and the forward
 kernel over the transpose plan. The launch geometry (column tile,
 split steps at the coarse levels, runs of chunks) is chosen here from
-static shapes (`col_tile`, `conv_splits`, `dwt_runs`).
+static shapes (`col_tile`, `conv_splits`, `dwt_runs`). In f32 the
+forward kernel runs one of two tiles, chosen from shapes (`f32_route`):
+the product split into three TF32 products on the tensor cores
+(`tf32_split`, the weight laid out by `split_weight_tf32_plain`'s rule)
+or exact FMA products.
 `fused_grouping` picks the route from static shapes with the JAX
 package's rule. `chunk_gather_conv` (submanifold: the plan is its own
 transpose under offset reversal) and `chunk_gather_conv_t` (a transition
@@ -293,16 +297,18 @@ def _gather_chunks(x: torch.Tensor, in_idx: torch.Tensor,
 
 
 def chunk_conv_plain(feats: torch.Tensor, in_idx: torch.Tensor,
-                     lidx: torch.Tensor, weight: torch.Tensor
-                     ) -> torch.Tensor:
+                     lidx: torch.Tensor, weight: torch.Tensor,
+                     acc: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch chunk conv (the JAX `_dechunked_conv` math): gather
-    each chunk's rows through lidx, zero the -1 references, then one f32
-    einsum. feats [N, Cin], weight [K, Cin, Cout] -> [C*M, Cout] in
-    feats.dtype."""
+    each chunk's rows through lidx, zero the -1 references, then one
+    einsum in `acc` (f32; float64 gives the f32 kernels' accuracy
+    yardstick). feats [N, Cin], weight [K, Cin, Cout] -> [C*M, Cout] in
+    feats.dtype (in `acc` where that is float64)."""
     C, K, M = lidx.shape
     g = _gather_chunks(feats, in_idx, lidx)
-    out = torch.einsum("ckmi,kio->cmo", g.float(), weight.float())
-    return out.reshape(C * M, weight.shape[2]).to(feats.dtype)
+    out = torch.einsum("ckmi,kio->cmo", g.to(acc), weight.to(acc))
+    out = out.reshape(C * M, weight.shape[2])
+    return out if acc == torch.float64 else out.to(feats.dtype)
 
 
 def chunk_conv_bwd_fused_plain(ct: torch.Tensor, t_in_idx: torch.Tensor,
@@ -326,11 +332,12 @@ def chunk_conv_dw_plain(feats: torch.Tensor, in_idx: torch.Tensor,
     return torch.einsum("ckmi,cmo->kio", g, ct.reshape(C, M, -1).float())
 
 
-# The f32 tile of the forward kernel (`FmaTile`, csrc/chunk_conv.cu): 8
-# warps, each owning 16 consecutive positions of its chunk's row order,
-# and a row's neighbour mask over the offsets below 32 (a warp runs every
-# offset from 32 on).
+# The f32 tiles of the forward kernel (csrc/chunk_conv.cu): `FmaTile`'s 8
+# warps, each owning 16 consecutive positions of its chunk's row order;
+# `TcTile`'s 2 warpgroups, each owning 64; a row's neighbour mask over the
+# offsets below 32 (a warp or warpgroup runs every offset from 32 on).
 F32_WARPS, F32_WARP_ROWS, MASK_OFFSETS = 8, 16, 32
+TC_GROUPS, TC_GROUP_ROWS = 2, 64
 
 
 def row_masks(lidx: torch.Tensor) -> torch.Tensor:
@@ -348,23 +355,141 @@ def fwd_row_order(lidx: torch.Tensor) -> torch.Tensor:
     return torch.sort(row_masks(lidx), dim=1, stable=True).indices
 
 
-def fwd_warp_steps(lidx: torch.Tensor, tiles: int = 1) -> Tuple[int, int]:
-    """(ran, skipped): the (Cin tile, offset, warp) steps of the f32
-    forward kernel over lidx [C, K, M]. Warp w holds positions
-    F32_WARP_ROWS * w.. of `fwd_row_order` (past M: no row); it runs an
-    offset where any of its rows has a reference, and every offset from
-    MASK_OFFSETS on; a chunk with no reference runs nothing. `tiles` is
-    the number of (Cin tile, column tile) pairs of the call: each repeats
-    the same steps."""
+def _ordered_steps(lidx: torch.Tensor, units: int, rows_per_unit: int,
+                   tiles: int) -> Tuple[int, int]:
+    """(ran, skipped) (Cin tile, offset, unit) steps where unit u holds
+    positions rows_per_unit * u.. of `fwd_row_order` (past M: no row)
+    and runs an offset where any of its rows has a reference, and every
+    offset from MASK_OFFSETS on; a chunk with no reference runs nothing.
+    `tiles` (Cin tile, column tile) pairs repeat the same steps."""
     C, K, M = lidx.shape
     order = fwd_row_order(lidx)
     rows = torch.gather(lidx >= 0, 2, order[:, None, :].expand(C, K, M))
-    pos = F32_WARPS * F32_WARP_ROWS
-    rows = torch.cat([rows, rows.new_zeros(C, K, pos - M)], 2)
-    live = rows.reshape(C, K, F32_WARPS, F32_WARP_ROWS).any(3)
+    rows = torch.cat([rows, rows.new_zeros(C, K, units * rows_per_unit - M)],
+                     2)
+    live = rows.reshape(C, K, units, rows_per_unit).any(3)
     live[:, MASK_OFFSETS:] = rows.flatten(1).any(1)[:, None, None]
     ran = int(live.sum())
-    return tiles * ran, tiles * (C * K * F32_WARPS - ran)
+    return tiles * ran, tiles * (C * K * units - ran)
+
+
+def fwd_warp_steps(lidx: torch.Tensor, tiles: int = 1) -> Tuple[int, int]:
+    """(ran, skipped): the (Cin tile, offset, warp) steps of the f32
+    forward kernel's FMA tile over lidx [C, K, M] (`_ordered_steps` with
+    F32_WARPS warps of F32_WARP_ROWS rows)."""
+    return _ordered_steps(lidx, F32_WARPS, F32_WARP_ROWS, tiles)
+
+
+def fwd_group_steps(lidx: torch.Tensor, tiles: int = 1) -> Tuple[int, int]:
+    """(ran, skipped): the (Cin tile, offset, 64-row group) steps of the
+    f32 forward kernel's tensor-core tile over lidx [C, K, M]
+    (`_ordered_steps` with TC_GROUPS warpgroups of TC_GROUP_ROWS rows)."""
+    return _ordered_steps(lidx, TC_GROUPS, TC_GROUP_ROWS, tiles)
+
+
+# ---------------------------------------------------------------------------
+# f32 on the tensor cores (3xTF32): the split, its weight layout, its route
+# ---------------------------------------------------------------------------
+
+def _tc_col(q: int) -> int:
+    j, p = q >> 3, q & 7
+    return 8 * p + j if p < 4 else 8 * (p - 4) + 4 + j
+
+
+# Position q of each 32-column group of a K-major W row holds Cin column
+# TC_COLS[q] of the group (`tc_col` in csrc/chunk_conv.cu): the order in
+# which a thread's two 16-byte loads of a staged row feed the A fragments
+# of the tile's four k8 steps.
+TC_COLS = tuple(_tc_col(q) for q in range(32))
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of an f32 tensor as the kernel splits it (`tf32_split` in
+    csrc/chunk_conv.cuh): hi = x rounded to TF32's 11 significant bits
+    (Veltkamp's split by 2^13 + 1), lo = x - hi with its 13 low bits
+    cleared (what the tensor core reads of it). hi + lo is x to within
+    2^-23 of |x|."""
+    x = x.float()
+    c = x * 8193.0
+    hi = c - (c - x)
+    lo = ((x - hi).view(torch.int32) & -8192).view(torch.float32)
+    return hi, lo
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the tensor-core path computes it, each product
+    a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (`tf32_split`), summed in float64
+    (the kernel sums in f32 on the tensor cores): float64 [..., n]."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    ah, al, bh, bl = (t.double() for t in (ah, al, bh, bl))
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def split_weight_tf32_plain(w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the wrapper's weight for the tensor-core path
+    (`occ_chunk_conv_tf32_split_w`): w [K, Cin, Cout] -> f32 [2, K, Cout,
+    Cin_p], hi then lo (`tf32_split`), K-major, Cin padded with zeros to a
+    multiple of 32 and each 32 columns in TC_COLS order."""
+    K, cin, cout = w.shape
+    cin_p = -(-cin // 32) * 32
+    wp = torch.zeros((K, cin_p, cout), dtype=torch.float32, device=w.device)
+    wp[:, :cin] = w
+    cols = (torch.arange(cin_p) // 32 * 32
+            + torch.tensor(TC_COLS).repeat(cin_p // 32)).to(w.device)
+    wk = wp[:, cols].transpose(1, 2)                          # [K, Cout, Cin_p]
+    return torch.stack(tf32_split(wk)).contiguous()
+
+
+# The opt-in shared memory of one block on an H100 (227 KiB); the wrapper
+# reads the device's own.
+H100_SMEM = 232_448
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def tc_smem_bytes(U: int, K: int, nt: int) -> int:
+    """Shared memory of a tensor-core block (`FwdLayout<float, 32, nt,
+    true>` in csrc/chunk_conv.cu): the W ring (3 stages of a hi and a lo
+    box of nt rows x 128 bytes), its barriers, the chunk's in_idx and
+    lidx, the row masks and order, the U + 1 staged rows of 32 + 4 f32,
+    and 1 KiB to align the base."""
+    off = 3 * 2 * nt * 128
+    off += _align128(2 * 3 * 8)
+    off += _align128(U * 4)
+    off += _align128(K * 128 * 4)
+    off += _align128(128 * 4 + F32_WARPS * 4 + 128)
+    off += _align128((U + 1) * 36 * 4)
+    return off + 1024
+
+
+def tc_col_tile(cout: int, K: int, U: int, smem: int = H100_SMEM) -> int:
+    """The tensor-core tile's output columns per block: `col_tile(cout,
+    True)` where that block fits in `smem` bytes of shared memory, else 64
+    where that fits (a smaller W ring beside the wide transpose plans'
+    staged rows), else 0: the FMA tile."""
+    for nt in dict.fromkeys((col_tile(cout, True), 64)):
+        if tc_smem_bytes(U, K, nt) <= smem:
+            return nt
+    return 0
+
+
+def f32_route(cin: int, cout: int, M: int, K: int, U: int,
+              smem: int = H100_SMEM) -> str:
+    """Which f32 tile the forward kernel runs at these shapes: "tc" (the
+    3xTF32 tensor-core tile) where a block of it fits in `smem` bytes of
+    shared memory (`tc_col_tile`), else "fma" (the FMA tile, whose Cin
+    tile can shrink to 16). Only shapes decide: Cin (padded), Cout, M, K
+    and the plan's U. Two shapes where the FMA tile measured faster on
+    the H100 keep it (`PERF.md` §6): Cin below the tensor-core tile's
+    32 columns (the input conv's 16: half of each step's products are
+    padding), and an `up` plan (K = 8 and U < 3M: each output row has one
+    reference, so a 64-row group runs about four of the eight offsets a
+    16-row warp's single one) at 64 output columns or fewer."""
+    if cin < 32 or (K == 8 and U < 3 * M and cout <= 64):
+        return "fma"
+    return "tc" if tc_col_tile(cout, K, U, smem) else "fma"
 
 
 # ---------------------------------------------------------------------------
@@ -389,10 +514,11 @@ def _shape_error(what: str, **tensors) -> ValueError:
 
 
 def col_tile(cout: int, bf16: bool) -> int:
-    """Output columns per block of the forward kernel. f32: 64. bf16: the
-    tile of 64, 96 or 128 columns that covers cout with the least work,
-    each tile counted as its columns plus 64 for staging the chunk's rows
-    once more; ties go to the wider tile."""
+    """Output columns per block of the forward kernel. f32's FMA tile: 64.
+    bf16 and f32's tensor-core tile (`f32_route`): the tile of 64, 96 or
+    128 columns that covers cout with the least work, each tile counted as
+    its columns plus 64 for staging the chunk's rows once more; ties go to
+    the wider tile."""
     if not bf16:
         return 64
     return min((128, 96, 64), key=lambda nt: (-(-cout // nt) * (nt + 64),
@@ -452,11 +578,18 @@ def chunk_conv(feats: torch.Tensor, in_idx: torch.Tensor, lidx: torch.Tensor,
 
 
 chunk_conv.launches = 0  # wrapper calls that launched the kernel
+# f32 launches of the forward kernel by tile (`f32_route`), from every
+# caller: the forward, and d_feats on both backward routes
+chunk_conv.launches_f32_tc = 0
+chunk_conv.launches_f32_fma = 0
 
 
-def _run_chunk_conv(what, feats, in_idx, lidx, w) -> torch.Tensor:
+def _run_chunk_conv(what, feats, in_idx, lidx, w,
+                    route=None) -> torch.Tensor:
     """Launch the forward kernel (and, with split steps, its sum of
-    partials) on CUDA tensors; the caller counts the launch."""
+    partials) on CUDA tensors; the caller counts the launch, this counts
+    an f32 one by tile. f32 takes the tile `f32_route` picks from the
+    shapes; `route` ("tc" or "fma") is for tests and timing tools."""
     dt = feats.dtype
     kernels.require_cuda_input(feats, "feats", (torch.float32,
                                                 torch.bfloat16), 2)
@@ -472,6 +605,15 @@ def _run_chunk_conv(what, feats, in_idx, lidx, w) -> torch.Tensor:
                            weight=w)
     _check_launch(what, M, (cin, cout), (feats, in_idx, lidx, w))
     bf = dt == torch.bfloat16
+    if not bf:
+        route = route or f32_route(cin, cout, M, K, U,
+                                   _smem_optin(feats.device.index or 0))
+        if route == "tc":
+            out = _run_tc(what, feats, in_idx, lidx, w, tc_col_tile(
+                cout, K, U, _smem_optin(feats.device.index or 0)))
+            chunk_conv.launches_f32_tc += 1
+            return out
+        chunk_conv.launches_f32_fma += 1
     nt = col_tile(cout, bf)
     splits = conv_splits(C, -(-cout // nt), K * -(-cin // 64),
                          _sm_count(feats.device.index or 0))
@@ -497,7 +639,51 @@ def _run_chunk_conv(what, feats, in_idx, lidx, w) -> torch.Tensor:
     return out
 
 
-_COUNTS = {}  # device index -> the f32 forward's int64 [4] counters
+def _run_tc(what, feats, in_idx, lidx, w, nt) -> torch.Tensor:
+    """The tensor-core f32 tile: W split once (`split_weight_tf32_plain`'s
+    layout, on the device), then the kernel, over checked inputs."""
+    N, cin = feats.shape
+    C, U = in_idx.shape
+    _, K, M = lidx.shape
+    cout = w.shape[2]
+    dev = feats.device
+    wt = torch.empty((2, K, cout, -(-cin // 32) * 32), dtype=torch.float32,
+                     device=dev)
+    splits = conv_splits(C, -(-cout // nt), K * -(-cin // 64),
+                         _sm_count(dev.index or 0))
+    out = torch.empty((C * M, cout), dtype=torch.float32, device=dev)
+    part = (torch.empty((splits, C * M, cout), dtype=torch.float32,
+                        device=dev) if splits > 1 else None)
+    counts = _counts_buffer(dev)
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        stream = kernels.stream_ptr(feats)
+        kernels.check(lib.occ_chunk_conv_tf32_split_w(
+            w.data_ptr(), K, cin, cout, wt.data_ptr(), stream),
+            f"{what} weight split")
+        rc = lib.occ_chunk_conv_fwd_tf32(
+            feats.data_ptr(), N, cin, in_idx.data_ptr(), C, U,
+            lidx.data_ptr(), K, M, wt.data_ptr(), cout, nt, splits,
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            None if counts is None else counts.data_ptr(), stream)
+    if rc == -2:
+        raise ValueError(f"{what}: the tensor-core tile of U={U}, K={K}, "
+                         f"nt={nt} does not fit in shared memory")
+    if rc == -4:
+        raise RuntimeError(f"{what}: the tensor-map encoder "
+                           f"(cuTensorMapEncodeTiled) is missing or refused "
+                           f"the split weight")
+    kernels.check(rc, f"{what} tensor-core kernel launch")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    return torch.cuda.get_device_properties(index) \
+        .shared_memory_per_block_optin
+
+
+_COUNTS = {}  # device index -> the f32 forward's int64 [6] counters
 
 
 def _counts_buffer(device: torch.device) -> Optional[torch.Tensor]:
@@ -506,25 +692,34 @@ def _counts_buffer(device: torch.device) -> Optional[torch.Tensor]:
     outlive any graph)."""
     buf = _COUNTS.get(device.index)
     if buf is None and not torch.cuda.is_current_stream_capturing():
-        buf = _COUNTS[device.index] = torch.zeros(4, dtype=torch.int64,
+        buf = _COUNTS[device.index] = torch.zeros(6, dtype=torch.int64,
                                                   device=device)
     return buf
 
 
 @dataclasses.dataclass(frozen=True)
 class FwdCounts:
-    """What the f32 forward kernel's blocks counted: (Cin tile, offset,
-    warp) steps run and skipped (`fwd_warp_steps` per call), and thread
-    0's clock cycles building the row order and in the whole block."""
+    """What the f32 forward kernel's blocks counted: the FMA tile's (Cin
+    tile, offset, warp) steps run and skipped (`fwd_warp_steps` per call),
+    thread 0's clock cycles building the row order and in the whole block
+    (both tiles), and the tensor-core tile's (Cin tile, offset, 64-row
+    group) steps run and skipped (`fwd_group_steps` per call)."""
     ran: int
     skipped: int
     order_cycles: int
     block_cycles: int
+    group_ran: int = 0
+    group_skipped: int = 0
 
     @property
     def skipped_share(self) -> float:
         total = self.ran + self.skipped
         return self.skipped / total if total else 0.0
+
+    @property
+    def group_skipped_share(self) -> float:
+        total = self.group_ran + self.group_skipped
+        return self.group_skipped / total if total else 0.0
 
     @property
     def order_share(self) -> float:
@@ -542,7 +737,7 @@ def fwd_counts(device, reset: bool = False) -> FwdCounts:
         device = torch.device(device.type, torch.cuda.current_device())
     buf = _counts_buffer(device)
     if buf is None:
-        return FwdCounts(0, 0, 0, 0)
+        return FwdCounts(0, 0, 0, 0, 0, 0)
     got = FwdCounts(*buf.tolist())
     if reset:
         buf.zero_()

@@ -25,7 +25,10 @@ forward kernel (#1) over the forward plan and the transpose plan (the
 d_feats pass of both backward routes) of each of the bench plan's 33
 convolutions, timed as `chip_smoke.cuda_ms` does, with what the f32
 forward counted (skipped warp-steps, the row order's share of the blocks'
-cycles) where the checkout's wrapper has `fwd_counts`, and the outputs
+cycles) where the checkout's wrapper has `fwd_counts`, and, where it has
+the tensor-core tile (`f32_route`), that tile's group-steps run and
+skipped, the FMA tile's time beside it and each tile's error against the
+float64 product of the same gathered rows; the outputs are
 compared bit for bit across the checkouts (a zero's sign aside). The
 checkouts run in the order given and
 then in reverse (A, B, B, A for two), so that a drift of the card's clocks
@@ -246,8 +249,10 @@ def f32conv(out_path: str) -> None:
     plan = prepare_scene(b["coords"], b["features"],
                          PlanSpec(caps=cs.BENCH_CAPS)).plan.to(dev)
     counted = hasattr(cc, "fwd_counts")
+    tc = hasattr(cc, "f32_route")
     gen = torch.Generator().manual_seed(1)
-    saved, tot = {}, {"fwd": 0.0, "t": 0.0}
+    saved, tot = {}, {"fwd": 0.0, "t": 0.0, "fma": 0.0, "tc": 0.0,
+                      "run": 0.0, "real": 0.0, "worst": 0.0}
     with torch.inference_mode():
         for cv in cs.conv_calls(plan, cs.N_PLANES):
             K = cv.chunks.lidx.shape[1]
@@ -274,13 +279,61 @@ def f32conv(out_path: str) -> None:
                     n = cc.fwd_counts(dev)
                     txt = (f" (skipped {100 * n.skipped_share:.1f}%, order "
                            f"{100 * n.order_share:.2f}%)")
+                if tc:
+                    txt = _tc_row(cc, tot, f, ch, wk) or txt
                 ms = event_ms(call, 3)
                 tot[kind] += ms
                 row.append(f"{kind} {ms:.4f} ms{txt}")
             print(f"[f32conv] {cv.label:<22} " + " | ".join(row), flush=True)
     print(f"[f32conv] per step: forward {tot['fwd']:.3f} ms, transpose "
           f"(d_feats) {tot['t']:.3f} ms, both {tot['fwd'] + tot['t']:.3f} ms")
+    if tc:
+        print(f"[f32conv] per step, each tile on the maps the tensor-core "
+              f"tile fits: FMA "
+              f"{tot['fma']:.3f} ms, tensor cores {tot['tc']:.3f} ms; the "
+              f"tensor-core tile ran "
+              f"{tot['run'] / max(tot['real'], 1):.3f}x the real products; "
+              f"its float64 error over the FMA tile's at most "
+              f"{tot['worst']:.2f}x (mean or max)")
     torch.save(saved, out_path)
+
+
+def _tc_row(cc, tot, f, ch, wk) -> str:
+    """Where the tensor-core tile fits the map: each tile's time (the FMA
+    tile's added to tot["fma"], the tensor-core tile's to tot["tc"]), the
+    group-steps the tensor-core tile ran (its products into tot["run"],
+    the real ones into tot["real"]) and both tiles' errors against the
+    float64 product, the worst ratio into tot["worst"]; the route the
+    wrapper takes; "" where the tile does not fit."""
+    import torch
+    _, K, M = ch.lidx.shape
+    (_, U), cin, cout = ch.in_idx.shape, f.shape[1], wk.shape[2]
+    smem = cc._smem_optin(f.device.index)
+    nt = cc.tc_col_tile(cout, K, U, smem)
+    if not nt:
+        return ""
+    calls = {r: (lambda r=r: cc._run_chunk_conv(
+        "f32conv", f, ch.in_idx, ch.lidx, wk, route=r)) for r in ("tc", "fma")}
+    ref = cc.chunk_conv_plain(f, ch.in_idx, ch.lidx, wk, torch.float64)
+    scale = ref.abs().max().item()
+    cc.fwd_counts(f.device, reset=True)
+    outs = {r: c() for r, c in calls.items()}
+    n = cc.fwd_counts(f.device, reset=True)
+    errs = {r: ((o.double() - ref).abs().mean().item() / scale,
+                (o.double() - ref).abs().max().item() / scale)
+            for r, o in outs.items()}
+    tot["worst"] = max(tot["worst"], *(
+        errs["tc"][i] / max(errs["fma"][i], 1e-30) for i in (0, 1)))
+    ms = {r: event_ms(c, 3) for r, c in calls.items()}
+    tot["fma"] += ms["fma"]
+    tot["tc"] += ms["tc"]
+    tot["run"] += n.group_ran * cc.TC_GROUP_ROWS * 32 * nt
+    tot["real"] += int((ch.lidx >= 0).sum()) * cin * cout
+    return (f" (route {cc.f32_route(cin, cout, M, K, U, smem)}; tc "
+            f"{ms['tc']:.4f} ms, FMA {ms['fma']:.4f} ms; tc ran "
+            f"{n.group_ran}, skipped {n.group_skipped} group-steps; float64 "
+            f"error mean/max tc {errs['tc'][0]:.2e}/{errs['tc'][1]:.2e}, FMA "
+            f"{errs['fma'][0]:.2e}/{errs['fma'][1]:.2e})")
 
 
 def _digest(*tensors, keep: bool = False):

@@ -387,31 +387,53 @@ def _bench_map(plan, kind):
             "up": (tr.up_chunks, plan.levels[1].cap, 128, 64)}[kind]
 
 
-def _counted_f32(dev, in_idx, lidx, n_in, cin, cout, seed):
-    """(output, plain output, counts) of one f32 forward."""
+def _counted_f32(dev, in_idx, lidx, n_in, cin, cout, seed, route=None):
+    """(output, plain output, counts) of one f32 forward, on the tile the
+    wrapper picks or on `route`'s."""
     g = torch.Generator().manual_seed(seed)
     K = lidx.shape[1]
     x = torch.randn(n_in, cin, generator=g).to(dev)
     w = (torch.randn(K, cin, cout, generator=g) / (cin * K) ** 0.5).to(dev)
     cc.fwd_counts(dev, reset=True)
     with torch.no_grad():
-        out = cc.chunk_conv(x, in_idx, lidx, w)
+        out = cc._run_chunk_conv("test", x, in_idx, lidx, w, route=route)
         ref = cc.chunk_conv_plain(x, in_idx, lidx, w)
     return out, ref, cc.fwd_counts(dev, reset=True)
 
 
+def _smem(dev):
+    return torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+
+def _tc_tiles(cin, cout, K, U, dev):
+    """(Cin tile, column tile) pairs of a tensor-core call."""
+    return -(-cin // 32) * -(-cout // cc.tc_col_tile(cout, K, U, _smem(dev)))
+
+
 @pytest.mark.parametrize("kind", ["L0", "L2", "child", "up"])
 def test_f32_forward_counts_its_skipped_steps(dev, bench_plan, kind):
-    """The kernel's count of (Cin tile, offset, warp) steps run and
-    skipped equals the plain count (`fwd_warp_steps`) on the bench plan's
-    maps, exactly; the blocks count the row order's cycles."""
+    """Each f32 tile's count of steps run and skipped equals its plain
+    count on the bench plan's maps, exactly: the tensor-core tile's (Cin
+    tile, offset, 64-row group) steps (`fwd_group_steps`) and the FMA
+    tile's (Cin tile, offset, warp) steps (`fwd_warp_steps`); the blocks
+    count the row order's cycles."""
     chunks, n_in, cin, cout = _bench_map(bench_plan, kind)
     in_idx, lidx = chunks.in_idx, chunks.lidx
-    out, ref, n = _counted_f32(dev, in_idx, lidx, n_in, cin, cout, 18)
+    (C, U), K = in_idx.shape, lidx.shape[1]
+    out, ref, n = _counted_f32(dev, in_idx, lidx, n_in, cin, cout, 18,
+                               route="tc")
     _check(out, ref, TOL[torch.float32])
-    tiles = (cin // cc.fwd_cin_tile(cin, in_idx.shape[1], lidx.shape[1])
+    assert (n.group_ran, n.group_skipped) == cc.fwd_group_steps(
+        lidx.cpu(), _tc_tiles(cin, cout, K, U, dev))
+    assert (n.ran, n.skipped) == (0, 0)
+    assert n.group_skipped > 0 and 0 < n.order_cycles < n.block_cycles
+    out, ref, n = _counted_f32(dev, in_idx, lidx, n_in, cin, cout, 18,
+                               route="fma")
+    _check(out, ref, TOL[torch.float32])
+    tiles = (cin // cc.fwd_cin_tile(cin, U, K)
              * -(-cout // cc.col_tile(cout, False)))
     assert (n.ran, n.skipped) == cc.fwd_warp_steps(lidx.cpu(), tiles)
+    assert (n.group_ran, n.group_skipped) == (0, 0)
     assert n.skipped > 0 and 0 < n.order_cycles < n.block_cycles
 
 
@@ -419,7 +441,8 @@ def test_f32_forward_split_counts_and_matches_plain(dev, plan):
     """The coarse-level split in f32 (8 chunks of L3 at Cin 320, Cout
     384: the (Cin tile, offset) steps cut into ranges, one block each,
     the partials summed in order) against the plain version, and its
-    count against the plain count."""
+    count against the plain count, on both tiles (the wrapper's route
+    there is the tensor cores')."""
     nbr = plan.levels[3].nbr[:1024]
     table = np.where(nbr < 1024, nbr, -1).astype(np.int32)
     in_idx, lidx = _chunks(table, 128, 1024, dev)
@@ -427,11 +450,137 @@ def test_f32_forward_split_counts_and_matches_plain(dev, plan):
     cin, cout = 320, 384
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert cc.conv_splits(C, -(-cout // 64), K * 5, sms) > 1
+    assert cc.f32_route(cin, cout, 128, K, 1024, _smem(dev)) == "tc"
     out, ref, n = _counted_f32(dev, in_idx, lidx, 1024, cin, cout, 19)
+    _check(out, ref, TOL[torch.float32])
+    assert (n.group_ran, n.group_skipped) == cc.fwd_group_steps(
+        lidx.cpu(), _tc_tiles(cin, cout, K, 1024, dev))
+    out, ref, n = _counted_f32(dev, in_idx, lidx, 1024, cin, cout, 19,
+                               route="fma")
     _check(out, ref, TOL[torch.float32])
     tiles = (cin // cc.fwd_cin_tile(cin, in_idx.shape[1], K)
              * -(-cout // 64))
     assert (n.ran, n.skipped) == cc.fwd_warp_steps(lidx.cpu(), tiles)
+
+
+def _bench_pair(plan, kind):
+    """(forward chunks, transpose chunks, input rows, output rows) of a
+    bench-plan map."""
+    tr = plan.transitions[0]
+    l0, l1 = plan.levels[0], plan.levels[1]
+    return {"L0": (l0.chunks, l0.chunks, l0.cap, l0.cap),
+            "child": (tr.child_chunks, tr.up_chunks, l0.cap, l1.cap),
+            "up": (tr.up_chunks, tr.child_chunks, l1.cap, l0.cap)}[kind]
+
+
+# the tensor-core tile's card shapes: bench L0 (27 offsets) 64 -> 64, a
+# strided map (K = 8) 64 -> 128, an up map 128 -> 64, minkunet34c's
+# level-0 128 -> 96 and 96 -> 96, occuseg-m64's input conv (Cin 3 padded
+# to 16); each forward and over its transpose plan (d_feats)
+TC_SHAPES = [("L0", 64, 64), ("child", 64, 128), ("up", 128, 64),
+             ("L0", 128, 96), ("L0", 96, 96), ("L0", 16, 64)]
+
+
+def _f32_errors(out, ref64):
+    d = (out.double() - ref64).abs()
+    scale = ref64.abs().max().item()
+    return d.mean().item() / scale, d.max().item() / scale
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("kind,cin,cout", TC_SHAPES)
+def test_tc_tile_against_plain_fma_and_float64(dev, bench_plan, kind, cin,
+                                               cout, transpose):
+    """The f32 forward on the tensor-core tile (3xTF32): within F32_TOL
+    of the plain version, within twice the FMA tile's error against the
+    float64 product of the same gathered rows (mean and max), and the same
+    bits when launched again; the wrapper takes the route rule's tile
+    there and counts its launch on that route (the FMA tile at the input
+    conv's Cin 16 and on the up plan at 64 output columns)."""
+    fwd, tp, n_in, n_out = _bench_pair(bench_plan, kind)
+    ch, rows, ci, co = (tp, n_out, cout, cin) if transpose else \
+        (fwd, n_in, cin, cout)
+    in_idx, lidx = ch.in_idx, ch.lidx
+    (_, U), (_, K, M) = in_idx.shape, lidx.shape
+    route = cc.f32_route(ci, co, M, K, U, _smem(dev))
+    assert route == ("fma" if ci == 16 or (kind, transpose) in (
+        ("up", False), ("child", True)) else "tc")
+    g = torch.Generator().manual_seed(ci * co + K + transpose)
+    x = torch.randn(rows, ci, generator=g).to(dev)
+    w = (torch.randn(K, ci, co, generator=g) / (ci * K) ** 0.5).to(dev)
+    before = (cc.chunk_conv.launches_f32_tc, cc.chunk_conv.launches_f32_fma)
+    with torch.no_grad():
+        routed = cc.chunk_conv(x, in_idx, lidx, w)
+        out = cc._run_chunk_conv("test", x, in_idx, lidx, w, route="tc")
+        again = cc._run_chunk_conv("test", x, in_idx, lidx, w, route="tc")
+        fma = cc._run_chunk_conv("test", x, in_idx, lidx, w, route="fma")
+        ref = cc.chunk_conv_plain(x, in_idx, lidx, w)
+        ref64 = cc.chunk_conv_plain(x, in_idx, lidx, w, torch.float64)
+    torch.cuda.synchronize()
+    assert (cc.chunk_conv.launches_f32_tc - before[0],
+            cc.chunk_conv.launches_f32_fma - before[1]) == \
+        ((3, 1) if route == "tc" else (2, 2))
+    assert torch.equal(routed, out if route == "tc" else fma)
+    _check(out, ref, TOL[torch.float32])
+    assert torch.equal(out, again)
+    tc_err, fma_err = _f32_errors(out, ref64), _f32_errors(fma, ref64)
+    assert tc_err[0] <= 2 * fma_err[0] and tc_err[1] <= 2 * fma_err[1], \
+        (tc_err, fma_err)
+
+
+def test_tc_tile_writes_zeros_for_pad_chunks(dev, plan):
+    """A plan of all-pad chunks (and a chunk whose rows reference
+    nothing) on the tensor-core tile: zeros, every group-step skipped."""
+    in_idx, lidx = (a.copy() for a in cc.build_chunk_arrays(
+        plan.levels[0].nbr, 128, 512))
+    C, K, M = lidx.shape
+    in_idx[:] = -1
+    lidx[:] = -1
+    fi, fl = (torch.from_numpy(a[:4]).to(dev) for a in (in_idx, lidx))
+    out, _, n = _counted_f32(dev, fi, fl, plan.levels[0].cap, 64, 64, 20,
+                             route="tc")
+    torch.cuda.synchronize()
+    assert not out.any() and out.shape == (4 * M, 64)
+    assert (n.group_ran, n.group_skipped) == (0, 2 * 4 * K * 2)
+
+
+def test_tc_weight_split_matches_plain(dev):
+    """The wrapper's weight for the tensor-core tile, split on the card,
+    is `split_weight_tf32_plain`'s bit for bit (Cin 16 padded, Cout not a
+    multiple of 64)."""
+    lib = cc.kernels.load()
+    g = torch.Generator().manual_seed(21)
+    for K, cin, cout in ((27, 16, 64), (8, 96, 80), (27, 128, 96)):
+        w = (torch.randn(K, cin, cout, generator=g) * 3).to(dev)
+        wt = torch.empty((2, K, cout, -(-cin // 32) * 32), device=dev)
+        cc.kernels.check(lib.occ_chunk_conv_tf32_split_w(
+            w.data_ptr(), K, cin, cout, wt.data_ptr(),
+            cc.kernels.stream_ptr(w)), "split")
+        torch.cuda.synchronize()
+        assert torch.equal(wt.cpu(), cc.split_weight_tf32_plain(w.cpu()))
+
+
+@pytest.mark.parametrize("U,K,nt", [(256, 27, 64), (435, 27, 96),
+                                    (653, 27, 128), (1024, 8, 64)])
+def test_tc_smem_matches_the_kernel(dev, U, K, nt):
+    """The route rule's shared memory of a tensor-core block is what the
+    kernel asks for."""
+    lib = cc.kernels.load()
+    assert lib.occ_chunk_conv_fwd_tf32_smem(U, K, nt) == \
+        cc.tc_smem_bytes(U, K, nt)
+
+
+def test_route_is_the_fma_tile_at_the_widest_plan(dev, plan):
+    """At U = 1312 (a child plan at tier 1.7) no tensor-core block fits:
+    the wrapper takes the FMA tile, and counts it there."""
+    in_idx, lidx = _chunks(plan.transitions[0].child, 128, 1312, dev)
+    assert cc.f32_route(64, 96, 128, 8, 1312, _smem(dev)) == "fma"
+    before = cc.chunk_conv.launches_f32_fma
+    out, ref, n = _counted_f32(dev, in_idx, lidx, plan.levels[0].cap, 64,
+                               96, 22)
+    _check(out, ref, TOL[torch.float32])
+    assert cc.chunk_conv.launches_f32_fma == before + 1
+    assert n.ran > 0 and n.group_ran == 0
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
