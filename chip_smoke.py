@@ -5688,8 +5688,8 @@ def phase_spatial(dev, tmp, loop_med):
     batch = next(loop._synthetic_dataset(config).train_batches(
         np.random.default_rng(100), config["point_cap"],
         config["instance_cap"], config["batch_size"]))
-    plan = augment_plan(build_plan_host(batch["coords"],
-                                        loop.build_spec(config)))
+    spec = loop.build_spec(config)
+    plan = augment_plan(build_plan_host(batch["coords"], spec), spec)
     laid = apply_point_layout(batch, plan, num_scenes=config["batch_size"])
     trainer = loop.build_trainer(config, dev, config["batch_size"])
     init = copy.deepcopy(trainer.model.state_dict())

@@ -42,35 +42,41 @@ class PreparedScene:
         return self.features.shape[0]
 
 
-def plan_scene(coords: np.ndarray, spec: PlanSpec, ns: int = 1,
-               normals: Optional[np.ndarray] = None,
-               chunks: bool = True) -> Topology:
-    """Host plan from coords [P, 4] int32 (b,z,y,x; -1 rows are padding),
-    as the benchmark builds it: C++ planner (the blocked multi-scene layout
-    for ns > 1 scenes; orientation classes from the points' `normals`
-    [P, 3] when given), chunk rulebooks (with `chunks`), sorted point
-    layout. A spec only the device planner builds raises ValueError:
-    plan it with `core.topology.build_plan` (`Trainer.step(batch,
-    plan=None)`)."""
+def host_plan(coords: np.ndarray, spec: PlanSpec, ns: int = 1,
+              normals: Optional[np.ndarray] = None) -> Topology:
+    """The C++ planner's plan of coords [P, 4] int32 (b,z,y,x; -1 rows are
+    padding) at `spec`, as the span `plan.host`: the blocked multi-scene
+    layout for ns > 1 scenes, orientation classes from the points'
+    `normals` [P, 3] when given. A spec only the device planner builds
+    raises ValueError: plan it with `core.topology.build_plan`
+    (`Trainer.step(batch, plan=None)`)."""
     with span("plan.host"):
         plan = build_plan_host_blocked(coords, spec, ns, normals)
     if plan is None:
         raise ValueError(f"the host planner does not build {spec}; plan it "
                          f"on the device (core.topology.build_plan)")
-    return augment_plan(plan, chunks, spec.chunk_escalation == "map")
+    return plan
 
 
-def augment_plan(plan: Topology, chunks: bool = True,
-                 per_map: bool = False) -> Topology:
-    """A host plan with its chunk rulebooks (none without `chunks`, the
-    training CLI's --chunk_conv 0; each map's budget grown alone with
-    `per_map`, `PlanSpec.chunk_escalation`) and sorted point layout; where
-    the layout does not fit the caps, with the points per voxel alone
-    (host data the InputLayer's mean divides by)."""
+def plan_scene(coords: np.ndarray, spec: PlanSpec, ns: int = 1,
+               normals: Optional[np.ndarray] = None,
+               chunks: bool = True) -> Topology:
+    """Host plan as the benchmark builds it: `host_plan`, then its chunk
+    rulebooks (with `chunks`) and sorted point layout (`augment_plan`)."""
+    return augment_plan(host_plan(coords, spec, ns, normals), spec, chunks)
+
+
+def augment_plan(plan: Topology, spec: PlanSpec,
+                 chunks: bool = True) -> Topology:
+    """A host plan of `spec` with its chunk rulebooks (none without
+    `chunks`, the training CLI's --chunk_conv 0; the budgets grown by the
+    spec's rule, `PlanSpec`) and sorted point layout; where the
+    layout does not fit the caps, with the points per voxel alone (host
+    data the InputLayer's mean divides by)."""
     if chunks:
         with span("plan.chunks"):
-            plan = chunk_conv.augment_plan_with_chunks(plan,
-                                                       per_map=per_map)
+            plan = chunk_conv.augment_plan_with_chunks(
+                plan, per_map=spec.chunk_escalation == "map")
     with span("plan.layout"):
         plan = augment_plan_with_point_layout(plan)
         if plan.vox_counts is None:

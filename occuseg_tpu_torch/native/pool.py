@@ -14,8 +14,9 @@ uploads them to a device.
 Unlike the JAX pool, each batch also gets its sorted point layout and its
 per-point arrays permuted into it (`train.state.prepare_batch`): the
 port's InputLayer needs the layout. Under spatial sharding a batch keeps
-its order and its plan is this rank's `ShardArgs` instead
-(`parallel/spatial_model.prepare_shard_args`).
+its order and its plan is this rank's `ShardArgs` instead. Which of these
+a batch gets is chosen once, when the pool is built
+(`train.state.batch_preparation`).
 
 Spans and counters (`utils/profiling.py`): `plan.batch`, each batch's
 preparation on its worker (its children: `plan.host`, `plan.chunks`,
@@ -31,6 +32,7 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, Iterator, Optional, Tuple
 
+from occuseg_tpu_torch.train.state import batch_preparation
 from occuseg_tpu_torch.utils.profiling import count, span
 
 
@@ -42,70 +44,34 @@ def _set_threads(n: int) -> None:
 class PlanPool:
     """Ordered sliding-window batch preparation over `workers` threads
     (one worker: a prefetch thread, the loop's `plan_prefetcher`), with up
-    to `workers + 2` batches in flight. With `threads`, each worker's
+    to `workers + 2` batches in flight. The preparation's options are
+    `train.state.batch_preparation`'s: the blocked layout of `ns` scenes,
+    the smallest of `bucket_specs_list`'s cap buckets that fits, chunk
+    rulebooks with `chunks` (the training CLI's --chunk_conv), pinned with
+    `pin`, this rank's shard with `spatial`. With `threads`, each worker's
     OpenMP loops in the C++ planner start teams of that many threads
     (`native.set_threads`; ranks that share a host share its cores,
-    `parallel/data_parallel.share_cores`); without, OpenMP's default (every
-    core)."""
+    `parallel/data_parallel.share_cores`); without, OpenMP's default
+    (every core)."""
 
     def __init__(self, spec, workers: int, bucket_specs_list=None,
                  ns: int = 1, pin: bool = False, chunks: bool = True,
                  spatial=None, threads: Optional[int] = None):
         self.workers = max(int(workers), 1)
         self.window = self.workers + 2
-        self.spec = spec
-        self.buckets = bucket_specs_list
-        self.ns = ns
-        self.pin = pin
-        self.chunks = chunks
-        self.spatial = spatial
         self.threads = threads
+        self._prepare = batch_preparation(spec, bucket_specs_list, ns, pin,
+                                          chunks, spatial)
         team = {} if threads is None else {
             "initializer": _set_threads, "initargs": (int(threads),)}
         self._pool = ThreadPoolExecutor(max_workers=self.workers,
                                         thread_name_prefix="plan", **team)
 
     def _build(self, batch: Dict) -> Tuple[Dict, object, int]:
-        """(laid-out batch, host plan, bucket index) of one batch: the
-        blocked layout for ns > 1, at the smallest cap bucket that fits
-        with `bucket_specs_list`, chunk rulebooks with `chunks` (the
-        training CLI's --chunk_conv), what the step uploads pinned with
-        `pin` (`train.state.pinned`). With `spatial` (the keywords of
-        `prepare_shard_args` but the plan's), (the batch as it is, this
-        rank's ShardArgs of the plan of the whole batch, bucket index).
-        Runs in a worker thread, as the span `plan.batch`."""
-        from occuseg_tpu_torch.train.bucketing import prepare_bucketed
-        from occuseg_tpu_torch.train.state import pinned, prepare_batch
+        """One batch's preparation, in a worker thread, as the span
+        `plan.batch`."""
         with span("plan.batch"):
-            if self.spatial is not None:
-                return self._build_sharded(batch)
-            if self.buckets is not None:
-                laid, plan, bi = prepare_bucketed(batch, self.buckets,
-                                                  self.ns, self.chunks)
-            else:
-                (laid, plan), bi = prepare_batch(batch, self.spec, self.ns,
-                                                 self.chunks), 0
-            if not self.pin:
-                return laid, plan, bi
-            with span("plan.pin"):
-                return (*pinned(laid, plan), bi)
-
-    def _build_sharded(self, batch: Dict) -> Tuple[Dict, object, int]:
-        from occuseg_tpu_torch.native.plan import build_plan_host
-        from occuseg_tpu_torch.parallel.spatial_model import (
-            prepare_shard_args,
-        )
-        from occuseg_tpu_torch.train.bucketing import plan_for_batch
-        if self.buckets is not None:
-            bi, plan = plan_for_batch(self.buckets, batch["coords"])
-        else:
-            with span("plan.host"):
-                bi, plan = 0, build_plan_host(batch["coords"], self.spec)
-        sa = prepare_shard_args(plan, chunks=self.chunks, **self.spatial)
-        if not self.pin:
-            return batch, sa, bi
-        with span("plan.pin"):
-            return batch, sa.pinned(), bi
+            return self._prepare(batch)
 
     def imap(self, batches: Iterable[Dict]
              ) -> Iterator[Tuple[Dict, object, int]]:

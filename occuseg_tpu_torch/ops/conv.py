@@ -18,7 +18,7 @@ tensors the forward and d_feats launch the gather-conv kernel
 tensors they run its plain version. `conv_flops` counts the MulAdds of
 `utils/profiling.py`; `gather_conv_fused` is the JAX package's
 forward-only fused form, which its spatially sharded UNet convolves a
-halo-extended block with (`ROADMAP.md` A, parallel).
+halo-extended block with (`parallel/spatial.sharded_gather_conv`).
 """
 
 from __future__ import annotations

@@ -52,9 +52,6 @@ order and in reverse. Needs a CUDA card and nvcc.
   over runs of consecutive lanes;
 - `radius_no_chain`: the BCE radius's blocks take their maxima straight
   into the output, with no count and no last block (timing only);
-- `radius_release`: the BCE radius's blocks count themselves with one
-  acquire-release atomic after the block's barrier, in place of a fence
-  in every thread;
 - `gather_no_mma`: the gather conv issues no wgmma (gathers, W loads,
   barriers and the split's reduction stay);
 - `gather_no_steps`: the gather conv's blocks take no step (ids,
@@ -153,16 +150,6 @@ VARIANTS = {
                          "  __threadfence();",
                          "    if (r_s[i]) atomicMax(r_bits + i, r_s[i]);\n"
                          "  if (I > 0) return;\n  __threadfence();")],
-    "radius_release": [(BCE, "#include <cooperative_groups.h>\n",
-                        "#include <cooperative_groups.h>\n"
-                        "#include <cuda/atomic>\n"),
-                       (BCE, "  __threadfence();  // this block's maxima land "
-                        "before its count\n  __syncthreads();\n  if (t == 0) "
-                        "last = atomicAdd(counter, 1u) == gridDim.x - 1;",
-                        "  __syncthreads();\n  if (t == 0) last = cuda::"
-                        "atomic_ref<unsigned, cuda::thread_scope_device>("
-                        "*counter).fetch_add(1u, cuda::memory_order_acq_rel)"
-                        " == gridDim.x - 1;")],
     "gather_no_mma": [(GATHER, "        wgmma_bf16<NT>(acc, af[kk],",
                        "        if (N < 0) wgmma_bf16<NT>(acc, af[kk],")],
     "gather_no_steps": [(GATHER, "  const int n_steps = *n_live_s * n_cit;",

@@ -10,27 +10,24 @@ names also names the shapes of the step that runs it.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 import warnings
 
 import numpy as np
 
 from occuseg_tpu_torch import native
-from occuseg_tpu_torch.core.point_layout import apply_point_layout
 from occuseg_tpu_torch.core.topology import PlanSpec, Topology
-from occuseg_tpu_torch.infer import augment_plan
-from occuseg_tpu_torch.native.blocked import build_plan_host_blocked
+from occuseg_tpu_torch.infer import host_plan
 from occuseg_tpu_torch.train.config import CAP_RATIOS
-from occuseg_tpu_torch.utils.profiling import span
 
 
 def bucket_specs(max_voxel_cap: int, num_levels: int,
-                 num_buckets: int = 3, kernel: int = 3,
-                 guide_levels: Optional[int] = None,
-                 stem_kernel: Optional[int] = None,
-                 chunk_escalation: str = "plan") -> List[PlanSpec]:
-    """Cap sets at max_voxel_cap / 2^k, smallest first, each level rounded
-    up to a multiple of 1024 with the measured per-level ratios."""
+                 num_buckets: int = 3, spec: PlanSpec = PlanSpec(caps=())
+                 ) -> List[PlanSpec]:
+    """`spec` at cap sets of max_voxel_cap / 2^k, smallest first, each
+    level rounded up to a multiple of 1024 with the measured per-level
+    ratios."""
     specs = []
     for k in reversed(range(num_buckets)):
         n0 = max(max_voxel_cap >> k, 2048)
@@ -38,10 +35,7 @@ def bucket_specs(max_voxel_cap: int, num_levels: int,
             max((int(n0 * CAP_RATIOS[min(l, len(CAP_RATIOS) - 1)]) + 1023)
                 // 1024 * 1024, 1024)
             for l in range(num_levels))
-        specs.append(PlanSpec(caps=caps, kernel=kernel,
-                              guide_levels=guide_levels,
-                              stem_kernel=stem_kernel,
-                              chunk_escalation=chunk_escalation))
+        specs.append(dataclasses.replace(spec, caps=caps))
     return specs
 
 
@@ -68,11 +62,13 @@ def plan_for_batch(specs: Sequence[PlanSpec], coords: np.ndarray,
     """(bucket index, host plan) with overflow retry into bigger buckets,
     with orientation classes from the points' `normals` when given. ns > 1
     builds the blocked layout, whose overflow is per scene against its
-    sub-cap (the batch's largest scene binds)."""
+    sub-cap (the batch's largest scene binds). A single spec is planned
+    as it is: nothing to count, pick or retry."""
+    if len(specs) == 1:
+        return 0, host_plan(coords, specs[0], ns, normals)
     i = pick_bucket(specs, coords)
     while True:
-        with span("plan.host"):
-            plan = build_plan_host_blocked(coords, specs[i], ns, normals)
+        plan = host_plan(coords, specs[i], ns, normals)
         hot = [li for li, l in enumerate(plan.levels)
                if (np.asarray(l.num_active)
                    >= np.shape(l.keys)[0] // max(ns, 1)).any()]
@@ -85,15 +81,3 @@ def plan_for_batch(specs: Sequence[PlanSpec], coords: np.ndarray,
                     "size", RuntimeWarning)
             return i, plan
         i += 1
-
-
-def prepare_bucketed(batch, specs: Sequence[PlanSpec], ns: int = 1,
-                     chunks: bool = True):
-    """`train.state.prepare_batch` at the bucket `plan_for_batch` picks:
-    (laid-out batch, host plan, bucket index)."""
-    normals = batch["normals"] if specs[0].guide_levels is not None else None
-    bi, plan = plan_for_batch(specs, batch["coords"], normals, ns)
-    plan = augment_plan(plan, chunks, specs[bi].chunk_escalation == "map")
-    with span("plan.layout"):
-        laid = apply_point_layout(batch, plan, num_scenes=ns)
-    return laid, plan, bi

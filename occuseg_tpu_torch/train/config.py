@@ -12,6 +12,8 @@ from __future__ import annotations
 import argparse
 from typing import Any, Dict, List
 
+from occuseg_tpu_torch.models import ARCHS
+
 
 def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("occuseg_tpu_torch")
@@ -60,7 +62,7 @@ def get_parser() -> argparse.ArgumentParser:
                         "reference default)")
     # --- the port's architectures ---
     p.add_argument("--arch", default="occuseg",
-                   choices=("occuseg", "minkunet34c"),
+                   choices=tuple(ARCHS),
                    help="occuseg: the OccuSeg models (--use_dense_model "
                         "picks LearningBWDenseUNet), trained with the "
                         "6-term loss; minkunet34c: MinkUNet34C (a 5^3 stem, "
@@ -80,8 +82,8 @@ def get_parser() -> argparse.ArgumentParser:
                         "conv kernels); 0 = every convolution takes the "
                         "gather path (the gather-conv kernel)")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="cards to train on; 0 and 1 = one card (more: "
-                        "not ported, ROADMAP A9)")
+                   help="cards to train on data-parallel, one rank a "
+                        "card (train/cli.py); 0 = every visible card")
     p.add_argument("--accum_steps", type=int, default=1,
                    help="gradient accumulation: the mean gradient of N "
                         "steps per optimizer update")
@@ -124,14 +126,7 @@ def args_to_config(args: argparse.Namespace) -> Dict[str, Any]:
               "chunk_conv", "drift_weight", "plan_workers",
               "blocked_batch", "arch"):
         config[k] = getattr(args, k)
-    m = args.m
-    config["unet_structure"] = [m, 2 * m, 3 * m, 4 * m, 5 * m, 6 * m]
-    if args.arch == "minkunet34c":
-        # one entry a level: the stem's width, then each encoder stage's
-        from occuseg_tpu_torch.models.minkunet import MINKUNET34C
-        planes = MINKUNET34C["planes"]
-        config["unet_structure"] = [MINKUNET34C["init_dim"]] + list(
-            planes[:len(planes) // 2])
+    config["unet_structure"] = ARCHS[args.arch].widths(args.m)
     # 20 ScanNet classes / 14 Stanford3D (reference
     # `evaluate_instance.py:1332-1337`)
     config["class_num"] = 14 if args.dataset == "stanford3d" else 20

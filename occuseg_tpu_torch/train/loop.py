@@ -75,8 +75,7 @@ from occuseg_tpu_torch.losses.semantic import (
     SCANNET_CE_WEIGHTS,
     STANFORD_CE_WEIGHTS,
 )
-from occuseg_tpu_torch.models import InstanceDenseUNet, LearningBWDenseUNet
-from occuseg_tpu_torch.models.minkunet import MINKUNET34C, MinkUNet34C
+from occuseg_tpu_torch.models import ARCHS
 from occuseg_tpu_torch.parallel import data_parallel
 from occuseg_tpu_torch.train import checkpoint as ckpt
 from occuseg_tpu_torch.train.config import plan_caps
@@ -106,44 +105,22 @@ def _device(device) -> torch.device:
 
 
 def build_model(config: Dict, generator: Optional[torch.Generator] = None):
-    """The config's model with f32 parameters and activations (the JAX
-    package's default), initialised from `generator`: the
-    `input_feature_number` input channels of the `use_feature` string, and
-    normal-guided convolutions under `use_normal`; with `--arch
-    minkunet34c`, MinkUNet34C (`models/minkunet.py`)."""
-    if config.get("arch", "occuseg") == "minkunet34c":
-        if config.get("use_normal"):
-            raise ValueError("--use_normal: MinkUNet34C has no "
-                             "normal-guided convolutions")
-        return MinkUNet34C(int(config.get("input_feature_number", 3)),
-                           config.get("class_num", 20), generator=generator)
-    planes = tuple(int(x) for x in config["unet_structure"])
-    cls = (LearningBWDenseUNet if config.get("use_dense_model")
-           else InstanceDenseUNet)
-    return cls(planes, num_classes=config.get("class_num", 20),
-               block_reps=config.get("block_reps", 1),
-               residual_blocks=config.get("residual_blocks", True),
-               in_features=int(config.get("input_feature_number", 3)),
-               normal_guided=bool(config.get("use_normal", False)),
-               generator=generator)
+    """The model of the config's architecture (`models.ARCHS`, --arch),
+    with f32 parameters and activations (the JAX package's default),
+    initialised from `generator`."""
+    return ARCHS[config.get("arch", "occuseg")].build(config, generator)
 
 
 def build_spec(config: Dict) -> PlanSpec:
     """The plan spec; under --use_normal, orientation classes at levels
     0..rotation_guide_level (the reference's normal_guide_scale =
-    (full_scale >> rotation_guide_level) + 1); for MinkUNet34C, its 5^3
-    stem stencil at level 0 and each map's chunk budget grown alone (its
-    8-room 2 cm batches overflow the budgets at most levels, and the
-    whole-plan rule then stages up to 1.7x the rows in every map of a
-    step, a different share of the steps each run: 614k-736k voxels/s
-    over three seeds on one H100 against 744k-765k over six)."""
+    (full_scale >> rotation_guide_level) + 1); and the fields the
+    architecture needs (`models.ARCHS`)."""
     guide = (int(config.get("rotation_guide_level", 0)) + 1
              if config.get("use_normal") else None)
-    mink = config.get("arch", "occuseg") == "minkunet34c"
     return PlanSpec(caps=tuple(plan_caps(config)),
                     kernel=config.get("kernel_size", 3), guide_levels=guide,
-                    stem_kernel=MINKUNET34C["stem_kernel"] if mink else None,
-                    chunk_escalation="map" if mink else "plan")
+                    **ARCHS[config.get("arch", "occuseg")].plan())
 
 
 def _synthetic_dataset(config: Dict):
@@ -222,8 +199,8 @@ def plan_prefetcher(batches: Iterable[Dict], spec: PlanSpec,
                     bucket_specs_list=None, ns: int = 1, pin: bool = False
                     ) -> Iterator[Tuple[Dict, object, int]]:
     """Yield (laid-out batch, host plan, bucket index), each prepared ahead
-    in one worker thread: a `PlanPool` of one worker (`PlanPool._build`
-    says what the options do)."""
+    in one worker thread: a `PlanPool` of one worker (`PlanPool` says
+    what the options do)."""
     with PlanPool(spec, 1, bucket_specs_list, ns=ns, pin=pin) as pool:
         yield from pool.imap(batches)
 
@@ -341,11 +318,7 @@ def train(config: Dict, max_steps: Optional[int] = None, device="cuda",
         from occuseg_tpu_torch.train.bucketing import bucket_specs
         buckets = bucket_specs(config["voxel_cap"],
                                len(config["unet_structure"]),
-                               int(config["num_buckets"]),
-                               kernel=config.get("kernel_size", 3),
-                               guide_levels=spec.guide_levels,
-                               stem_kernel=spec.stem_kernel,
-                               chunk_escalation=spec.chunk_escalation)
+                               int(config["num_buckets"]), spec)
 
     ckpt_dir = os.path.join(config["checkpoints_dir"],
                             config.get("taskname", "default"))

@@ -51,7 +51,7 @@ rank takes the same update.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,11 +59,12 @@ import torch.distributed as dist
 
 from occuseg_tpu_torch.core.point_layout import apply_point_layout
 from occuseg_tpu_torch.core.topology import PlanSpec, Topology, build_plan, pin
-from occuseg_tpu_torch.infer import Predictor, plan_scene
+from occuseg_tpu_torch.infer import Predictor, augment_plan
 from occuseg_tpu_torch.losses.instance import LossConfig, occuseg_total_loss
 from occuseg_tpu_torch.losses.semantic import semantic_step_loss
 from occuseg_tpu_torch.models.occuseg import OccuSegOutputs
 from occuseg_tpu_torch.parallel import data_parallel
+from occuseg_tpu_torch.train.bucketing import plan_for_batch
 from occuseg_tpu_torch.utils.profiling import span
 
 # the batch arrays the forward and the loss read
@@ -112,19 +113,25 @@ def make_optimizer(params, cfg: TrainConfig = TrainConfig()):
     return opt, sched
 
 
-def prepare_batch(batch: Dict[str, np.ndarray], spec: PlanSpec,
-                  ns: int = 1, chunks: bool = True
-                  ) -> Tuple[Dict[str, np.ndarray], Topology]:
+def prepare_batch(batch: Dict[str, np.ndarray],
+                  spec: Union[PlanSpec, Sequence[PlanSpec]], ns: int = 1,
+                  chunks: bool = True) -> Tuple:
     """Host preparation of a training batch of `ns` scenes (`make_batch`
     schema): (the batch with every per-point array in the plan's point
     layout, pad slots of point_scene set to ns; the host plan, blocked for
     ns > 1, with orientation classes from batch["normals"] when the spec
-    has `guide_levels`, and chunk rulebooks with `chunks`)."""
-    normals = batch["normals"] if spec.guide_levels is not None else None
-    plan = plan_scene(batch["coords"], spec, ns, normals, chunks)
+    has `guide_levels`, and chunk rulebooks with `chunks`). `spec` may
+    also be a list of cap buckets, smallest first
+    (`train.bucketing.bucket_specs`): the plan is then at the smallest
+    that fits (`bucketing.plan_for_batch`), and its index in the list
+    comes third."""
+    specs = [spec] if isinstance(spec, PlanSpec) else spec
+    normals = batch["normals"] if specs[0].guide_levels is not None else None
+    bi, plan = plan_for_batch(specs, batch["coords"], normals, ns)
+    plan = augment_plan(plan, specs[bi], chunks)
     with span("plan.layout"):
         laid = apply_point_layout(batch, plan, num_scenes=ns)
-    return laid, plan
+    return (laid, plan) if specs is not spec else (laid, plan, bi)
 
 
 def pinned(batch: Dict[str, np.ndarray], plan: Topology
@@ -134,6 +141,43 @@ def pinned(batch: Dict[str, np.ndarray], plan: Topology
     when training on a card)."""
     return ({k: pin(v) if k in _BATCH_KEYS else v for k, v in batch.items()},
             plan.pinned())
+
+
+def batch_preparation(spec: PlanSpec, buckets: Optional[List[PlanSpec]] = None,
+                      ns: int = 1, pin: bool = False, chunks: bool = True,
+                      spatial: Optional[Dict] = None
+                      ) -> Callable[[Dict], Tuple[Dict, object, int]]:
+    """The loader's preparation of each batch (`native.pool.PlanPool`),
+    chosen once: a function batch -> (laid-out batch, host plan, bucket
+    index), `prepare_batch` at `spec` or at the cap `buckets` (then
+    `spec` is not read), what the step uploads pinned with `pin`
+    (`pinned`). With `spatial` (the keywords of
+    `parallel.spatial_model.prepare_shard_args` but the plan's): (the
+    batch as it is, this rank's ShardArgs of the plan of the whole batch,
+    bucket index); that plan has no orientation classes, blocked layout
+    or point layout, as the JAX loop's."""
+    specs = buckets or [spec]
+    if spatial is not None:
+        from occuseg_tpu_torch.parallel.spatial_model import (
+            prepare_shard_args,
+        )
+
+        def prepare_sharded(batch):
+            bi, plan = plan_for_batch(specs, batch["coords"])
+            sa = prepare_shard_args(plan, chunks=chunks, **spatial)
+            if not pin:
+                return batch, sa, bi
+            with span("plan.pin"):
+                return batch, sa.pinned(), bi
+        return prepare_sharded
+
+    def prepare(batch):
+        laid, plan, bi = prepare_batch(batch, specs, ns, chunks)
+        if not pin:
+            return laid, plan, bi
+        with span("plan.pin"):
+            return (*pinned(laid, plan), bi)
+    return prepare
 
 
 class Trainer:

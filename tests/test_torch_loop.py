@@ -1,13 +1,16 @@
 """The port's training CLI pieces against the JAX package on the CPU.
 
 Each against its JAX counterpart, exact unless stated: the cap buckets and
-their choices; checkpoint retention; the CLI's flags and defaults;
+their choices, each bucket the base spec at its caps; checkpoint
+retention; the CLI's flags and defaults; each architecture's widths, plan
+fields and model (`models.ARCHS`, the occuseg spec equal to JAX's);
 `plan_muladd_count`, `confusion_matrix` and `iou_from_confusion`;
 `drift_loss` and its gradient (f32, rtol 1e-5); `plan_prefetcher`'s
 batches and blocked plans for the same rng. Then the port alone:
 `accum_steps=2` makes one update equal to one step on the mean gradient
 (f32, 1e-6); a checkpoint round trip; `PlanPool` yields what the
-sequential preparation gives, in order; `PlanPool(threads=)` sizes its
+sequential preparation gives, in order, at one spec and over cap
+buckets; `PlanPool(threads=)` sizes its
 workers' OpenMP teams, and ranks sharing a host share its cores
 (`data_parallel.share_cores`, which `train` hands its pool);
 `train(config, max_steps=2)` at
@@ -18,6 +21,7 @@ chunked run; and no module of the port imports jax or the JAX package.
 
 import ast
 import copy
+import dataclasses
 import os
 import pathlib
 import sys
@@ -42,7 +46,8 @@ from occuseg_tpu.utils import profiling as jax_profiling
 import occuseg_tpu_torch
 from occuseg_tpu_torch.core.topology import PlanSpec
 from occuseg_tpu_torch.losses.instance import drift_loss
-from occuseg_tpu_torch.models import LearningBWDenseUNet
+from occuseg_tpu_torch.models import ARCHS, LearningBWDenseUNet, MinkUNet
+from occuseg_tpu_torch.models import minkunet
 from occuseg_tpu_torch.native.blocked import build_plan_host_blocked
 from occuseg_tpu_torch.native.pool import PlanPool
 from occuseg_tpu_torch.train import bucketing, checkpoint, config, loop, state
@@ -109,6 +114,59 @@ def test_bucket_choices_match_jax():
         for lj, lt in zip(jp.levels, tp.levels):
             assert np.array_equal(np.asarray(lj.nbr), lt.nbr)
             assert np.array_equal(np.asarray(lj.num_active), lt.num_active)
+
+
+@pytest.mark.parametrize("arch", ["occuseg", "minkunet34c"])
+def test_bucket_specs_carry_every_field_of_the_base_spec(arch):
+    """`bucket_specs(..., spec)`: each bucket is the base spec at its own
+    caps (JAX's caps), every other field kept: the architecture's plan
+    fields, the stencil, the guide levels and a non-default dilation."""
+    cfg = config.args_to_config(config.get_parser().parse_args(
+        ["--arch", arch, "--voxel_cap", "16384"]))
+    base = dataclasses.replace(loop.build_spec(cfg), kernel=5, dilation=2,
+                               guide_levels=2)
+    tb = bucketing.bucket_specs(16384, len(base.caps), 3, base)
+    jb = jax_bucketing.bucket_specs(16384, len(base.caps), 3)
+    assert [s.caps for s in tb] == [s.caps for s in jb]
+    for s in tb:
+        assert dataclasses.replace(s, caps=base.caps) == base
+    assert (base.stem_kernel, base.chunk_escalation) == (
+        (5, "map") if arch == "minkunet34c" else (None, "plan"))
+
+
+# each architecture's flags, model class, widths and plan fields
+ARCH_CASES = {
+    "occuseg": (["--m", "8", "--use_dense_model"], LearningBWDenseUNet,
+                [8, 16, 24, 32, 40, 48],
+                dict(stem_kernel=None, chunk_escalation="plan")),
+    "minkunet34c": ([], MinkUNet, [32, 32, 64, 128, 256],
+                    dict(stem_kernel=5, chunk_escalation="map")),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_architecture_table_entry(arch, monkeypatch):
+    """`models.ARCHS[arch]` through `args_to_config`, `build_spec` and
+    `build_model`: the widths, the plan's fields and the model class each
+    architecture had; the entries read `MINKUNET34C` when called (a
+    narrowed preset, as the benchmark's tests narrow it, gives its
+    widths and a small model)."""
+    flags, cls, widths, fields = ARCH_CASES[arch]
+
+    def cfg():
+        return config.args_to_config(config.get_parser().parse_args(
+            ["--arch", arch, *flags]))
+    assert cfg()["unet_structure"] == widths
+    spec = loop.build_spec(cfg())
+    assert spec.caps == tuple(config.plan_caps(cfg()))
+    assert {k: getattr(spec, k) for k in fields} == fields
+    monkeypatch.setitem(minkunet.MINKUNET34C, "init_dim", 8)
+    monkeypatch.setitem(minkunet.MINKUNET34C, "layers", (1,) * 8)
+    monkeypatch.setitem(minkunet.MINKUNET34C, "planes", (8, 16) * 4)
+    if arch == "minkunet34c":
+        widths = [8, 8, 16, 8, 16]
+    assert cfg()["unet_structure"] == widths
+    assert type(loop.build_model(cfg())) is cls
 
 
 def test_gc_keeps_the_same_steps(tmp_path):
@@ -190,7 +248,9 @@ def test_plan_prefetcher_matches_jax(tmp_path):
     cfg = _small_config(tmp_path)
     spec_j = jax_loop.build_spec(cfg)
     spec_t = loop.build_spec(cfg)
-    assert spec_t.caps == spec_j.caps
+    assert dataclasses.replace(spec_t, stem_kernel=None) == PlanSpec(
+        **dataclasses.asdict(spec_j))
+    assert spec_t.stem_kernel is None
     heal()
     n = 2
 
@@ -220,19 +280,37 @@ def test_plan_prefetcher_matches_jax(tmp_path):
                 assert np.array_equal(bt[k], bj[k]), k
 
 
-def test_plan_pool_yields_in_order(tmp_path):
+@pytest.mark.parametrize("num_buckets", [1, 3])
+def test_plan_pool_yields_in_order(tmp_path, num_buckets):
+    """`PlanPool` yields what the sequential preparation gives, batch for
+    batch, at one spec and over a list of 3 cap buckets (each bucket
+    picked once or more)."""
     cfg = _small_config(tmp_path)
     spec = loop.build_spec(cfg)
-    bs = [make_batch(SCENE, 2, cfg["point_cap"], 16, seed=s)
-          for s in range(4)]
-    with PlanPool(spec, 3, ns=2) as pool:
+    buckets = None if num_buckets == 1 else bucketing.bucket_specs(
+        cfg["voxel_cap"], len(spec.caps), num_buckets, spec)
+    bs = [make_batch(SceneConfig(num_points=pts, extent=96, num_objects=6),
+                     2, cfg["point_cap"], 16, seed=s)
+          for s, pts in enumerate((300, 1200, 600, 1800))]
+    with PlanPool(spec, 3, bucket_specs_list=buckets, ns=2) as pool:
         got = list(pool.imap(iter(bs)))
     assert len(got) == 4
+    picked = set()
     for b, (laid, plan, bi) in zip(bs, got):
-        want_b, want_p = state.prepare_batch(b, spec, 2)
-        assert bi == 0
+        if buckets is None:
+            (want_b, want_p), want_i = state.prepare_batch(b, spec, 2), 0
+        else:
+            want_b, want_p, want_i = state.prepare_batch(b, buckets, 2)
+        picked.add(bi)
+        assert bi == want_i
         assert np.array_equal(plan.point_perm, want_p.point_perm)
-        assert np.array_equal(laid["features"], want_b["features"])
+        assert np.array_equal(plan.chunk_tier, want_p.chunk_tier)
+        for lg, lw in zip(plan.levels, want_p.levels):
+            assert np.array_equal(lg.nbr, lw.nbr)
+            assert np.array_equal(lg.chunks.lidx, lw.chunks.lidx)
+        for k in b:
+            assert np.array_equal(laid[k], want_b[k]), k
+    assert picked == set(range(num_buckets))
 
 
 def test_plan_pool_threads_size_each_workers_openmp_team(tmp_path):
