@@ -371,6 +371,18 @@ def route_of(conv, esize: int) -> str:
     return "#3" if g == K else ("#4" if g else "#5")
 
 
+def f32_dw_operands(conv, x, ct):
+    """(gathered operand, its chunk plan, dense operand) of the f32 weight
+    gradient the step takes for a convolution with input x and output
+    cotangent ct: dWt over the transpose plan (the fused route, #3 and #4:
+    ct gathered, x dense) or dW over the forward plan (#5: x gathered, ct
+    dense). `chunk_conv_dw` over them runs the kernel's blocks of that
+    route (dWt comes out transposed)."""
+    if route_of(conv, 4) == "#5":
+        return x, conv.chunks, ct
+    return ct, conv.t_chunks, x
+
+
 def guided(conv, plan) -> bool:
     """A submanifold convolution of a normal-guided model at a level whose
     plan carries orientation classes: it runs the gather conv (#9) over
@@ -438,9 +450,12 @@ def forward_launches(plan, n_planes=N_PLANES) -> dict:
             "blocked_segment_sum": int(plan.vox_seg is not None)}
 
 
-# the f32 forward kernel's launches by tile (`chunk_conv.f32_route`), which
-# the launch predictions leave out (`read_routes`)
-ROUTE_KEYS = ("chunk_conv_f32_tc", "chunk_conv_f32_fma")
+# the f32 launches by tile of the forward kernel (`chunk_conv.f32_route`)
+# and of the weight-gradient kernel on both routes (`chunk_conv.dw_route`),
+# which the launch predictions leave out (`read_routes`)
+ROUTE_KEYS = ("chunk_conv_f32_tc", "chunk_conv_f32_fma",
+              "chunk_conv_dw_f32_tc", "chunk_conv_dw_f32_fma",
+              "chunk_conv_bwd_fused_f32_tc", "chunk_conv_bwd_fused_f32_fma")
 
 
 def read_launches() -> dict:
@@ -450,11 +465,13 @@ def read_launches() -> dict:
 
 
 def read_routes() -> dict:
-    """{tile: f32 launches of the forward kernel} since the last
-    `zero_launches`."""
+    """{kernel and tile: f32 launches} since the last `zero_launches`:
+    the forward kernel's ("f32_tc", "f32_fma") and the weight-gradient
+    kernel's on the dW route ("dw_f32_...") and on the fused route
+    ("bwd_fused_f32_...")."""
     from occuseg_tpu_torch.utils.profiling import snapshot
     got = snapshot()["launches"]
-    return {k[len("chunk_conv_f32_"):]: got[k] for k in ROUTE_KEYS}
+    return {k[len("chunk_conv_"):]: got[k] for k in ROUTE_KEYS}
 
 
 def zero_launches() -> None:
@@ -736,6 +753,8 @@ def phase_kernels(dev):
             tot.segsum_shapes.append(dict(
                 C=C, ms=ms, graph_ms=gms, plain_ms=pms, library_ms=lms,
                 library_graph_ms=glms, bound_ms=bnd, max_abs_err=err))
+    with torch.inference_mode():
+        f32_dw_tiles(dev, tot, calls)
     phase_kernels_gather(dev, tot, plan)
     tot.bench_plan = scene.plan
     phase_kernels_radius(dev, tot)
@@ -770,7 +789,92 @@ def phase_kernels(dev):
           f"{sum(r['tc_floor_ms'] for r in f32):.3f} ms at a third of the "
           f"TF32 peak; float64 error of the tensor-core tile over the FMA "
           f"tile's at most {max(r['tc_over_fma'] for r in f32):.2f}x")
+    d = tot.f32_dw
+    print(f"[kernels] per step, f32 dW (#3/#4 dWt, #5 dW) over the 33 "
+          f"convolutions: as routed {d['ms']:.3f} ms (tensor-core tile "
+          f"{d['tc_ms']:.3f} ms, FMA tile {d['fma_ms']:.3f} ms on the "
+          f"{d['tc_maps']} maps the tensor-core tile fits; FMA alone "
+          f"{d['fma_ms'] + d['fma_only_ms']:.3f} ms), real-product floor "
+          f"{d['real_ms']:.3f} ms at the f32 peak, {d['tc_floor_ms']:.3f} ms"
+          f" at a third of the TF32 peak; the tensor-core tile ran "
+          f"{d['run'] / max(d['real'], 1):.2f}x the real products, skipped "
+          f"{d['skipped'] / max(d['ran'] + d['skipped'], 1):.1%} of its k8 "
+          f"steps, staging {d['stage']:.1%} of its blocks' cycles; float64 "
+          f"error over the FMA tile's at most {d['worst']:.2f}x (max)")
     return tot
+
+
+def f32_dw_tiles(dev, tot, calls):
+    """The f32 weight gradient each of the bench plan's convolutions takes
+    (`f32_dw_operands`), on the tile the wrapper takes
+    (`chunk_conv.dw_route`) and on each tile (the tensor-core one where
+    its block fits): times, the real-product floors at the f32 peak and
+    at a third of the TF32 peak, the tensor-core tile's (offset, k8 step)
+    pairs run and skipped and staging's share of its blocks' cycles, and
+    each tile's largest error against the float64 sum, the
+    tensor-core tile held to 1.1x the FMA tile's. Into tot.f32_dw."""
+    from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
+    gen = torch.Generator().manual_seed(2)
+    smem = cc._smem_optin(dev.index)
+    d = tot.f32_dw = collections.defaultdict(float)
+    d["tc_maps"] = 0
+    for cv in calls:
+        K = cv.chunks.lidx.shape[1]
+        x = torch.randn(cv.n_in, cv.cin, generator=gen)
+        x[cv.n_act:] = 0
+        ct = torch.randn(cv.n_out, cv.cout, generator=gen)
+        ct[cv.n_out_act:] = 0
+        xg, ch, dd = f32_dw_operands(cv, x.to(dev), ct.to(dev))
+        in_idx, lidx = ch.in_idx, ch.lidx
+        U, cx, cd = in_idx.shape[1], xg.shape[1], dd.shape[1]
+        route = cc.dw_route(cx, cd, K, U, smem)
+        real = 2.0 * int((lidx >= 0).sum()) * cx * cd
+
+        def call(r=None):
+            return cc._run_dw("[kernels] f32 dW", cc.chunk_conv_dw, xg,
+                              in_idx, lidx, dd, True, route=r)
+        ref64 = cc.chunk_conv_dw_plain(xg, in_idx, lidx, dd, torch.float64)
+        scale = ref64.abs().max().item()
+        ms, err = {}, {}
+        fits = cc.dw_tc_smem_bytes() <= smem
+        for r in ("tc", "fma") if fits else ("fma",):
+            cc.dw_counts(dev, reset=True)
+            out = call(r)
+            n = cc.dw_counts(dev, reset=True)
+            check_close(f"f32 dW {cv.label} ({r})", out,
+                        ref64.float(), DW_TOL)
+            check(torch.equal(out, call(r)), f"f32 dW {cv.label} ({r}): a "
+                  f"second launch gave other bits")
+            err[r] = (out.double() - ref64).abs().max().item() / scale
+            ms[r] = cuda_ms(lambda r=r: call(r), 2)
+            if r == "tc":
+                d["ran"] += n.ran
+                d["skipped"] += n.skipped
+                d["run"] += 2.0 * n.ran * 8 * 64 * 64
+                d["real"] += real
+                d["stage_cycles"] += n.stage_cycles
+                d["block_cycles"] += n.block_cycles
+        del ref64, out
+        d["ms"] += ms[route]
+        d["real_ms"] += 1e3 * real / PEAK_F32
+        d["tc_floor_ms"] += 1e3 * 3 * real / PEAK_TF32
+        if fits:
+            d["tc_maps"] += 1
+            d["tc_ms"] += ms["tc"]
+            d["fma_ms"] += ms["fma"]
+            over = err["tc"] / max(err["fma"], 1e-30)
+            d["worst"] = max(d["worst"], over)
+            check(over <= 1.1, f"f32 dW {cv.label}: the tensor-core tile's "
+                  f"float64 error {err['tc']:.3e} is past 1.1x the FMA "
+                  f"tile's {err['fma']:.3e}")
+        else:
+            d["fma_only_ms"] += ms["fma"]
+        print(f"[kernels] f32 dW {cv.label:<22} {route_of(cv, 4)} cx={cx:<3}"
+              f" cd={cd:<3} K={K:<2} U={U:<4} route {route}: "
+              + ", ".join(f"{r} {ms[r]:.4f} ms (float64 error "
+                          f"{err[r]:.2e})" for r in ms)
+              + f"; real-product floor {1e3 * real / PEAK_F32:.4f} ms")
+    d["stage"] = d["stage_cycles"] / max(d["block_cycles"], 1)
 
 
 def f32_errors(out, ref64):
@@ -1699,6 +1803,7 @@ def phase_loop(dev, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    routes = read_routes()
     peak = torch.cuda.max_memory_allocated() / 2**30
     tm = result["timings"]
     steps = result["steps"]
@@ -1712,7 +1817,8 @@ def phase_loop(dev, tmp):
     print(f"[loop] losses (epoch mean) {result['losses']}")
     print(f"[loop] val mean IoU {result['metrics']['mean_iou']:.4f}; peak "
           f"device memory {peak:.2f} GiB")
-    print(f"[loop] launches {launches}, expected {dict(expected)}")
+    print(f"[loop] launches {launches}, expected {dict(expected)}; f32 "
+          f"launches by tile {routes}")
     check(steps == len(plans), f"{steps} steps, expected {len(plans)}")
     check(all(v == v and abs(v) != float("inf")
               for v in result["losses"].values()), "loop losses not finite")
@@ -1722,6 +1828,9 @@ def phase_loop(dev, tmp):
     for k in ("bce_radius", "bce_fwd", "bce_bwd", "chunk_conv",
               "chunk_conv_bwd_fused"):
         check(launches[k] > 0, f"{k} was not launched on the loop path")
+    check(routes["f32_tc"] > 0 and routes["bwd_fused_f32_tc"] > 0,
+          f"the tensor-core tiles were not launched on the loop path: "
+          f"{routes}")
 
     # the upload of one batch's plan (the arrays the device reads) from
     # pageable memory, against the loop's (pinned by the loader threads),
@@ -4032,18 +4141,20 @@ def builders_float64_sources(dev, which=("FullyConvolutionalNet",
 
 
 def f32_step_float64_gap(dev):
-    """ROADMAP C8's yardstick on #1: a residual UNet (64-128-192-256, one
-    block a level) on the mid scene's chunked host plan, one
-    training-mode forward and backward against a seeded cotangent
-    (`_builder_step`), on the card with #1 f32 on the tile the wrapper
-    takes (`chunk_conv.f32_route`: the tensor cores where a block fits),
-    on the card with every f32 launch on the FMA tile (the route rule
-    replaced for the run), and on the CPU; each run's gradients against
-    the float64 step on the CPU with that run's own ReLU branches imposed
-    (`choices`), as a share of the norm, and each card run's share over
-    the CPU's. The float64 step runs on the plan without rulebooks (the
-    gather path sums in float64; the chunk path's plain version in f32).
-    Returns {run: share}. A diagnosis, not run by `main`."""
+    """ROADMAP C8's yardstick on #1 and the weight-gradient kernel: a
+    residual UNet (64-128-192-256, one block a level) on the mid scene's
+    chunked host plan, one training-mode forward and backward against a
+    seeded cotangent (`_builder_step`), on the card with every f32 tile
+    the wrappers take (`chunk_conv.f32_route`, `chunk_conv.dw_route`: the
+    tensor cores where a block fits), on the card with the dW kernel on
+    its FMA tile, with #1 and the dW kernel both on their FMA tiles (the
+    route rules replaced for the run), and on the CPU; each run's
+    gradients against the float64 step on the CPU with that run's own
+    ReLU branches imposed (`choices`), as a share of the norm, and each
+    card run's share over the CPU's. The float64 step runs on the plan
+    without rulebooks (the gather path sums in float64; the chunk path's
+    plain version in f32). Returns {run: share}. A diagnosis, not run by
+    `main`."""
     from occuseg_tpu_torch.core.topology import PlanSpec
     from occuseg_tpu_torch.infer import prepare_scene
     from occuseg_tpu_torch.nn.unet import UNet
@@ -4060,17 +4171,20 @@ def f32_step_float64_gap(dev):
     x[lvl0.num_active:] = 0
     names = ["input"] + [n for n, _ in net.named_parameters()]
     runs = {"CPU f32": _builder_step(net, x, plans["cpu"], "cpu")}
-    zero_launches()
-    runs["card, #1 as routed"] = _builder_step(net, x, plans["card"], dev)
-    routed = read_routes()
-    rule = cc.f32_route
-    cc.f32_route = lambda *args, **kw: "fma"
-    try:
-        zero_launches()
-        runs["card, #1 FMA tile"] = _builder_step(net, x, plans["card"], dev)
-        fma = read_routes()
-    finally:
-        cc.f32_route = rule
+    routes = {}
+    rules = (cc.f32_route, cc.dw_route)
+    for who, fma in (("card as routed", ()),
+                     ("card, dW on the FMA tile", ("dw_route",)),
+                     ("card, #1 and dW on the FMA tiles",
+                      ("f32_route", "dw_route"))):
+        for rule in fma:
+            setattr(cc, rule, lambda *args, **kw: "fma")
+        try:
+            zero_launches()
+            runs[who] = _builder_step(net, x, plans["card"], dev)
+            routes[who] = read_routes()
+        finally:
+            cc.f32_route, cc.dw_route = rules
     out = {}
     L = len(plan.levels)
     plan64 = drop_chunks(plans["cpu"], range(L), range(L - 1))
@@ -4080,11 +4194,10 @@ def f32_step_float64_gap(dev):
         out[who] = _float64_errors("[c8]", {who: [r[2]] + r[3]},
                                    [ref[2]] + ref[3], names)[who]
     print(f"[c8] f32 step against float64 with each run's ReLU branches: "
-          f"card (#1 launches by tile {routed}) {out['card, #1 as routed']:.3e}"
-          f" = {out['card, #1 as routed'] / out['CPU f32']:.2f}x the CPU's "
-          f"{out['CPU f32']:.3e}; card on the FMA tile ({fma}) "
-          f"{out['card, #1 FMA tile']:.3e} = "
-          f"{out['card, #1 FMA tile'] / out['CPU f32']:.2f}x the CPU's")
+          f"CPU {out['CPU f32']:.3e}; " + "; ".join(
+              f"{who} (f32 launches by tile {routes[who]}) {out[who]:.3e} = "
+              f"{out[who] / out['CPU f32']:.2f}x the CPU's"
+              for who in routes))
     torch.cuda.empty_cache()
     return out
 

@@ -68,11 +68,13 @@ def load() -> ctypes.CDLL:
     lib.occ_chunk_conv_dwt.restype = _int
     lib.occ_chunk_conv_dwt.argtypes = [_vp, _int, _int, _vp, _int, _int, _vp,
                                        _int, _int, _vp, _int, _int, _vp, _vp,
-                                       _int, _vp]
+                                       _int, _int, _vp, _vp, _vp]
     lib.occ_chunk_conv_dw.restype = _int
     lib.occ_chunk_conv_dw.argtypes = [_vp, _int, _int, _vp, _int, _int, _vp,
                                       _int, _int, _vp, _int, _int, _vp, _vp,
-                                      _int, _vp]
+                                      _int, _int, _vp, _vp, _vp]
+    lib.occ_chunk_conv_dw_tc_smem.restype = ctypes.c_longlong
+    lib.occ_chunk_conv_dw_tc_smem.argtypes = []
     lib.occ_blocked_segment_sum.restype = _int
     lib.occ_blocked_segment_sum.argtypes = [_vp, _int, _vp, _int, _int, _int,
                                             _int, _int, _vp, _vp]

@@ -29,7 +29,9 @@ static shapes (`col_tile`, `conv_splits`, `dwt_runs`). In f32 the
 forward kernel runs one of two tiles, chosen from shapes (`f32_route`):
 the product split into three TF32 products on the tensor cores
 (`tf32_split`, the weight laid out by `split_weight_tf32_plain`'s rule)
-or exact FMA products.
+or exact FMA products; the weight-gradient kernel likewise runs its
+3xTF32 tensor-core tile (rows in a Gray-code order of their neighbour
+masks, `dw_row_order`) or its FMA tile, chosen from shapes (`dw_route`).
 `fused_grouping` picks the route from static shapes with the JAX
 package's rule. `chunk_gather_conv` (submanifold: the plan is its own
 transpose under offset reversal) and `chunk_gather_conv_t` (a transition
@@ -325,11 +327,13 @@ def chunk_conv_bwd_fused_plain(ct: torch.Tensor, t_in_idx: torch.Tensor,
 
 
 def chunk_conv_dw_plain(feats: torch.Tensor, in_idx: torch.Tensor,
-                        lidx: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
-    """Plain version of `chunk_conv_dw`: dW [K, Cin, Cout] f32."""
+                        lidx: torch.Tensor, ct: torch.Tensor,
+                        acc: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of `chunk_conv_dw`: dW [K, Cin, Cout] in `acc` (f32;
+    float64 gives the f32 tiles' accuracy yardstick)."""
     C, K, M = lidx.shape
-    g = _gather_chunks(feats, in_idx, lidx).float()           # [C, K, M, Cin]
-    return torch.einsum("ckmi,cmo->kio", g, ct.reshape(C, M, -1).float())
+    g = _gather_chunks(feats, in_idx, lidx).to(acc)           # [C, K, M, Cin]
+    return torch.einsum("ckmi,cmo->kio", g, ct.reshape(C, M, -1).to(acc))
 
 
 # The f32 tiles of the forward kernel (csrc/chunk_conv.cu): `FmaTile`'s 8
@@ -490,6 +494,91 @@ def f32_route(cin: int, cout: int, M: int, K: int, U: int,
     if cin < 32 or (K == 8 and U < 3 * M and cout <= 64):
         return "fma"
     return "tc" if tc_col_tile(cout, K, U, smem) else "fma"
+
+
+# The weight-gradient kernel's tensor-core tile: a block takes DW_OFFSETS
+# offsets; a k8 step is DW_STEP_ROWS positions of its chunk's row order.
+DW_OFFSETS, DW_STEP_ROWS = 4, 8
+
+
+def dw_order_record_bytes(M: int) -> int:
+    """Bytes of the tensor-core dW tile's record of one chunk and group of
+    DW_OFFSETS offsets (`dw_kernel_row_order` in csrc/chunk_conv_bwd.cu):
+    the group's references as positions in its list of rows (DW_OFFSETS
+    x M int32, in the chunk's row order), that list of rows (up to
+    DW_OFFSETS x M int32), the row order (M bytes) and the list's length
+    (16 bytes)."""
+    return 33 * M + 16
+
+
+def dw_tc_smem_bytes() -> int:
+    """Shared memory of a block of the weight-gradient kernel's
+    tensor-core tile (`DwLayout<float, 64, true>` in
+    csrc/chunk_conv_bwd.cu), whatever U is: the D tile's hi and lo halves
+    (128 rows x 64 columns of f32 each), two buffers of a chunk's record
+    (`dw_order_record_bytes` at M = 128), the DW_OFFSETS x 128 rows a
+    group of offsets can reference and a zero row, each 64 + 8 f32, and 1
+    KiB to align the base."""
+    off = 2 * 128 * 64 * 4
+    off += 2 * _align128(dw_order_record_bytes(128))
+    off += _align128((DW_OFFSETS * 128 + 1) * 72 * 4)
+    return off + 1024
+
+
+def dw_route(cx: int, cd: int, K: int, U: int,
+             smem: int = H100_SMEM) -> str:
+    """Which f32 tile the weight-gradient kernel runs for a gathered
+    operand of cx columns, a dense one of cd, K offsets and U staged rows
+    (the fused route's dWt: cx = Ct, cd = Cin over the transpose plan; the
+    dW route: cx = Cin, cd = Cout over the forward plan): "tc" (the 3xTF32
+    tensor-core tile) where its block fits in `smem` bytes of shared
+    memory (`dw_tc_smem_bytes`, the same at every shape: it stages only
+    the rows a group of offsets references), else "fma" (the FMA tile).
+    On the H100 the tensor-core tile fits every shape and measured faster
+    at every shape of the bench scene, the input convolution's 16
+    gathered columns included (0.52 against 0.94 ms at level 0, `PERF.md`
+    §6), so the FMA tile runs on a device with less shared memory, or
+    when a test or timing tool asks for it."""
+    return "tc" if dw_tc_smem_bytes() <= smem else "fma"
+
+
+def _gray_rank(mask: torch.Tensor) -> torch.Tensor:
+    """The position of each 4-bit mask in the reflected Gray code
+    (`gray_rank` in csrc/chunk_conv_bwd.cu)."""
+    return mask ^ (mask >> 1) ^ (mask >> 2) ^ (mask >> 3)
+
+
+def dw_row_order(lidx: torch.Tensor) -> torch.Tensor:
+    """Plain version of the tensor-core dW tile's row order: [C, G, M]
+    int64, G = ceil(K / DW_OFFSETS) groups of offsets (one a block); each
+    chunk's rows sorted by the Gray-code rank of their mask over the
+    group's offsets (bit j: a reference at offset 4g + j), ties by row.
+    Position p of (c, g) holds row order[c, g, p]."""
+    C, K, M = lidx.shape
+    G = -(-K // DW_OFFSETS)
+    pad = lidx.new_full((C, G * DW_OFFSETS - K, M), -1)
+    live = (torch.cat([lidx, pad], 1) >= 0).long().reshape(
+        C, G, DW_OFFSETS, M)
+    bits = torch.ones((), dtype=torch.long) << torch.arange(DW_OFFSETS)
+    mask = (live * bits[:, None]).sum(2)                       # [C, G, M]
+    return torch.sort(_gray_rank(mask), dim=2, stable=True).indices
+
+
+def dw_k_steps(lidx: torch.Tensor, tiles: int = 1) -> Tuple[int, int]:
+    """(ran, skipped): the (offset, k8 step) pairs the weight-gradient
+    kernel's tensor-core tile runs and skips over lidx [C, K, M], each
+    chunk's M / DW_STEP_ROWS steps over its rows in `dw_row_order`; a step
+    runs where one of its rows has a reference at the offset. `tiles`
+    (D tile, X tile) pairs repeat the same steps."""
+    C, K, M = lidx.shape
+    G = -(-K // DW_OFFSETS)
+    order = dw_row_order(lidx)                                 # [C, G, M]
+    pad = lidx.new_full((C, G * DW_OFFSETS - K, M), -1)
+    rows = (torch.cat([lidx, pad], 1) >= 0).reshape(C, G, DW_OFFSETS, M)
+    rows = torch.gather(rows, 3, order[:, :, None].expand_as(rows))
+    ran = int(rows.reshape(C, G, DW_OFFSETS, M // DW_STEP_ROWS,
+                           DW_STEP_ROWS).any(4).sum())
+    return tiles * ran, tiles * (C * K * (M // DW_STEP_ROWS) - ran)
 
 
 # ---------------------------------------------------------------------------
@@ -796,24 +885,63 @@ def _launch_bwd_fused(ct, t_in_idx, t_lidx, w_t, feats):
                            t_lidx=t_lidx, w_t=w_t, feats=feats)
     d_feats = _run_chunk_conv("chunk_conv_bwd_fused", ct, t_in_idx, t_lidx,
                               w_t)
-    runs = dwt_runs(C, K, cin, Ct, _sm_count(feats.device.index or 0))
-    dwt = torch.empty((K, cin, Ct), dtype=torch.float32, device=feats.device)
-    partial = (torch.empty((runs, K, cin, Ct), dtype=torch.float32,
-                           device=feats.device) if runs > 1 else None)
-    with torch.cuda.device(feats.device):
-        rc = kernels.load().occ_chunk_conv_dwt(
-            ct.data_ptr(), n_ct, Ct, t_in_idx.data_ptr(), C, U,
-            t_lidx.data_ptr(), K, M, feats.data_ptr(), cin, runs,
-            None if partial is None else partial.data_ptr(), dwt.data_ptr(),
-            int(dt == torch.bfloat16), kernels.stream_ptr(feats))
-    if rc == -2:
-        raise ValueError(f"chunk_conv_bwd_fused: no Ct tile of U={U}, "
-                         f"Ct={Ct} ({dt}) fits in shared memory")
-    kernels.check(rc, "chunk_conv_bwd_fused dWt kernel launch")
+    dwt = _run_dw("chunk_conv_bwd_fused", chunk_conv_bwd_fused, ct, t_in_idx,
+                  t_lidx, feats, rows_gathered=False)
     chunk_conv_bwd_fused.launches += 1
     if 0 < fused_grouping(K, M, Ct, cin, U, feats.element_size()) < K:
         chunk_conv_bwd_fused.launches_kgrouped += 1
     return d_feats, dwt
+
+
+def _run_dw(what, counted, x, in_idx, lidx, d, rows_gathered: bool,
+            route=None) -> torch.Tensor:
+    """Launch the weight-gradient kernel over checked inputs: P[k] =
+    sum_c GX_k^T @ D_c with x [N_x, Cx] gathered through the plan and d
+    [C*M, Cd] dense, written [K, Cx, Cd] (`rows_gathered`, the dW route)
+    or [K, Cd, Cx] (the fused route's dWt), summed per run of chunks
+    (`dwt_runs`) and then over the runs in order. f32 takes the tile
+    `dw_route` picks from the shapes and counts the launch by tile on
+    `counted` (`launches_f32_tc` / `_fma`); `route` ("tc" or "fma") is
+    for tests and timing tools."""
+    dt = x.dtype
+    n_x, cx = x.shape
+    C, U = in_idx.shape
+    _, K, M = lidx.shape
+    cd = d.shape[1]
+    dev = x.device
+    tc = False
+    if dt == torch.float32:
+        route = route or dw_route(cx, cd, K, U, _smem_optin(dev.index or 0))
+        tc = route == "tc"
+        if tc:
+            counted.launches_f32_tc += 1
+        else:
+            counted.launches_f32_fma += 1
+    # the rule is symmetric in the two widths
+    runs = dwt_runs(C, K, cd, cx, _sm_count(dev.index or 0))
+    shape = (K, cx, cd) if rows_gathered else (K, cd, cx)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    partial = (torch.empty((runs, *shape), dtype=torch.float32, device=dev)
+               if runs > 1 else None)
+    counts = _dw_counts_buffer(dev) if tc else None
+    order = (torch.empty(C * -(-K // DW_OFFSETS) * dw_order_record_bytes(M),
+                         dtype=torch.uint8, device=dev) if tc else None)
+    entry = (kernels.load().occ_chunk_conv_dw if rows_gathered
+             else kernels.load().occ_chunk_conv_dwt)
+    with torch.cuda.device(dev):
+        rc = entry(x.data_ptr(), n_x, cx, in_idx.data_ptr(), C, U,
+                   lidx.data_ptr(), K, M, d.data_ptr(), cd, runs,
+                   None if partial is None else partial.data_ptr(),
+                   out.data_ptr(), int(dt == torch.bfloat16), int(tc),
+                   None if order is None else order.data_ptr(),
+                   None if counts is None else counts.data_ptr(),
+                   kernels.stream_ptr(x))
+    if rc == -2:
+        raise ValueError(f"{what}: no {'tensor-core block' if tc else 'tile'}"
+                         f" of U={U}, {cx} gathered columns ({dt}) fits in "
+                         f"shared memory")
+    kernels.check(rc, f"{what} weight-gradient kernel launch")
+    return out
 
 
 def chunk_conv_dw(feats: torch.Tensor, in_idx: torch.Tensor,
@@ -834,6 +962,12 @@ def chunk_conv_dw(feats: torch.Tensor, in_idx: torch.Tensor,
 
 
 chunk_conv_dw.launches = 0  # kernel launches
+# f32 launches of the weight-gradient kernel by tile (`dw_route`): the dW
+# route's here, the fused route's dWt on `chunk_conv_bwd_fused`
+chunk_conv_dw.launches_f32_tc = 0
+chunk_conv_dw.launches_f32_fma = 0
+chunk_conv_bwd_fused.launches_f32_tc = 0
+chunk_conv_bwd_fused.launches_f32_fma = 0
 
 
 def _launch_dw(feats, in_idx, lidx, ct) -> torch.Tensor:
@@ -851,22 +985,67 @@ def _launch_dw(feats, in_idx, lidx, ct) -> torch.Tensor:
         raise _shape_error("chunk_conv_dw", feats=feats, in_idx=in_idx,
                            lidx=lidx, ct=ct)
     _check_launch("chunk_conv_dw", M, (cin, cout), (feats, in_idx, lidx, ct))
-    runs = dwt_runs(C, K, cout, cin, _sm_count(feats.device.index or 0))
-    dw = torch.empty((K, cin, cout), dtype=torch.float32, device=feats.device)
-    partial = (torch.empty((runs, K, cin, cout), dtype=torch.float32,
-                           device=feats.device) if runs > 1 else None)
-    with torch.cuda.device(feats.device):
-        rc = kernels.load().occ_chunk_conv_dw(
-            feats.data_ptr(), N, cin, in_idx.data_ptr(), C, U,
-            lidx.data_ptr(), K, M, ct.data_ptr(), cout, runs,
-            None if partial is None else partial.data_ptr(), dw.data_ptr(),
-            int(dt == torch.bfloat16), kernels.stream_ptr(feats))
-    if rc == -2:
-        raise ValueError(f"chunk_conv_dw: no Cin tile of U={U}, Cin={cin} "
-                         f"({dt}) fits in shared memory")
-    kernels.check(rc, "chunk_conv_dw kernel launch")
+    dw = _run_dw("chunk_conv_dw", chunk_conv_dw, feats, in_idx, lidx, ct,
+                 rows_gathered=True)
     chunk_conv_dw.launches += 1
     return dw
+
+
+_DW_COUNTS = {}  # device index -> the tensor-core dW tile's int64 [4]
+
+
+def _dw_counts_buffer(device: torch.device) -> Optional[torch.Tensor]:
+    """The tensor-core dW tile's counters on a device, made at its first
+    launch there (none while a CUDA graph is being captured); a normal
+    tensor even when that launch runs under `torch.inference_mode`, so
+    that `dw_counts` can reset it outside."""
+    buf = _DW_COUNTS.get(device.index)
+    if buf is None and not torch.cuda.is_current_stream_capturing():
+        with torch.inference_mode(False):
+            buf = _DW_COUNTS[device.index] = torch.zeros(
+                4, dtype=torch.int64, device=device)
+    return buf
+
+
+@dataclasses.dataclass(frozen=True)
+class DwCounts:
+    """What the weight-gradient kernel's tensor-core blocks counted: the
+    (offset, k8 step) pairs run and skipped (`dw_k_steps` per call), and
+    thread 0's clock cycles staging the chunks (the X rows in, the D rows
+    split; from each chunk's first barrier to its second) and in the
+    whole block."""
+    ran: int
+    skipped: int
+    stage_cycles: int
+    block_cycles: int
+
+    @property
+    def skipped_share(self) -> float:
+        total = self.ran + self.skipped
+        return self.skipped / total if total else 0.0
+
+    @property
+    def stage_share(self) -> float:
+        """Staging's share of the blocks' cycles."""
+        return (self.stage_cycles / self.block_cycles if self.block_cycles
+                else 0.0)
+
+
+def dw_counts(device, reset: bool = False) -> DwCounts:
+    """The tensor-core dW tile's counts on a CUDA device since its last
+    reset (all zero before its first launch), then zeroed with `reset`.
+    Reads the device's counters, so it synchronises: not for a timed
+    path."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    buf = _dw_counts_buffer(device)
+    if buf is None:
+        return DwCounts(0, 0, 0, 0)
+    got = DwCounts(*buf.tolist())
+    if reset:
+        buf.zero_()
+    return got
 
 
 # ---------------------------------------------------------------------------

@@ -28,8 +28,14 @@ forward counted (skipped warp-steps, the row order's share of the blocks'
 cycles) where the checkout's wrapper has `fwd_counts`, and, where it has
 the tensor-core tile (`f32_route`), that tile's group-steps run and
 skipped, the FMA tile's time beside it and each tile's error against the
-float64 product of the same gathered rows; the outputs are
-compared bit for bit across the checkouts (a zero's sign aside). The
+float64 product of the same gathered rows; then the f32 weight gradient
+each convolution's backward takes (`f32_dw_operands`: dWt over the
+transpose plan on the fused route, dW over the forward plan on the dW
+route), timed on the wrapper's tile and, where the checkout has the
+tensor-core dW tile (`dw_route`), on each tile, with that tile's k8 steps
+run and skipped and each tile's error against the float64 sum; the
+outputs are compared bit for bit across the checkouts (a zero's sign
+aside). The
 checkouts run in the order given and
 then in reverse (A, B, B, A for two), so that a drift of the card's clocks
 over the call falls on all of them alike. Prints the card's name and
@@ -242,7 +248,8 @@ def f32conv(out_path: str) -> None:
     from occuseg_tpu_torch.ops import kernels
     from occuseg_tpu_torch.ops.kernels import chunk_conv as cc
     torch.backends.cuda.matmul.allow_tf32 = False
-    _ptxas(kernels.library_path(), names=("chunk_conv_kernelIf",),
+    _ptxas(kernels.library_path(), names=("chunk_conv_kernelIf",
+                                          "dw_kernelIf"),
            tag="f32conv")
     dev = torch.device("cuda", 0)
     b = cs.bench_scene(0)
@@ -250,9 +257,12 @@ def f32conv(out_path: str) -> None:
                          PlanSpec(caps=cs.BENCH_CAPS)).plan.to(dev)
     counted = hasattr(cc, "fwd_counts")
     tc = hasattr(cc, "f32_route")
+    dw_tc = hasattr(cc, "dw_route")
     gen = torch.Generator().manual_seed(1)
     saved, tot = {}, {"fwd": 0.0, "t": 0.0, "fma": 0.0, "tc": 0.0,
                       "run": 0.0, "real": 0.0, "worst": 0.0}
+    dw_tot = dict.fromkeys(("dw", "fma", "tc", "tc_maps", "run", "real",
+                            "worst", "ran", "skipped"), 0.0)
     with torch.inference_mode():
         for cv in cs.conv_calls(plan, cs.N_PLANES):
             K = cv.chunks.lidx.shape[1]
@@ -284,9 +294,30 @@ def f32conv(out_path: str) -> None:
                 ms = event_ms(call, 3)
                 tot[kind] += ms
                 row.append(f"{kind} {ms:.4f} ms{txt}")
+            xg, ch, dd = cs.f32_dw_operands(cv, x, ct) \
+                if hasattr(cs, "f32_dw_operands") else \
+                _dw_operands(cs, cv, x, ct)
+            dw_call = lambda: cc.chunk_conv_dw(  # noqa: E731
+                xg, ch.in_idx, ch.lidx, dd)
+            saved[f"{cv.label} dw"] = _digest(dw_call())
+            ms = event_ms(dw_call, 3)
+            dw_tot["dw"] += ms
+            txt = _dw_row(cc, dw_tot, xg, ch, dd) if dw_tc else ""
+            row.append(f"dW {ms:.4f} ms{txt}")
             print(f"[f32conv] {cv.label:<22} " + " | ".join(row), flush=True)
     print(f"[f32conv] per step: forward {tot['fwd']:.3f} ms, transpose "
-          f"(d_feats) {tot['t']:.3f} ms, both {tot['fwd'] + tot['t']:.3f} ms")
+          f"(d_feats) {tot['t']:.3f} ms, both {tot['fwd'] + tot['t']:.3f} ms"
+          f"; f32 dW on each convolution's route {dw_tot['dw']:.3f} ms")
+    if dw_tc:
+        print(f"[f32conv] per step, f32 dW by tile on the "
+              f"{dw_tot['tc_maps']:.0f} maps the tensor-core tile fits: "
+              f"FMA {dw_tot['fma']:.3f} ms, tensor cores "
+              f"{dw_tot['tc']:.3f} ms; the tensor-core tile ran "
+              f"{dw_tot['run'] / max(dw_tot['real'], 1):.3f}x the real "
+              f"products, skipped "
+              f"{dw_tot['skipped'] / max(dw_tot['ran'] + dw_tot['skipped'], 1):.1%}"
+              f" of its k8 steps; its float64 error over the FMA tile's at "
+              f"most {dw_tot['worst']:.2f}x (max)")
     if tc:
         print(f"[f32conv] per step, each tile on the maps the tensor-core "
               f"tile fits: FMA "
@@ -334,6 +365,53 @@ def _tc_row(cc, tot, f, ch, wk) -> str:
             f"{n.group_ran}, skipped {n.group_skipped} group-steps; float64 "
             f"error mean/max tc {errs['tc'][0]:.2e}/{errs['tc'][1]:.2e}, FMA "
             f"{errs['fma'][0]:.2e}/{errs['fma'][1]:.2e})")
+
+
+def _dw_operands(cs, cv, x, ct):
+    """`chip_smoke.f32_dw_operands` for a checkout that lacks it."""
+    if cs.route_of(cv, 4) == "#5":
+        return x, cv.chunks, ct
+    return ct, cv.t_chunks, x
+
+
+def _dw_row(cc, tot, x, ch, d) -> str:
+    """The weight-gradient kernel over (x gathered through ch, d dense)
+    on each tile where the tensor-core one fits: each tile's time (into
+    tot["fma"], tot["tc"]), the tensor-core tile's k8 steps run and
+    skipped (its products into tot["run"], the real ones into
+    tot["real"]) and both tiles' largest error against the float64 sum
+    (the worst ratio into tot["worst"]); the route the wrapper takes."""
+    import torch
+    _, K, M = ch.lidx.shape
+    (_, U), cx, cd = ch.in_idx.shape, x.shape[1], d.shape[1]
+    smem = cc._smem_optin(x.device.index)
+    route = cc.dw_route(cx, cd, K, U, smem)
+    if cc.dw_tc_smem_bytes() > smem:
+        return f" (route {route})"
+    calls = {r: (lambda r=r: cc._run_dw(
+        "f32conv", cc.chunk_conv_dw, x, ch.in_idx, ch.lidx, d, True,
+        route=r)) for r in ("tc", "fma")}
+    ref = cc.chunk_conv_dw_plain(x, ch.in_idx, ch.lidx, d, torch.float64)
+    scale = ref.abs().max().item()
+    cc.dw_counts(x.device, reset=True)
+    outs = {r: c() for r, c in calls.items()}
+    n = cc.dw_counts(x.device, reset=True)
+    errs = {r: (o.double() - ref).abs().max().item() / scale
+            for r, o in outs.items()}
+    del ref, outs
+    tot["worst"] = max(tot["worst"], errs["tc"] / max(errs["fma"], 1e-30))
+    ms = {r: event_ms(c, 3) for r, c in calls.items()}
+    tot["fma"] += ms["fma"]
+    tot["tc"] += ms["tc"]
+    tot["tc_maps"] += 1
+    tot["ran"] += n.ran
+    tot["skipped"] += n.skipped
+    tot["run"] += n.ran * 8 * 64 * 64
+    tot["real"] += int((ch.lidx >= 0).sum()) * cx * cd
+    return (f" (route {route}; tc {ms['tc']:.4f} ms, FMA {ms['fma']:.4f} "
+            f"ms; tc ran {n.ran}, skipped {n.skipped} k8 steps, staging "
+            f"{n.stage_share:.1%} of its cycles; float64 error max tc "
+            f"{errs['tc']:.2e}, FMA {errs['fma']:.2e})")
 
 
 def _digest(*tensors, keep: bool = False):

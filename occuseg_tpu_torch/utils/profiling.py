@@ -177,6 +177,12 @@ def launch_counters() -> Tuple[Tuple[str, object, str], ...]:
             ("chunk_conv_dw", cc.chunk_conv_dw, "launches"),
             ("chunk_conv_f32_tc", cc.chunk_conv, "launches_f32_tc"),
             ("chunk_conv_f32_fma", cc.chunk_conv, "launches_f32_fma"),
+            ("chunk_conv_dw_f32_tc", cc.chunk_conv_dw, "launches_f32_tc"),
+            ("chunk_conv_dw_f32_fma", cc.chunk_conv_dw, "launches_f32_fma"),
+            ("chunk_conv_bwd_fused_f32_tc", cc.chunk_conv_bwd_fused,
+             "launches_f32_tc"),
+            ("chunk_conv_bwd_fused_f32_fma", cc.chunk_conv_bwd_fused,
+             "launches_f32_fma"),
             ("blocked_segment_sum", segsum.blocked_segment_sum, "launches"),
             ("bce_radius", bce_loss.radius_sq, "launches"),
             ("bce_fwd", bce_loss.bce_sums, "launches"),

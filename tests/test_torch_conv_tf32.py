@@ -4,7 +4,10 @@ two TF32 terms, the three-term product against float64, the kernel's
 order of accumulation against an f32 FMA sum, the weight layout the
 wrapper hands the kernel, the column order its A fragments take, the
 route rule by shape, and the count of (Cin tile, offset, 64-row group)
-steps the tile runs over the neighbour-mask row order.
+steps the tile runs over the neighbour-mask row order; and the weight
+gradient's tensor-core tile (`DwTcTile` in csrc/chunk_conv_bwd.cu): its
+route rule and shared memory, its Gray-code row order and count of k8
+steps, and why it sums in partials.
 
 The kernel itself runs on a card (tests/test_torch_kernels.py).
 """
@@ -235,3 +238,160 @@ def test_counts_default_to_no_group_steps():
     n = cc.FwdCounts(3, 1, 10, 100)
     assert (n.group_ran, n.group_skipped, n.group_skipped_share) == (0, 0, 0)
     assert cc.FwdCounts(0, 0, 0, 0, 6, 2).group_skipped_share == 0.25
+
+
+# The weight-gradient kernel's tensor-core tile (`DwTcTile` in
+# csrc/chunk_conv_bwd.cu): (gathered columns, dense columns, K, U) of the
+# two configurations' calls, from the input convolution to the widest U
+DW_SHAPES = [
+    (64, 16, 27, 256),     # occuseg-m64's input conv, dWt (Cin 3 padded)
+    (16, 64, 27, 256),     # the same on the dW route: 16 gathered columns
+    (64, 64, 27, 256),     # occuseg-m64 L0, either route
+    (128, 96, 27, 256),    # minkunet34c level 0, decoder
+    (64, 64, 27, 435),     # L0 at tier 1.7
+    (384, 384, 27, 653),   # occuseg-m64's coarsest level, tier 1.7
+    (128, 64, 8, 160),     # a deconv's dWt on the child's up plan
+    (64, 96, 8, 1312),     # a child plan at tier 1.7
+]
+
+
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_dw_route_by_shape(shape):
+    """The tensor-core dW tile wherever its block fits the shared memory,
+    which it does on an H100 at every shape (it stages the rows a group of
+    offsets references, at most 4 x 128); the FMA tile on a device with
+    less (99 KiB a block)."""
+    cx, cd, K, U = shape
+    assert cc.dw_route(cx, cd, K, U) == "tc"
+    assert cc.dw_route(cx, cd, K, U, smem=101_376) == "fma"
+
+
+def test_dw_tc_smem_bytes_adds_up():
+    """The tile's shared memory: the D tile's hi and lo halves (2 x 32
+    KiB), two buffers of a chunk's record (the references and the list of
+    rows, 4 x 128 int32 each, the order and the length: 33 x 128 + 16
+    bytes), 513 staged rows of 72 f32, 1 KiB to align: within the H100's
+    227 KiB a block."""
+    assert cc.dw_order_record_bytes(128) == 4240
+    assert cc.dw_order_record_bytes(32) % 16 == 0
+    assert cc.dw_tc_smem_bytes() == (65536 + 2 * 4352 + 147840 + 1024)
+    assert cc.dw_tc_smem_bytes() <= cc.H100_SMEM
+
+
+def _gray_position(mask):
+    seq = [p ^ (p >> 1) for p in range(16)]
+    return seq.index(mask)
+
+
+def _dw_steps_by_loops(lidx, tiles=1):
+    """`dw_k_steps` written out: per chunk and group of 4 offsets, the
+    rows sorted by (position of their 4-bit mask in the Gray code, row),
+    8 positions a step, a step run at an offset where one of its rows
+    has a reference there."""
+    lidx = lidx.numpy()
+    C, K, M = lidx.shape
+    ran = 0
+    for c in range(C):
+        for k0 in range(0, K, 4):
+            ks = range(k0, min(K, k0 + 4))
+            masks = [sum(1 << (k - k0) for k in ks if lidx[c, k, m] >= 0)
+                     for m in range(M)]
+            order = sorted(range(M), key=lambda m: (_gray_position(masks[m]),
+                                                    m))
+            for k in ks:
+                for s in range(M // 8):
+                    ran += any(lidx[c, k, m] >= 0
+                               for m in order[8 * s:8 * s + 8])
+    return tiles * ran, tiles * (C * K * (M // 8) - ran)
+
+
+@pytest.mark.parametrize("M,K,p", [(128, 27, 0.3), (128, 8, 0.12),
+                                   (64, 27, 0.5), (32, 6, 0.2)])
+def test_dw_k_steps_against_brute_force(M, K, p):
+    """The tensor-core dW tile's count of (offset, k8 step) pairs run and
+    skipped, against the loops, on random chunks (rows that reference
+    nothing, an all-pad chunk, K not a multiple of 4, M below 128); the
+    row order puts each offset's references into fewer steps than the
+    rows' own order."""
+    rng = np.random.default_rng(M + K)
+    lidx = np.where(rng.random((5, K, M)) < p, 0, -1).astype(np.int32)
+    lidx[1, :, M // 2:] = -1
+    lidx[4] = -1
+    lidx = torch.from_numpy(lidx)
+    assert cc.dw_k_steps(lidx, tiles=3) == _dw_steps_by_loops(lidx, 3)
+    ran, skipped = cc.dw_k_steps(lidx)
+    natural = int((lidx >= 0).reshape(5, K, M // 8, 8).any(3).sum())
+    assert skipped >= K * (M // 8) and ran < natural
+
+
+def test_dw_row_order_puts_high_offsets_in_one_range():
+    """In the Gray-code order the rows with a reference at a group's
+    offset 3 form one range, and so do those at offset 2; the order is
+    a permutation, ties by row."""
+    rng = np.random.default_rng(7)
+    lidx = torch.from_numpy(np.where(rng.random((3, 8, 128)) < 0.4, 0,
+                                     -1).astype(np.int32))
+    order = cc.dw_row_order(lidx)
+    assert order.shape == (3, 2, 128)
+    for c in range(3):
+        for g in range(2):
+            assert sorted(order[c, g].tolist()) == list(range(128))
+            for j in (2, 3):
+                has = (lidx[c, 4 * g + j, order[c, g]] >= 0).int()
+                assert int((has[1:] != has[:-1]).sum()) <= 2
+
+
+def _round_toward_zero(x64: torch.Tensor) -> torch.Tensor:
+    """float64 -> f32 rounded toward zero."""
+    x32 = x64.float()
+    over = x32.double().abs() > x64.abs()
+    return torch.where(over, torch.nextafter(x32, torch.zeros_like(x32)),
+                       x32)
+
+
+def _tc_dw_sum(a, b, rows_per_partial):
+    """sum_m a[m]^T b[m] as the tensor-core dW tile forms it, with the
+    tensor cores' f32 accumulator modelled as rounding toward zero after
+    each k8 step's 8-term product (exact): per k8 step a_lo b_hi, a_hi
+    b_lo, then a_hi b_hi into a partial that restarts every
+    `rows_per_partial` rows, each partial then added into the total with
+    an f32 add (round to nearest)."""
+    (ah, al), (bh, bl) = cc.tf32_split(a), cc.tf32_split(b)
+    ah, al, bh, bl = (t.double() for t in (ah, al, bh, bl))
+    total = torch.zeros(a.shape[1], b.shape[1])
+    part = None
+    for m in range(0, a.shape[0], 8):
+        s = slice(m, m + 8)
+        if m % rows_per_partial == 0:
+            part = torch.zeros_like(total)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            part = _round_toward_zero(part.double() + x[s].t() @ y[s])
+        if (m + 8) % rows_per_partial == 0:
+            total = (total.double() + part.double()).float()
+    return total
+
+
+def test_8192_row_accumulation_needs_partial_sums():
+    """One run of the weight-gradient kernel sums up to 64 chunks (8192
+    rows) before the ordered sum of runs. Emulated in 3xTF32 with the
+    tensor cores' accumulator modelled as truncating, on features after
+    a ReLU against gradients of mean 0.5: with a fresh partial every 32
+    rows (a batch of 4 k8 steps) the sum is within DW_TOL (1e-4 of the
+    largest output) of float64 and within 1.1x an f32 FMA sum's error,
+    the bound the card tests hold the tile to; in one accumulator over
+    the 8192 rows its error is more than ten times the FMA sum's."""
+    g = torch.Generator().manual_seed(23)
+    a = torch.randn(8192, 16, generator=g).abs()
+    b = torch.randn(8192, 16, generator=g) + 0.5
+    exact = a.double().t() @ b.double()
+    scale = exact.abs().max().item()
+
+    def err(o):
+        return (o.double() - exact).abs().max().item() / scale
+    fma = torch.zeros(16, 16)
+    for m in range(8192):
+        fma = (fma.double() + a[m, :, None].double()
+               * b[m, None].double()).float()
+    batched, whole = _tc_dw_sum(a, b, 32), _tc_dw_sum(a, b, 8192)
+    assert err(batched) <= 1e-4 and err(batched) <= 1.1 * err(fma)
+    assert err(whole) > 10 * err(fma)

@@ -13,7 +13,9 @@ all-pad chunks and offsets whose 16-row fragments miss entirely, the widest
 U (a tier-1.7 transpose plan), a coarse level of a few chunks (the
 forward's split steps), the weight-gradient kernel's runs on both routes
 (one chunk, all-pad chunks, Cin 640, U=1312 for dW; both results
-bitwise repeatable), the f32 forward's row order (a plan with its rows
+bitwise repeatable; the f32 tile each route takes, the tensor-core tile
+against the FMA tile and float64 at the bench plan's shapes and its count
+of k8 steps), the f32 forward's row order (a plan with its rows
 permuted gives the same bits; its count of skipped warp-steps against
 the plain count on the bench plan's maps and on a split coarse level),
 both backward routes through autograd, the segment
@@ -127,7 +129,8 @@ def test_chunk_conv_matches_plain(dev, plan, dt, M, kind, cin, cout):
     (128, "up", 112, 64),
 ])
 def test_bwd_fused_matches_plain(dev, plan, dt, M, kind, cin, ct):
-    """d_feats and dWt of the fused kernel over a transpose plan."""
+    """d_feats and dWt of the fused kernel over a transpose plan (f32:
+    dWt on the route rule's tile)."""
     _, tmap, n_in, n_out, _, ut = _maps(plan, kind)
     t_in_idx, t_lidx = _chunks(tmap, M, ut, dev)
     g = torch.Generator().manual_seed(cin * ct + M)
@@ -136,44 +139,69 @@ def test_bwd_fused_matches_plain(dev, plan, dt, M, kind, cin, ct):
     feats = torch.randn(n_in, cin, generator=g).to(dev, dt)
     w_t = (torch.randn(K, ct, cin, generator=g) / (ct * K) ** 0.5).to(dev, dt)
     before = cc.chunk_conv_bwd_fused.launches
+    tiles = _dw_tiles(cc.chunk_conv_bwd_fused)
     d_feats, dwt = cc.chunk_conv_bwd_fused(cot, t_in_idx, t_lidx, w_t, feats)
     ref_f, ref_w = cc.chunk_conv_bwd_fused_plain(cot, t_in_idx, t_lidx, w_t,
                                                  feats)
     torch.cuda.synchronize()
     assert cc.chunk_conv_bwd_fused.launches == before + 1
+    _check_tile(cc.chunk_conv_bwd_fused, tiles, dt, cc.dw_route(
+        ct, cin, K, t_in_idx.shape[1], _smem(dev)))
     assert d_feats.shape == (n_in, cin) and d_feats.dtype == dt
     assert dwt.shape == (K, cin, ct) and dwt.dtype == torch.float32
     _check(d_feats, ref_f, TOL[dt])
     _check(dwt, ref_w, DW_TOL)
 
 
+def _dw_tiles(fn):
+    """The f32 launches of the weight-gradient kernel by tile counted on
+    a wrapper (`chunk_conv_dw`, or `chunk_conv_bwd_fused` for its dWt)."""
+    return fn.launches_f32_tc, fn.launches_f32_fma
+
+
+def _check_tile(fn, before, dt, route):
+    """One f32 launch on `route`'s tile since `before` (none for bf16)."""
+    got = [a - b for a, b in zip(_dw_tiles(fn), before)]
+    want = [0, 0] if dt == torch.bfloat16 else \
+        [int(route == "tc"), int(route == "fma")]
+    assert got == want, (got, route)
+
+
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M,kind,cin,cout", [
     (64, "nbr", 16, 48),     # small: several chunk ranges, then the sum
     (128, "nbr", 128, 80),
+    (128, "nbr", 96, 256),
+    (128, "nbr", 256, 96),
     (64, "child", 32, 96),
     (128, "up", 64, 64),
 ])
 def test_dw_matches_plain(dev, plan, dt, M, kind, cin, cout):
+    """dW over a forward plan on the tile the route rule takes (f32: the
+    tensor-core tile, Cin 16 included)."""
     fmap, _, n_in, n_out, uf, _ = _maps(plan, kind)
     in_idx, lidx = _chunks(fmap, M, uf, dev)
     g = torch.Generator().manual_seed(cin * cout + M + 1)
     feats = torch.randn(n_in, cin, generator=g).to(dev, dt)
     cot = torch.randn(n_out, cout, generator=g).to(dev, dt)
     before = cc.chunk_conv_dw.launches
+    tiles = _dw_tiles(cc.chunk_conv_dw)
     dw = cc.chunk_conv_dw(feats, in_idx, lidx, cot)
     ref = cc.chunk_conv_dw_plain(feats, in_idx, lidx, cot)
     torch.cuda.synchronize()
     assert cc.chunk_conv_dw.launches == before + 1
+    route = cc.dw_route(cin, cout, lidx.shape[1], uf, _smem(dev))
+    assert route == "tc"
+    _check_tile(cc.chunk_conv_dw, tiles, dt, route)
     assert dw.shape == (lidx.shape[1], cin, cout)
     _check(dw, ref, DW_TOL)
 
 
 def _dw_case(plan, case):
     """(forward table, input rows, U, M, cin, cout) of a dW edge case:
-    one chunk; a plan whose last two chunks are all pad; the widest bench
-    width (dec0.conv1 at L4: 640 -> 320); the widest U tier (a child plan
-    at tier 1.7, U=1312)."""
+    one chunk; a plan whose last two chunks are all pad (each its own run:
+    all-pad runs); the widest bench width (dec0.conv1 at L4: 640 -> 320);
+    the widest U tier (a child plan at tier 1.7, U=1312)."""
     nbr = np.asarray(plan.levels[0].nbr)
     n0 = plan.levels[0].cap
     if case == "one_chunk":
@@ -197,9 +225,13 @@ def test_dw_edge_cases_match_plain(dev, plan, dt, case):
     g = torch.Generator().manual_seed(cin + cout + U)
     feats = torch.randn(n_in, cin, generator=g).to(dev, dt)
     cot = torch.randn(table.shape[0], cout, generator=g).to(dev, dt)
+    tiles = _dw_tiles(cc.chunk_conv_dw)
     dw = cc.chunk_conv_dw(feats, in_idx, lidx, cot)
     ref = cc.chunk_conv_dw_plain(feats, in_idx, lidx, cot)
     torch.cuda.synchronize()
+    route = cc.dw_route(cin, cout, lidx.shape[1], U, _smem(dev))
+    assert route == "tc"
+    _check_tile(cc.chunk_conv_dw, tiles, dt, route)
     assert dw.shape == (lidx.shape[1], cin, cout)
     _check(dw, ref, DW_TOL)
 
@@ -215,10 +247,14 @@ def test_dw_is_deterministic(dev, plan, dt):
     cot = torch.randn(n, 128, generator=g).to(dev, dt)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert cc.dwt_runs(in_idx.shape[0], 27, 128, 64, sms) > 1
+    tiles = _dw_tiles(cc.chunk_conv_dw)
     a = cc.chunk_conv_dw(x, in_idx, lidx, cot)
     b = cc.chunk_conv_dw(x, in_idx, lidx, cot)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+    if dt == torch.float32:  # the tensor-core tile, twice
+        assert [u - v for u, v in zip(_dw_tiles(cc.chunk_conv_dw),
+                                      tiles)] == [2, 0]
 
 
 def _fwd_and_fused(dev, in_idx, lidx, t_in_idx, t_lidx, n_in, n_out, cin,
@@ -290,13 +326,30 @@ def test_pad_chunks_and_empty_fragments(dev, plan, dt):
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
 def test_widest_transpose_plan(dev, plan, dt):
     """The deconvolution backward's transpose plan (child chunks) at U =
-    1312, tier 1.7's budget: the widest staging the kernels take."""
+    1312, tier 1.7's budget: the widest staging the kernels take. dWt
+    takes the tensor-core tile there (it stages only the rows a group of
+    offsets references); the FMA tile, asked for, gives dWt too."""
     tr = plan.transitions[0]
     n0, n1 = plan.levels[0].cap, plan.levels[1].cap
     up_i, up_l = _chunks(tr.up, 128, 256, dev)      # forward: L1 -> L0
     ch_i, ch_l = _chunks(tr.child, 128, 1312, dev)  # its transpose
     assert ch_i.shape[1] == 1312
-    _fwd_and_fused(dev, up_i, up_l, ch_i, ch_l, n1, n0, 64, 96, dt, 12)
+    assert cc.dw_route(96, 64, 8, 1312, _smem(dev)) == "tc"
+    tiles = _dw_tiles(cc.chunk_conv_bwd_fused)
+    _, _, dwt = _fwd_and_fused(dev, up_i, up_l, ch_i, ch_l, n1, n0, 64, 96,
+                               dt, 12)
+    _check_tile(cc.chunk_conv_bwd_fused, tiles, dt, "tc")
+    if dt == torch.float32:
+        g = torch.Generator().manual_seed(13)
+        cot = torch.randn(n0, 96, generator=g).to(dev)
+        x = torch.randn(n1, 64, generator=g).to(dev)
+        fma = cc._run_dw("test", cc.chunk_conv_bwd_fused, cot, ch_i, ch_l,
+                         x, False, route="fma")
+        tc = cc._run_dw("test", cc.chunk_conv_bwd_fused, cot, ch_i, ch_l,
+                        x, False, route="tc")
+        ref = cc.chunk_conv_dw_plain(cot, ch_i, ch_l, x).transpose(1, 2)
+        _check(fma, ref, DW_TOL)
+        _check(tc, ref, DW_TOL)
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
@@ -468,7 +521,9 @@ def _bench_pair(plan, kind):
     bench-plan map."""
     tr = plan.transitions[0]
     l0, l1 = plan.levels[0], plan.levels[1]
+    l3 = plan.levels[3]
     return {"L0": (l0.chunks, l0.chunks, l0.cap, l0.cap),
+            "L3": (l3.chunks, l3.chunks, l3.cap, l3.cap),
             "child": (tr.child_chunks, tr.up_chunks, l0.cap, l1.cap),
             "up": (tr.up_chunks, tr.child_chunks, l1.cap, l0.cap)}[kind]
 
@@ -583,6 +638,68 @@ def test_route_is_the_fma_tile_at_the_widest_plan(dev, plan):
     assert n.ran > 0 and n.group_ran == 0
 
 
+# the weight-gradient kernel's card shapes on the bench plan: (map, Cin,
+# Cout) of a convolution (occuseg-m64's L0 and both transitions at 64/128,
+# minkunet34c's level-0 128 -> 96 and 96 -> 96, a 256-wide level)
+DW_SHAPES = [("L0", 64, 64), ("child", 64, 128), ("up", 128, 64),
+             ("L0", 128, 96), ("L0", 96, 96), ("L3", 256, 256)]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kind,cin,cout", DW_SHAPES)
+def test_dw_tc_tile_against_plain_fma_and_float64(dev, bench_plan, kind,
+                                                  cin, cout, fused):
+    """f32 dW over the forward plan (the dW route) and dWt over the
+    transpose plan (the fused route) on both tiles: each within DW_TOL of
+    the plain version; the tensor-core tile's largest error against the
+    float64 sum at most 1.1x the FMA tile's, the same bits when launched
+    again, its count of (offset, k8 step) pairs run and skipped equal to
+    `dw_k_steps`' exactly; the wrapper takes the route rule's tile and
+    counts the launch there."""
+    fwd, tp, n_in, n_out = _bench_pair(bench_plan, kind)
+    ch, rows_x, cx, rows_d, cd, fn = (
+        (tp, n_out, cout, n_in, cin, cc.chunk_conv_bwd_fused) if fused else
+        (fwd, n_in, cin, n_out, cout, cc.chunk_conv_dw))
+    in_idx, lidx = ch.in_idx, ch.lidx
+    (_, U), (_, K, M) = in_idx.shape, lidx.shape
+    route = cc.dw_route(cx, cd, K, U, _smem(dev))
+    assert route == "tc"
+    g = torch.Generator().manual_seed(cx * cd + K + fused)
+    x = torch.randn(rows_x, cx, generator=g).to(dev)
+    d = torch.randn(rows_d, cd, generator=g).to(dev)
+
+    def run(r=None):
+        return cc._run_dw("test", fn, x, in_idx, lidx, d, not fused, route=r)
+    tiles = _dw_tiles(fn)
+    routed = run()
+    _check_tile(fn, tiles, torch.float32, route)
+    ref64 = cc.chunk_conv_dw_plain(x, in_idx, lidx, d, torch.float64)
+    ref = ref64.float()
+    if fused:
+        ref, ref64 = ref.transpose(1, 2), ref64.transpose(1, 2)
+    fma = run("fma")
+    _check(fma, ref, DW_TOL)
+    cc.dw_counts(dev, reset=True)
+    out = run("tc")
+    n = cc.dw_counts(dev, reset=True)
+    again = run("tc")
+    torch.cuda.synchronize()
+    assert torch.equal(routed, out) and torch.equal(out, again)
+    _check(out, ref, DW_TOL)
+    tc_err, fma_err = _f32_errors(out, ref64), _f32_errors(fma, ref64)
+    assert tc_err[1] <= 1.1 * fma_err[1], (tc_err, fma_err)
+    assert (n.ran, n.skipped) == cc.dw_k_steps(
+        lidx.cpu(), -(-cx // 64) * -(-cd // 64))
+    assert n.skipped > 0 and 0 < n.stage_cycles < n.block_cycles
+
+
+def test_dw_tc_smem_matches_the_kernel(dev):
+    """The route rule's shared memory of a tensor-core dW block is what
+    the kernel asks for, and fits the card's."""
+    assert cc.kernels.load().occ_chunk_conv_dw_tc_smem() == \
+        cc.dw_tc_smem_bytes() <= _smem(dev)
+
+
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
 def test_fused_backward_is_deterministic(dev, plan, dt):
     """dWt is summed per run of chunks and then over the runs in order:
@@ -595,10 +712,14 @@ def test_fused_backward_is_deterministic(dev, plan, dt):
     w_t = (torch.randn(27, 64, 64, generator=g) / 40).to(dev, dt)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert cc.dwt_runs(in_idx.shape[0], 27, 64, 64, sms) > 1
+    tiles = _dw_tiles(cc.chunk_conv_bwd_fused)
     a = cc.chunk_conv_bwd_fused(cot, in_idx, lidx, w_t, x)
     b = cc.chunk_conv_bwd_fused(cot, in_idx, lidx, w_t, x)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    if dt == torch.float32:  # dWt on the tensor-core tile, twice
+        assert [u - v for u, v in zip(_dw_tiles(cc.chunk_conv_bwd_fused),
+                                      tiles)] == [2, 0]
 
 
 @pytest.mark.parametrize("kind", ["nbr", "child", "up"])
